@@ -1,0 +1,17 @@
+"""Federated-algorithm strategy API of the port (see ``base.py``).
+
+Importing this package registers the ported algorithms: ``fedavg`` and
+``fedpa`` (batch and streaming DP).
+"""
+from repro_torch.algorithms.base import (  # noqa: F401  (base binds the
+    ClientResult,                          # registry before the modules
+    FedAlgorithm,                          # below populate it)
+    algorithm_names,
+    get_algorithm,
+    get_algorithm_class,
+    phase_name,
+    register_algorithm,
+    resolve_algorithm,
+)
+from repro_torch.algorithms.fedavg import FedAvg  # noqa: F401
+from repro_torch.algorithms.fedpa import FedPA  # noqa: F401

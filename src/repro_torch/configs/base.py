@@ -1,0 +1,232 @@
+"""``FedConfig`` of the port (from ``repro/configs/base.py``).
+
+Same field names, defaults and eager validation as the JAX package, so the
+two accept and reject the same keyword arguments. Knobs whose code paths
+are not ported yet raise ``NotImplementedError`` at construction, naming
+the ``ROADMAP.md`` item (queue 1) that will port them; they are never
+silently ignored. ``ModelConfig``, ``ShapeConfig`` and ``MeshConfig`` come
+with the LM stack (queue 1, item 11).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.algorithms import get_algorithm
+from repro_torch.optim import get_optimizer
+
+#: Client-state placements the JAX engine knows (``core.client_state.STORES``).
+STATE_PLACEMENTS = ("host", "device")
+
+#: Algorithms registered in the JAX package that this port does not have
+#: yet, with the ROADMAP.md queue-1 item that ports them.
+PENDING_ALGORITHMS = {"mime": 6, "fedprox": 6, "fedpa_precision": 6,
+                      "scaffold": 7, "fedep": 7, "fedlora": 9}
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
+        f"item {item})")
+
+
+@dataclass(frozen=True)
+class FedConfig:
+    """One federated round = ``clients_per_round`` clients x ``local_steps``.
+
+    Field meanings are those of ``repro.configs.base.FedConfig``.
+    """
+
+    algorithm: str = "fedpa"
+    clients_per_round: int = 16
+    local_steps: int = 8
+    burn_in_steps: int = 4
+    steps_per_sample: int = 2
+    shrinkage_rho: float = 0.1
+    server_opt: str = "sgdm"
+    server_lr: float = 0.5
+    server_momentum: float = 0.9
+    client_opt: str = "sgdm"
+    client_lr: float = 0.01
+    client_momentum: float = 0.9
+    burn_in_rounds: int = 0
+    delta_dtype: str = "float32"
+    payload_codec: str = "none"
+    lora_rank: int = 4
+    quant_bits: int = 8
+    error_feedback: bool = True
+    streaming_dp: bool = False
+    mime_beta: float = 0.9
+    fedprox_mu: float = 0.1
+    scaffold_c_scale: float = 1.0
+    fedep_damping: float = 0.5
+    qffl_q: float = 0.0
+    round_placement: str = "parallel"
+    round_chunk_size: int = 0
+    async_rounds: bool = False
+    max_staleness: int = 1
+    staleness_discount: float = 1.0
+    prefetch_rounds: int = 0
+    prefetch_backend: str = "process"
+    availability: str = "always"
+    availability_period: int = 24
+    availability_duty: float = 0.5
+    dropout_rate: float = 0.0
+    straggler_rate: float = 0.0
+    straggler_max_lateness: int = 2
+    min_local_steps: int = 0
+    client_state_placement: str = "host"
+
+    def __post_init__(self):
+        """Validate as the JAX package does (``ValueError``), then refuse
+        what is not ported (``NotImplementedError``)."""
+        if self.round_placement not in ("parallel", "sequential", "chunked"):
+            raise ValueError(
+                f"unknown round_placement {self.round_placement!r}")
+        if self.client_state_placement not in STATE_PLACEMENTS:
+            raise ValueError(
+                f"unknown client_state_placement "
+                f"{self.client_state_placement!r}; known: {STATE_PLACEMENTS}")
+        if self.round_chunk_size < 0:
+            raise ValueError("round_chunk_size must be >= 0")
+        if self.max_staleness < 0:
+            raise ValueError("max_staleness must be >= 0")
+        if not 0.0 <= self.staleness_discount <= 1.0:
+            raise ValueError("staleness_discount must be in [0, 1]")
+        if self.prefetch_rounds < 0:
+            raise ValueError("prefetch_rounds must be >= 0")
+        if self.prefetch_backend not in ("process", "thread"):
+            raise ValueError(
+                f"unknown prefetch_backend {self.prefetch_backend!r}; "
+                f"known: ('process', 'thread')")
+        self._validate_round()
+        self._validate_faults()
+        self._validate_payload()
+        if self.algorithm in PENDING_ALGORITHMS:
+            raise _not_ported(f"algorithm {self.algorithm!r}",
+                              PENDING_ALGORITHMS[self.algorithm])
+        get_algorithm(self).validate()
+        self._check_ported()
+
+    def _validate_round(self):
+        """Range-check the round shape and both optimizer stacks by name."""
+        if self.clients_per_round < 1:
+            raise ValueError(
+                f"clients_per_round must be >= 1, got "
+                f"{self.clients_per_round}")
+        if self.burn_in_rounds < 0:
+            raise ValueError(
+                f"burn_in_rounds must be >= 0, got {self.burn_in_rounds}")
+        if not 0.0 < self.shrinkage_rho <= 1.0:
+            raise ValueError(
+                f"shrinkage_rho must be in (0, 1] (Theorem 3's shrinkage "
+                f"coefficient; 0 divides by zero in the DP recursion), got "
+                f"{self.shrinkage_rho}")
+        if self.server_lr <= 0:
+            raise ValueError(f"server_lr must be > 0, got {self.server_lr}")
+        if self.client_lr <= 0:
+            raise ValueError(f"client_lr must be > 0, got {self.client_lr}")
+        if not 0.0 <= self.server_momentum <= 1.0:
+            raise ValueError(
+                f"server_momentum must be in [0, 1], got "
+                f"{self.server_momentum}")
+        if not 0.0 <= self.client_momentum <= 1.0:
+            raise ValueError(
+                f"client_momentum must be in [0, 1], got "
+                f"{self.client_momentum}")
+        if not (isinstance(self.qffl_q, (int, float))
+                and math.isfinite(self.qffl_q) and self.qffl_q >= 0.0):
+            raise ValueError(
+                f"qffl_q must be a finite float >= 0 (q-FFL's fairness "
+                f"exponent; 0 disables the loss tilt), got {self.qffl_q!r}")
+        if not isinstance(self.error_feedback, bool):
+            raise ValueError(
+                f"error_feedback must be a bool (it gates the residual "
+                f"slot in the client store), got {self.error_feedback!r}")
+        try:
+            get_optimizer(self.server_opt, self.server_lr,
+                          self.server_momentum)
+            get_optimizer(self.client_opt, self.client_lr,
+                          self.client_momentum)
+        except KeyError as e:
+            raise ValueError(str(e)) from e
+
+    def _validate_payload(self):
+        """``delta_dtype`` must name a torch floating dtype; codec knobs are
+        range-checked (only ``"none"`` runs in this port)."""
+        dt = getattr(torch, str(self.delta_dtype), None)
+        if not isinstance(dt, torch.dtype):
+            raise ValueError(
+                f"unknown delta_dtype {self.delta_dtype!r}: not a torch "
+                f"dtype name")
+        if not dt.is_floating_point:
+            raise ValueError(
+                f"delta_dtype must be a floating dtype (it carries deltas "
+                f"and posterior statistics), got {self.delta_dtype!r}")
+        if not isinstance(self.payload_codec, str) or not self.payload_codec:
+            raise ValueError(f"payload_codec must be a non-empty str, got "
+                             f"{self.payload_codec!r}")
+        if self.lora_rank < 1:
+            raise ValueError(f"lora_rank must be >= 1, got {self.lora_rank}")
+        if self.quant_bits not in (8, 16):
+            raise ValueError(
+                f"quant_bits must be 8 or 16, got {self.quant_bits}")
+
+    def _validate_faults(self):
+        """Range-check the fault-injection knobs."""
+        if self.availability not in ("always", "diurnal"):
+            raise ValueError(
+                f"unknown availability {self.availability!r}; "
+                f"known: ('always', 'diurnal')")
+        if self.availability_period <= 0:
+            raise ValueError("availability_period must be >= 1")
+        if not 0.0 < self.availability_duty <= 1.0:
+            raise ValueError("availability_duty must be in (0, 1]")
+        if not 0.0 <= self.dropout_rate <= 1.0:
+            raise ValueError("dropout_rate must be in [0, 1]")
+        if not 0.0 <= self.straggler_rate <= 1.0:
+            raise ValueError("straggler_rate must be in [0, 1]")
+        if self.straggler_rate > 0 and not self.async_rounds:
+            raise ValueError(
+                "straggler_rate > 0 requires async_rounds=True: a straggling "
+                "cohort is handed to the async engine as an extra-stale "
+                "delta; the synchronous engine has no late-application path")
+        if self.straggler_max_lateness < 1:
+            raise ValueError("straggler_max_lateness must be >= 1")
+        if self.min_local_steps < 0 or self.min_local_steps > self.local_steps:
+            raise ValueError(
+                f"min_local_steps must be in [0, local_steps="
+                f"{self.local_steps}], got {self.min_local_steps}")
+        if self.min_local_steps and self.client_opt != "sgd":
+            raise ValueError(
+                "min_local_steps > 0 freezes a client's idle steps by "
+                "masking gradients, which is exact only under plain "
+                f"client_opt='sgd' (got {self.client_opt!r}: a stateful "
+                "optimizer would keep moving the params from its buffers)")
+
+    def _check_ported(self):
+        """Refuse valid knobs whose code paths this port does not have."""
+        pending = [
+            (self.round_placement != "parallel",
+             f"round_placement={self.round_placement!r}", 4),
+            (self.async_rounds, "async_rounds=True", 8),
+            (self.prefetch_rounds > 0, "prefetch_rounds > 0", 8),
+            (self.availability != "always",
+             f"availability={self.availability!r}", 8),
+            (self.dropout_rate > 0, "dropout_rate > 0", 6),
+            (self.min_local_steps > 0, "min_local_steps > 0", 6),
+            (self.qffl_q > 0, "qffl_q > 0", 6),
+            (self.client_state_placement != "host",
+             f"client_state_placement={self.client_state_placement!r}", 7),
+        ]
+        for bad, what, item in pending:
+            if bad:
+                raise _not_ported(what, item)
+
+    @property
+    def num_samples(self) -> int:
+        """l: posterior samples per client per round (one per IASG window);
+        0 for algorithms without a sampling phase."""
+        return get_algorithm(self).num_samples

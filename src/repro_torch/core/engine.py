@@ -1,0 +1,78 @@
+"""The round engine of the port (from ``repro/core/engine.py``): the fused
+window-1 backend — one round program per round, applied in order — with
+burn-in regime switching, eval cadence and history through
+``RoundRecorder``.
+
+The reference's split backend (async windows, stragglers), client-state
+stores and prefetchers wait for ROADMAP.md queue 1, items 7 and 8.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Tuple
+
+from repro_torch.core.history import RoundRecorder
+from repro_torch.core.server import ServerState
+from repro_torch.data.prefetch import Cohort
+
+#: build_cohort(round_idx) -> Cohort
+BuildCohort = Callable[[int], Cohort]
+
+
+@dataclasses.dataclass
+class RoundEngine:
+    """Drives ``num_rounds`` synchronous rounds (an in-flight window of 1).
+
+    ``round_fn(state, batches, weights) -> (state, metrics)`` is the fused
+    round of ``make_round_program``; ``burn_round_fn`` (optional) runs the
+    first ``burn_in_rounds`` rounds (the FedAvg regime of a FedPA config).
+    ``round_bytes`` / ``burn_round_bytes`` are stamped on every record.
+    """
+
+    round_fn: Callable
+    burn_round_fn: Optional[Callable] = None
+    burn_in_rounds: int = 0
+    round_bytes: Optional[dict] = None
+    burn_round_bytes: Optional[dict] = None
+
+    def _apply(self, state: ServerState, cohort: Cohort, t: int):
+        is_burn = t < self.burn_in_rounds
+        fn = (self.burn_round_fn if is_burn and self.burn_round_fn is not None
+              else self.round_fn)
+        state, metrics = fn(state, cohort.batches, cohort.weights)
+        return state, metrics, is_burn
+
+    def round(self, state: ServerState, cohort: Cohort, round_idx: int
+              ) -> Tuple[ServerState, dict]:
+        """One round; returns ``(state, record)`` with the record already
+        converted to plain Python."""
+        recorder = RoundRecorder(round_bytes=self.round_bytes,
+                                 burn_round_bytes=self.burn_round_bytes)
+        state, metrics, is_burn = self._apply(state, cohort, round_idx)
+        recorder.record(round_idx=round_idx, metrics=metrics,
+                        is_burn=is_burn)
+        return state, recorder.history()[0]
+
+    def run(self, state: ServerState, build_cohort: BuildCohort,
+            num_rounds: int, *, eval_fn: Optional[Callable] = None,
+            eval_every: int = 1) -> Tuple[ServerState, List[dict]]:
+        """Returns ``(state, history)``: one uniform-schema record per
+        round, converted to Python once at the end. ``eval_fn(params)``
+        metrics ride the records of rounds with ``t % eval_every == 0``
+        (plus the last round)."""
+        if eval_fn is not None and eval_every < 1:
+            raise ValueError(
+                f"eval_every must be >= 1 when eval_fn is set, got "
+                f"{eval_every} (evaluate every round with eval_every=1, or "
+                f"pass eval_fn=None to disable evaluation)")
+        recorder = RoundRecorder(round_bytes=self.round_bytes,
+                                 burn_round_bytes=self.burn_round_bytes)
+        for t in range(num_rounds):
+            state, metrics, is_burn = self._apply(state, build_cohort(t), t)
+            ev = (eval_fn(state.params)
+                  if eval_fn is not None and (t % eval_every == 0
+                                              or t == num_rounds - 1)
+                  else None)
+            recorder.record(round_idx=t, metrics=metrics, is_burn=is_burn,
+                            eval_metrics=ev)
+        return state, recorder.history()

@@ -1,0 +1,142 @@
+"""Single-process federated simulation of the port (from
+``repro/core/round.py``).
+
+``FedSim`` resolves a ``FedConfig`` into round programs (the sampling
+regime and, with ``burn_in_rounds``, the FedAvg burn-in regime) and hands
+them to the window-1 ``RoundEngine``. The host samples client ids and
+stacks their numpy batches; the whole round then runs on ``device``, the
+cohort batched over a leading client axis. With every fault knob at its
+default the reference's ``CohortSource`` draws exactly ``ClientSampler``'s
+cohorts (``repro/core/round.py:79-84``), so the port samples with
+``ClientSampler`` directly.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.algorithms import get_algorithm
+from repro_torch.compression.accounting import round_bytes
+from repro_torch.configs.base import FedConfig
+from repro_torch.core import tree_math as tm
+from repro_torch.core.engine import RoundEngine
+from repro_torch.core.round_program import make_round_program
+from repro_torch.core.server import (ServerState, check_weight_total,
+                                     init_server_state)
+from repro_torch.data.prefetch import Cohort, stack_host
+from repro_torch.data.sampling import ClientSampler
+from repro_torch.optim import get_optimizer
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else ``cuda``; with no GPU and no explicit
+    device this raises — the port never falls back to the CPU silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the GPU unless the caller "
+            "passes device='cpu'")
+    return torch.device("cuda")
+
+
+@dataclasses.dataclass
+class FedSim:
+    """Generic federated simulation on one device.
+
+    ``batch_fn(client_id, round_idx, num_steps)`` -> batch tree with a
+    leading step axis (numpy leaves); ``grad_fn(params, batch) -> (loss,
+    grads)`` for ONE client, written with ``torch.func`` so the round can
+    ``vmap`` it over the cohort. ``params`` are a dict of tensors (or one
+    tensor). ``device`` defaults to ``cuda`` and raises without a GPU. The
+    placement is ``fed.round_placement``, which ``FedConfig`` holds to
+    ``"parallel"`` in this port.
+    """
+
+    fed: FedConfig
+    grad_fn: Callable
+    batch_fn: Callable
+    num_clients: int
+    client_weights: Optional[np.ndarray] = None
+    seed: int = 0
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        """Resolve the device, the sampler, the optimizers, the algorithm."""
+        self.device = resolve_device(self.device)
+        self.sampler = ClientSampler(self.num_clients,
+                                     self.fed.clients_per_round, self.seed)
+        self.server_opt = get_optimizer(self.fed.server_opt,
+                                        self.fed.server_lr,
+                                        self.fed.server_momentum)
+        self._alg = get_algorithm(self.fed)
+        self._has_burn_regime = (self._alg.has_burn_regime
+                                 and self.fed.burn_in_rounds > 0)
+        self._engine: Optional[RoundEngine] = None
+        self._round_bytes: Optional[dict] = None
+        self._burn_round_bytes: Optional[dict] = None
+
+    def init(self, params) -> ServerState:
+        """Fresh server state with ``params`` moved to the device."""
+        params = tm.tmap(lambda x: torch.as_tensor(x).to(self.device), params)
+        self._round_bytes = round_bytes(self.fed, params, use_sampling=True)
+        self._burn_round_bytes = (
+            round_bytes(self.fed, params, use_sampling=False)
+            if self._has_burn_regime else self._round_bytes)
+        return init_server_state(params, self.server_opt)
+
+    def stack_cohort(self, client_ids, round_idx: int):
+        """The cohort's batches with a leading client axis, stacked on the
+        host."""
+        return stack_host([
+            self.batch_fn(int(cid), round_idx, self.fed.local_steps)
+            for cid in client_ids
+        ])
+
+    def cohort(self, round_idx: int) -> Cohort:
+        """Sample and materialize one round's inputs."""
+        ids = self.sampler.sample(round_idx)
+        batches = self.stack_cohort(ids, round_idx)
+        weights = None
+        if self.client_weights is not None:
+            weights = np.asarray([self.client_weights[int(c)] for c in ids],
+                                 np.float32)
+            check_weight_total(float(weights.sum()), weights.shape,
+                               context=f"round {round_idx}: ")
+        return Cohort(round_idx, ids, batches, weights)
+
+    def round(self, state: ServerState, round_idx: int,
+              cohort: Optional[Cohort] = None):
+        """One synchronous round; returns ``(state, record)``."""
+        cohort = cohort if cohort is not None else self.cohort(round_idx)
+        return self.engine.round(state, cohort, round_idx)
+
+    def run(self, params, num_rounds: int,
+            eval_fn: Optional[Callable] = None, eval_every: int = 1):
+        """Drive ``num_rounds`` rounds from fresh state; returns
+        ``(final_state, history)``."""
+        state = self.init(params)
+        return self.engine.run(state, self.cohort, num_rounds,
+                               eval_fn=eval_fn, eval_every=eval_every)
+
+    @property
+    def engine(self) -> RoundEngine:
+        """Built once, after ``init`` has seen a params template for the
+        byte accounting."""
+        if self._engine is None:
+            def program(use_sampling: bool):
+                return make_round_program(
+                    self.grad_fn, self.fed, use_sampling=use_sampling,
+                    server_opt=self.server_opt)
+
+            self._engine = RoundEngine(
+                round_fn=program(use_sampling=True),
+                burn_round_fn=(program(use_sampling=False)
+                               if self._has_burn_regime else None),
+                burn_in_rounds=self.fed.burn_in_rounds,
+                round_bytes=self._round_bytes,
+                burn_round_bytes=self._burn_round_bytes)
+        return self._engine

@@ -1,0 +1,35 @@
+"""One round's host-side inputs (port of the inline parts of
+``repro/data/prefetch.py``: ``stack_host`` and ``Cohort``; the prefetchers
+wait for ROADMAP.md queue 1, item 8)."""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+
+def stack_host(trees):
+    """Stack identically-structured batch trees along a new leading
+    (client) axis: numpy leaves with ``np.stack`` (they transfer to the
+    device once, when the round consumes them), tensors with
+    ``torch.stack``."""
+    def stack(*xs):
+        if isinstance(xs[0], np.ndarray):
+            return np.stack(xs)
+        return torch.stack(xs)
+
+    return pytree.tree_map(stack, *trees)
+
+
+class Cohort(NamedTuple):
+    """One round's materialized inputs: ids are informational, ``batches``
+    carries the (C, K, ...) stacked trees, ``weights`` is None for
+    uniform. (The reference's fault annotations come with
+    ``data/cohort_source.py``, ROADMAP.md queue 1, item 8.)"""
+
+    round_idx: int
+    client_ids: object
+    batches: object
+    weights: Optional[object] = None

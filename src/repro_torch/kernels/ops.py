@@ -1,0 +1,53 @@
+"""The Sherman-Morrison DP step and the flat DP on the cohort (port of
+``repro/kernels/ops.py:dp_step`` and ``dp_delta_flat``).
+
+``dp_step`` is the scalar glue around the two kernels: one ``dp_reduce``
+pass gives every dot the step needs, the coefficients follow in a few
+``(C,)``-sized ops, and one ``dp_map`` pass writes ``v_t`` and
+``Delta~_t``. CUDA tensors go to the kernels, CPU tensors to their plain
+twins (``fedpa_dp.dp_reduce`` / ``dp_map`` dispatch on the device).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import fedpa_dp
+from repro_torch.kernels.ref import dp_step_with
+
+
+def dp_step(u, delta, V, c_hist, t: int, rho: float):
+    """One fused Sherman-Morrison DP step (paper eqs. 22-23) per client.
+
+    u: (C, d) = x_t - xbar_{t-1}; delta: (C, d) = Delta~_{t-1};
+    V: (C, lp, d) history v_2..v_{t-1} (rows >= t-1 hold zeros and are
+    masked); c_hist: (C, lp) fp32 combine coefficients; t: sample index
+    (>= 2).
+
+    Returns (v_t, Delta~_t, a_t, c_t): two passes over the history (one
+    launch of each kernel on CUDA) for the whole cohort.
+    """
+    return dp_step_with(fedpa_dp.dp_reduce, fedpa_dp.dp_map, u, delta, V,
+                        c_hist, t, rho)
+
+
+def dp_delta_flat(x0, samples, *, rho: float):
+    """Delta_hat_l from stacked ``(C, l, d)`` samples through ``dp_step``.
+
+    ``x0`` is ``(C, d)`` (or ``(d,)``, broadcast over clients). Returns
+    ``(C, d)`` fp32. ``V`` is written in place, one row per step.
+    """
+    C, ell, d = samples.shape
+    x0 = x0.float().expand(C, d)
+    xbar = samples[:, 0].float()
+    delta = x0 - xbar
+    lp = max(ell - 1, 1)
+    V = torch.zeros(C, lp, d, dtype=torch.float32, device=samples.device)
+    c_hist = torch.zeros(C, lp, dtype=torch.float32, device=samples.device)
+    for t in range(2, ell + 1):
+        u = samples[:, t - 1].float() - xbar
+        v, delta, _, c_new = dp_step(u, delta, V, c_hist, t, rho)
+        V[:, t - 2] = v
+        c_hist[:, t - 2] = c_new
+        xbar = xbar + u / t
+    rho_l = 1.0 / (1.0 + (ell - 1.0) * rho)
+    return delta / rho_l

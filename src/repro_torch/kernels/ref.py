@@ -1,0 +1,55 @@
+"""Plain PyTorch twins of the DP kernels (port of ``repro/kernels/ref.py``).
+
+Every function takes the cohort with a leading client axis ``C``: ``u`` and
+``delta`` are ``(C, d)``, the history ``V`` is ``(C, lp, d)``, ``w`` is
+``(C, lp)`` and ``s`` is ``(C,)``. Math in fp32. The wrappers in
+``fedpa_dp.py`` call these for CPU tensors; ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def dp_reduce_ref(u, delta, V):
+    """dots[c, k] = <V[c, k], u[c]>, uu[c] = <u[c], u[c]>,
+    ud[c] = <u[c], delta[c]>, all fp32."""
+    uf, df, Vf = u.float(), delta.float(), V.float()
+    return ((Vf * uf[:, None, :]).sum(-1), (uf * uf).sum(-1),
+            (uf * df).sum(-1))
+
+
+def dp_map_ref(w, s, u, delta, V):
+    """v = u - sum_k w_k V[k];  delta' = delta - s v (per client).
+
+    ``v`` is returned in ``u``'s dtype and ``delta'`` in ``delta``'s.
+    """
+    uf, df, Vf = u.float(), delta.float(), V.float()
+    v = uf - (w.float()[:, :, None] * Vf).sum(1)
+    return v.to(u.dtype), (df - s.float()[:, None] * v).to(delta.dtype)
+
+
+def dp_step_with(reduce_fn, map_fn, u, delta, V, c_hist, t: int,
+                 rho: float):
+    """One DP step (paper eqs. 22-23) over a given reduce/map pair: the
+    kernels (``ops.dp_step``) or the twins (``dp_step_ref``).
+
+    ``a`` comes by conjugacy, ``a = <u,u> - sum_k w_k dots_k``; history rows
+    ``k >= t-1`` are masked out of the combine weights ``w``.
+    """
+    dots, uu, ud = reduce_fn(u, delta, V)
+    lp = c_hist.shape[-1]
+    mask = torch.arange(lp, device=c_hist.device) < (t - 1)
+    w = torch.where(mask, c_hist * dots, torch.zeros_like(dots))
+    g = (t - 1.0) * rho / t
+    a = uu - (w * dots).sum(-1)
+    scale = (1.0 + g * (t * ud - a) / (1.0 + g * a)) / t
+    v, delta_new = map_fn(w, scale, u, delta, V)
+    c_new = g / (1.0 + g * a)
+    return v, delta_new, a, c_new
+
+
+def dp_step_ref(u, delta, V, c_hist, t: int, rho: float):
+    """One full DP step on the twins — see ``ops.dp_step``."""
+    return dp_step_with(dp_reduce_ref, dp_map_ref, u, delta, V, c_hist, t,
+                        rho)
