@@ -5,18 +5,39 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions and the TF32 flags (both set off: the CPU comparison of
-   phase 4 needs full fp32 convolutions), then builds the CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` with ``nvcc``.
-2. Holds each kernel against its plain PyTorch twin on the card at the
-   main path's shapes (C=16 clients, d=428,350, lp in {1, 4}), on a ragged
+   phase 4 and the fp32 check of phase 6 need full fp32 matmuls and
+   convolutions), then builds the CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process per source,
+   all at once.
+2. Holds each DP kernel against its plain PyTorch twin on the card at the
+   FedPA path's shapes (C=16 clients, d=428,350, lp in {1, 4}), on a ragged
    d=1300, and with bf16 inputs; times kernel, twin and one library call,
    and computes each kernel's bound from the bytes it must move.
-3. Drives the main path: ``FedSim(device="cuda").run`` for 3 FedPA rounds
+3. Drives the FedPA path: ``FedSim(device="cuda").run`` for 3 FedPA rounds
    of the full-width EMNIST CNN (16 of 64 clients, l=5, one burn-in round),
-   with batch and with streaming DP; each kernel must have been launched
+   with batch and with streaming DP; each DP kernel must have been launched
    (rounds - burn_in_rounds) * (l - 1) * 2 runs = 16 times.
 4. Runs the same rounds on the CPU (through the kernels' plain twins) from
    the same weights and data; final params must agree.
+5. Holds the decode-attention kernel ``swa_decode`` against its twin at
+   gemma3-27b's serving shapes (B 4, 32 heads, 16 KV heads, head_dim 128: a
+   wrapped ring of L=1024 with window 1024, a linear cache of L=1344), in
+   bf16 and fp32, and on the sweep of ``tests/test_kernels.py``, a ragged
+   L=1000 and caches whose first chunks (or all slots) are masked; times
+   kernel, twin and ``scaled_dot_product_attention`` with the K/V caches
+   rotated through more memory than the L2 cache holds.
+6. fp32 wiring check: full-width gemma3-27b cut to one repeat (8 layers,
+   both cache kinds), prompt 1100 (past the window), 8 decode steps; the
+   kernel route's logits must equal the plain route's, teacher-forced from
+   a copy of the same prefill state, within 2e-3.
+7. The serving path itself: ``launch/serve.py``'s ``main`` on the full
+   62-layer gemma3-27b in bf16, batch 4, prompt 1280, 64 generated tokens;
+   ``swa_decode`` must have been launched 63 x 62 = 3906 times. The same
+   decode is replayed through the plain route (0 launches) from a copy of
+   the prefill state, teacher-forced on the kernel route's tokens; the max
+   logit difference must stay within one bf16 rounding (2^-8) of the
+   largest logit per layer, plus one for the bf16 logits themselves:
+   (62 + 1) x 2^-8 x max |logit|.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -26,6 +47,7 @@ phase fails.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -48,9 +70,18 @@ FED_KW = dict(algorithm="fedpa", clients_per_round=16, local_steps=14,
               burn_in_rounds=1, client_opt="sgdm", client_lr=0.01,
               server_opt="sgdm", server_lr=0.3)
 NUM_CLIENTS, BATCH, ROUNDS = 64, 16, 3
-SOURCE = "src/repro_torch/kernels/csrc/fedpa_dp.cu"
+SOURCES = {"dp_reduce": "src/repro_torch/kernels/csrc/fedpa_dp.cu",
+           "dp_map": "src/repro_torch/kernels/csrc/fedpa_dp.cu",
+           "swa_decode": "src/repro_torch/kernels/csrc/swa_decode.cu"}
 REPLACES = {"dp_reduce": "src/repro/kernels/fedpa_dp.py:69",
-            "dp_map": "src/repro/kernels/fedpa_dp.py:97"}
+            "dp_map": "src/repro/kernels/fedpa_dp.py:97",
+            "swa_decode": "src/repro/kernels/swa_decode.py:70"}
+
+# the serving path (gemma3-27b at full width): batch, prompt, generated
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 64
+# the fp32 wiring check: prompt and decode steps
+WIRE_PROMPT, WIRE_STEPS = 1100, 8
+L2_BYTES = 50 * 2**20      # H100 L2; timed inputs rotate through 3x this
 
 
 def fail(msg: str) -> None:
@@ -203,8 +234,252 @@ def run_main_path(device: str, params, seed: int, streaming: bool):
     return state, history
 
 
+def slot_positions(kind: str, L: int, pos: int):
+    """(L,) int32 token position per cache slot after ``pos``: ``ring``
+    puts position p in slot p % L (the newest L positions), ``linear`` in
+    slot p; -1 marks an empty slot."""
+    import numpy as np
+
+    i = np.arange(L)
+    if kind == "ring":
+        p = (pos // L) * L + i
+        p = np.where(p > pos, p - L, p)
+    else:
+        p = np.where(i <= pos, i, -1)
+    return np.where(p >= 0, p, -1).astype(np.int32)
+
+
+#: (name, B, H, KV, dh, L, window, pos, slots): gemma3-27b's serving shapes
+#: first (a local layer: wrapped ring; a global layer: linear), then the
+#: sweep of tests/test_kernels.py, a ragged L, masked leading chunks and a
+#: cache masked everywhere (-> the mean of V).
+SWA_CASES = [
+    ("local", 4, 32, 16, 128, 1024, 1024, 1300, "ring"),
+    ("global", 4, 32, 16, 128, 1344, 0, 1300, "linear"),
+    *[("sweep", B, H, KV, dh, L, w, L - 50, "linear")
+      for B, H, KV, dh, L in ((1, 4, 1, 64, 512), (2, 8, 2, 64, 1024),
+                              (2, 4, 4, 128, 512)) for w in (0, 300)],
+    ("ragged", 2, 8, 2, 64, 1000, 256, 1100, "ring"),
+    ("masked-head", 4, 32, 16, 128, 1344, 0, 1343, "masked-head"),
+    ("all-masked", 4, 32, 16, 128, 1344, 0, 1343, "empty"),
+]
+
+
+def check_swa_decode(card: str):
+    """Phase 5: ``swa_decode`` against its twin on the card; returns the
+    numbers of the local-layer bf16 shape (the JSON row)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_decode as swa
+
+    rate = hbm_rate(card)
+    rows = {}
+    for (name, B, H, KV, dh, L, window, pos, kind), dtype in \
+            itertools.product(SWA_CASES, (torch.bfloat16, torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(L + H + window)
+        G = H // KV
+        q = torch.randn(B, KV, G, dh, device="cuda", generator=g).to(dtype)
+        kv_bytes = 2 * B * L * KV * dh * q.element_size()
+        # the serving shapes' caches rotate through 3x the L2, as in decode;
+        # the small shapes stay in it
+        copies = min(8, math.ceil(3 * L2_BYTES / kv_bytes))
+        caches = [tuple(torch.randn(B, L, KV, dh, device="cuda",
+                                    generator=g).to(dtype) for _ in range(2))
+                  for _ in range(copies)]
+        if kind == "masked-head":       # the first 5 chunks of 64 are empty
+            sp_np = slot_positions("linear", L, pos)
+            sp_np[:320] = -1
+        elif kind == "empty":
+            sp_np = np.full(L, -1, np.int32)
+        else:
+            sp_np = slot_positions(kind, L, pos)
+        sp = torch.from_numpy(sp_np).cuda()
+        k, v = caches[0]
+        got = swa.swa_decode_attention(q, k, v, sp, pos, window=window)
+        want = ref.swa_decode_ref(q, k, v, sp, pos, window=window)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        # fp32: sums in another order; bf16: one rounding of the output
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        tag = (f"{name} B={B} H={H} KV={KV} dh={dh} L={L} window={window} "
+               f"pos={pos} {str(dtype).split('.')[-1]}")
+        if not (diff <= tol + tol * want.float().abs()).all():
+            fail(f"swa_decode {tag}: max err {err}")
+        if kind == "empty":
+            mean_v = v.float().mean(dim=1)[:, :, None].expand(B, KV, G, dh)
+            if not (got.float() - mean_v).abs().max().item() <= tol * 4:
+                fail(f"swa_decode {tag}: masked row is not the mean of V")
+        it = itertools.cycle(caches)
+        valid = torch.from_numpy(
+            (sp_np >= 0) & (sp_np <= pos)
+            & ((window <= 0) | (sp_np > pos - window))).cuda()
+        mask = valid[None, None, None, :]
+        q4 = q.reshape(B, H, 1, dh)
+        out_bytes = nbytes(q) + 2 * nbytes(k) + nbytes(sp) + nbytes(got)
+        row = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: swa.swa_decode_attention(
+                q, *next(it), sp, pos, window=window)),
+            plain_ms=time_ms(lambda: ref.swa_decode_ref(
+                q, *next(it), sp, pos, window=window)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, *(t.transpose(1, 2) for t in next(it)), attn_mask=mask,
+                enable_gqa=True)),
+            bound_ms=max(out_bytes / rate,
+                         4 * B * H * L * dh / FP32_PEAK) * 1e3)
+        print(f"kernel swa_decode [{tag}]: max_abs_err={err:.3g} "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} (bytes, {out_bytes / 1e6:.1f} "
+              f"MB; K/V rotated over {copies} copies)", flush=True)
+        rows[(name, dtype)] = row
+    return rows[("local", torch.bfloat16)]
+
+
+def wiring_check(seed: int) -> None:
+    """Phase 6: fp32 decode logits of the kernel route equal the plain
+    route's at full width, reduced depth."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import serve
+    from repro_torch.models.model import clone_state, init_params
+    from repro_torch.models.steps import prefill_step
+
+    f32 = torch.float32
+    cfg = configs.replace(configs.get_config("gemma3-27b"), repeats=1)
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed),
+                         cfg, f32, device="cuda")
+    prompts = torch.from_numpy(serve.make_prompts(
+        cfg, SERVE_B, WIRE_PROMPT, seed)).cuda()
+    max_len = WIRE_PROMPT + WIRE_STEPS + 1
+    logits, state = prefill_step(params, prompts, cfg, max_len,
+                                 compute_dtype=f32, q_chunk=256,
+                                 cache_dtype=f32)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    state0 = clone_state(state)
+    swa.reset_launches()
+    kern = serve.decode(params, tok, state, cfg, WIRE_STEPS, use_kernel=True,
+                        compute_dtype=f32)
+    n_kernel = swa.launches["swa_decode"]
+    swa.reset_launches()
+    plain = serve.decode(params, tok, state0, cfg, WIRE_STEPS,
+                         use_kernel=False, forced=kern["tokens"],
+                         compute_dtype=f32)
+    n_plain = swa.launches["swa_decode"]
+    print(f"fp32 wiring ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"prompt {WIRE_PROMPT}, {WIRE_STEPS} steps): launches kernel "
+          f"route {n_kernel}, plain route {n_plain}")
+    if n_kernel != WIRE_STEPS * cfg.num_layers or n_plain != 0:
+        fail(f"fp32 wiring launches {n_kernel}, {n_plain}")
+    err = 0.0
+    for a, b in zip(kern["logits"], plain["logits"]):
+        err = max(err, (a - b).abs().max().item())
+        # tests/test_pallas_serving.py's tolerance for the two routes
+        if not torch.allclose(a, b, rtol=2e-3, atol=2e-3):
+            fail(f"fp32 wiring: kernel vs plain logits differ, max {err}")
+    print(f"fp32 wiring: max logit diff kernel vs plain {err:.3g} "
+          f"(rtol/atol 2e-3)", flush=True)
+
+
+def profile_decode(res, cfg, step_ms: float, steps: int = 4) -> None:
+    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
+    kernel-route steps from a copy of the prefill state. Prints the device
+    time and kernel count per step, the time's share of the unprofiled warm step
+    ``step_ms`` (the rest is the card waiting for the host), and the
+    kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.models.model import clone_state
+
+    state = clone_state(res["prefill_state"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve.decode(res["params"], res["tok"], state, cfg, steps,
+                     use_kernel=True)
+    del state
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us <= 0:
+        print("decode profile: the profiler saw no device time (device "
+              "share not measured)")
+        return
+    per_step = dev_us / steps / 1e3
+    n_kernels = sum(e.count for e in events) / steps
+    print(f"decode profile ({steps} steps): {n_kernels:.0f} kernels and "
+          f"device time {per_step:.3f} ms per step, "
+          f"{per_step / step_ms:.3f} of the warm step "
+          f"({step_ms:.3f} ms); device idle share "
+          f"{1 - per_step / step_ms:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
+              f"{e.count // steps:5d} calls/step  {e.key[:90]}")
+
+
+def serve_path(seed: int) -> int:
+    """Phase 7: the full 62-layer gemma3-27b served through
+    ``launch/serve.py``; returns the kernel's launches on that run."""
+    import torch
+
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "gemma3-27b", "--full", "--batch", str(SERVE_B),
+            "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN),
+            "--seed", str(seed)]
+    fedpa_dp.reset_launches()
+    swa.reset_launches()
+    res = serve.main(argv, keep_prefill_state=True)
+    launches = swa.launches["swa_decode"]
+    cfg, dec = res["cfg"], res["decode"]
+    steps = SERVE_GEN - 1
+    print(f"serve {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, params {cfg.param_count():,} bf16; batch "
+          f"{SERVE_B}, prompt {SERVE_PROMPT}, {steps} decode steps: prefill "
+          f"{res['prefill_ms']:.1f} ms, decode {res['decode_ms']:.3f} ms per "
+          f"step (warm), {res['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB; swa_decode launches "
+          f"{launches} (expected {steps * cfg.num_layers})", flush=True)
+    if launches != steps * cfg.num_layers:
+        fail(f"swa_decode launched {launches} times, expected "
+             f"{steps * cfg.num_layers}")
+
+    profile_decode(res, cfg, res["decode_ms"])
+
+    swa.reset_launches()
+    plain = serve.decode(res["params"], res["tok"], res["prefill_state"], cfg,
+                         steps, use_kernel=False, forced=dec["tokens"])
+    if swa.launches["swa_decode"] != 0:
+        fail(f"plain route launched swa_decode {swa.launches['swa_decode']}x")
+    V = cfg.vocab_size
+    err = max((a[:, :V] - b[:, :V]).abs().max().item()
+              for a, b in zip(dec["logits"], plain["logits"]))
+    top = max(a[:, :V].abs().max().item() for a in dec["logits"])
+    agree = (plain["tokens"][:, 1:] == dec["tokens"][:, 1:]).float()
+    # one bf16 rounding (2^-8 relative) of the largest logit per layer,
+    # and one more for the bf16 logits themselves
+    bound = (cfg.num_layers + 1) * 2.0 ** -8 * top
+    print(f"serve replay through the plain route (0 launches): max logit "
+          f"diff {err:.4g} (bound {bound:.4g} = ({cfg.num_layers} + 1) x 2^-8 "
+          f"x max |logit| {top:.4g}); greedy tokens agree "
+          f"{agree.mean().item():.4f}", flush=True)
+    if not err <= bound:
+        fail(f"serve: kernel vs plain logits differ by {err} > {bound}")
+    return launches
+
+
 def main() -> int:
-    """Run the four phases; returns the exit code."""
+    """Run the seven phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -222,10 +497,16 @@ def main() -> int:
 
     from repro_torch.configs.emnist_cnn import config
     from repro_torch.core import tree_math as tm
-    from repro_torch.kernels import build, fedpa_dp
+    from repro_torch.kernels import build, fedpa_dp, swa_decode
     from repro_torch.models.cnn import init_cnn_params
 
     # -- phase 1: card, versions, flags, build ------------------------------
+    t_start = time.perf_counter()
+
+    def done(phase: int) -> None:
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -239,18 +520,23 @@ def main() -> int:
     print(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    lib = build.build("fedpa_dp")
-    print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    libs = build.build_all(["fedpa_dp", "swa_decode"])
+    print(f"built {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    for lib in libs.values():
+        print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    done(1)
 
     # -- phase 2: kernels against their twins -------------------------------
     rows = check_kernels(card)
+    done(2)
 
-    # -- phase 3: the main path on the card ---------------------------------
+    # -- phase 3: the FedPA path on the card --------------------------------
     params = init_cnn_params(torch.Generator().manual_seed(args.seed),
                              config())
     print(f"EMNIST CNN: d={tm.tree_size(params)}")
     fedpa_dp.reset_launches()
+    swa_decode.reset_launches()
     cuda_runs = {}
     for streaming in (False, True):
         t0 = time.perf_counter()
@@ -261,10 +547,13 @@ def main() -> int:
               f"(first run includes warm-up); losses "
               f"{[round(h['loss_last'], 4) for h in history]}", flush=True)
     launches = dict(fedpa_dp.launches)
+    if swa_decode.launches["swa_decode"] != 0:
+        fail("swa_decode launched on the FedPA path")
     ell = (FED_KW["local_steps"] - FED_KW["burn_in_steps"]) \
         // FED_KW["steps_per_sample"]
     expected = (ROUNDS - FED_KW["burn_in_rounds"]) * (ell - 1) * 2
-    print(f"launches on the main path: {launches} (expected {expected} each)")
+    print(f"launches on the FedPA path: {launches} (expected {expected} "
+          f"each)")
     if any(n != expected for n in launches.values()):
         fail(f"kernel launches {launches} != {expected} each")
 
@@ -279,6 +568,7 @@ def main() -> int:
         round_ms.append((time.perf_counter() - t0) * 1e3)
     print(f"per-round ms (batch DP, warm; round 0 is the FedAvg burn-in): "
           f"{[round(x, 2) for x in round_ms]}")
+    done(3)
 
     # -- phase 4: the same rounds on the CPU --------------------------------
     for streaming, cuda_state in cuda_runs.items():
@@ -294,7 +584,23 @@ def main() -> int:
                                        rtol=1e-3, atol=1e-4,
                                        msg=lambda m, k=k: f"{k}: {m}")
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    done(4)
+    torch.cuda.empty_cache()
+
+    # -- phase 5: decode attention against its twin ------------------------
+    rows["swa_decode"] = check_swa_decode(card)
+    done(5)
+
+    # -- phase 6: fp32 wiring at full width, reduced depth ------------------
+    wiring_check(args.seed)
+    done(6)
+    torch.cuda.empty_cache()
+
+    # -- phase 7: the serving path, full gemma3-27b -------------------------
+    launches["swa_decode"] = serve_path(args.seed)
+    done(7)
+
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -1,16 +1,19 @@
-"""``FedConfig`` of the port (from ``repro/configs/base.py``).
+"""Configs of the port (from ``repro/configs/base.py``): ``FedConfig`` and
+the LM's ``LayerSpec``, ``MoEConfig`` and ``ModelConfig``.
 
 Same field names, defaults and eager validation as the JAX package, so the
-two accept and reject the same keyword arguments. Knobs whose code paths
-are not ported yet raise ``NotImplementedError`` at construction, naming
-the ``ROADMAP.md`` item (queue 1) that will port them; they are never
-silently ignored. ``ModelConfig``, ``ShapeConfig`` and ``MeshConfig`` come
-with the LM stack (queue 1, item 11).
+two accept and reject the same keyword arguments. Knobs and architectures
+whose code paths are not ported yet raise ``NotImplementedError`` at
+construction, naming the ``ROADMAP.md`` item (queue 1) that will port them;
+they are never silently ignored. ``ShapeConfig`` and ``MeshConfig`` are not
+ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,10 +29,153 @@ PENDING_ALGORITHMS = {"mime": 6, "fedprox": 6, "fedpa_precision": 6,
                       "scaffold": 7, "fedep": 7, "fedlora": 9}
 
 
+#: Mixer kinds the JAX model code understands, and those ported here.
+MIXERS = ("attn", "swa", "mlstm", "slstm", "rglru")
+PORTED_MIXERS = ("attn", "swa")
+#: FFN kinds, and those ported here.
+FFNS = ("dense", "moe", "none")
+PORTED_FFNS = ("dense", "none")
+#: ROADMAP.md queue-1 item that ports the rest of the LM stack.
+LM_ITEM = 11
+
+
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
         f"item {item})")
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One decoder layer: a sequence mixer followed by an (optional) FFN."""
+
+    mixer: str = "attn"          # one of MIXERS
+    ffn: str = "dense"           # one of FFNS
+    window: int = 0              # sliding-window size; only used by mixer="swa"
+
+    def __post_init__(self):
+        """Reject unknown mixer/ffn names and window-less swa layers."""
+        if self.mixer not in MIXERS:
+            raise ValueError(f"unknown mixer {self.mixer!r}")
+        if self.ffn not in FFNS:
+            raise ValueError(f"unknown ffn {self.ffn!r}")
+        if self.mixer == "swa" and self.window <= 0:
+            raise ValueError("swa mixer requires window > 0")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN configuration (fields of the JAX package; the
+    MoE FFN itself is not ported)."""
+
+    num_experts: int = 0
+    top_k: int = 1
+    expert_d_ff: int = 0
+    shared_expert_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 1e-2
+    chunk_tokens: int = 8192
+    routing: str = "onehot"
+
+    @property
+    def enabled(self) -> bool:
+        """True when this config actually routes through experts."""
+        return self.num_experts > 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description for the pattern decoder: ``pattern`` of
+    layers repeated ``repeats`` times, then ``tail``. Fields as in the JAX
+    package; the port builds attention mixers (``attn``, ``swa``) with
+    dense or no FFNs, and raises ``NotImplementedError`` for the rest."""
+
+    name: str
+    arch_type: str                 # dense | moe | ssm | hybrid | audio | vlm
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[LayerSpec, ...]
+    repeats: int
+    tail: Tuple[LayerSpec, ...] = ()
+    head_dim: int = 0              # 0 -> d_model // num_heads
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    qk_norm: bool = False
+    norm_eps: float = 1e-6
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = True
+    frontend: Optional[str] = None
+    frontend_tokens: int = 0
+    supports_long_decode: bool = False
+    tp_out_constraint: bool = False
+    conv_width: int = 4
+    lru_d: int = 0
+    expansion: float = 2.0
+    citation: str = ""
+
+    def __post_init__(self):
+        """Derive head_dim, check head/layer-count consistency as the JAX
+        package does, then refuse what the port cannot build."""
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.num_heads % self.num_kv_heads != 0:
+            raise ValueError("num_heads must be divisible by num_kv_heads")
+        if len(self.layers()) != self.num_layers:
+            raise ValueError(
+                f"{self.name}: pattern({len(self.pattern)})x{self.repeats}"
+                f"+tail({len(self.tail)}) != derived num_layers"
+            )
+        for spec in self.pattern + self.tail:
+            if spec.mixer not in PORTED_MIXERS:
+                raise _not_ported(f"mixer {spec.mixer!r}", LM_ITEM)
+            if spec.ffn not in PORTED_FFNS:
+                raise _not_ported(f"ffn {spec.ffn!r}", LM_ITEM)
+        if self.moe.enabled:
+            raise _not_ported("the MoE FFN", LM_ITEM)
+        if self.frontend:
+            raise _not_ported(f"frontend {self.frontend!r}", LM_ITEM)
+
+    @property
+    def num_layers(self) -> int:
+        """Total decoder layers: pattern x repeats + tail."""
+        return len(self.pattern) * self.repeats + len(self.tail)
+
+    def layers(self) -> Tuple[LayerSpec, ...]:
+        """The concrete per-layer spec sequence (pattern unrolled + tail)."""
+        return self.pattern * self.repeats + self.tail
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 128 (the JAX package's layout)."""
+        return _round_up(self.vocab_size, 128)
+
+    @property
+    def q_dim(self) -> int:
+        """Query projection width (num_heads x head_dim)."""
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        """Key/value projection width (num_kv_heads x head_dim)."""
+        return self.num_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Exact parameter count from the shapes ``init_params`` makes on the
+        meta device (no allocation; late import avoids a configs<->models
+        cycle)."""
+        from repro_torch.models.model import count_params  # noqa: PLC0415
+        return count_params(self)
+
+
+def replace(cfg, **kw):
+    """dataclasses.replace re-export for convenience."""
+    return dataclasses.replace(cfg, **kw)
 
 
 @dataclass(frozen=True)

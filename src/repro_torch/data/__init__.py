@@ -1,1 +1,2 @@
-"""Host-side data plumbing of the port: client sampling and cohorts."""
+"""Host-side data plumbing of the port: client sampling, cohorts and
+synthetic LM tokens."""

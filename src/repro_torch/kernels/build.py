@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``,
+and the checks every kernel wrapper makes before a launch.
 
 Each source is compiled on first use into a shared library with a plain C
 interface under ``build/repro_torch_kernels/`` at the repository root,
@@ -16,7 +17,10 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -64,8 +68,34 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all(names) -> dict:
+    """``build`` every name at once, one ``nvcc`` process each; returns
+    ``{name: library path}``."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
     process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def on_cpu(*tensors) -> bool:
+    """True if every tensor is on the CPU (the wrapper takes the plain twin),
+    False if every one is on one CUDA device (it launches the kernel);
+    raises on a mix or on any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"kernels take tensors on one CUDA device or all on "
+                     f"the CPU, got {sorted(str(t.device) for t in tensors)}")
+
+
+def stream() -> int:
+    """The current CUDA stream's handle, for a kernel's launch."""
+    return torch.cuda.current_stream().cuda_stream

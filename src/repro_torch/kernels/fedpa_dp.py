@@ -44,18 +44,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors) -> bool:
-    """True if every tensor is on the CPU, False if every one is on CUDA;
-    raises on a mix or on any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError(f"dp kernels take tensors on one CUDA device or all on "
-                     f"the CPU, got {sorted(str(t.device) for t in tensors)}")
-
-
 def _check_cohort(u, delta, V):
     """Shape/dtype/contiguity checks shared by both kernels; returns
     (C, lp, d)."""
@@ -85,10 +73,6 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def dp_reduce(u, delta, V):
     """Reduce pass of one DP step, per client c:
     ``dots[c,k] = <V[c,k], u[c]>``, ``uu[c] = <u[c],u[c]>``,
@@ -97,7 +81,7 @@ def dp_reduce(u, delta, V):
     u, delta: (C, d); V: (C, lp, d); one dtype, fp32 or bf16. Returns
     fp32 ``(dots (C, lp), uu (C,), ud (C,))``.
     """
-    if _on_cpu(u, delta, V):
+    if build.on_cpu(u, delta, V):
         return ref.dp_reduce_ref(u, delta, V)
     C, lp, d = _check_cohort(u, delta, V)
     lib = _lib()
@@ -107,7 +91,7 @@ def dp_reduce(u, delta, V):
     out = torch.empty(C, lp + 2, dtype=torch.float32, device=u.device)
     err = lib.fedpa_dp_reduce(u.data_ptr(), delta.data_ptr(), V.data_ptr(),
                               partials.data_ptr(), out.data_ptr(), C, lp, d,
-                              int(u.dtype == torch.bfloat16), _stream())
+                              int(u.dtype == torch.bfloat16), build.stream())
     _raise_on(err, "dp_reduce")
     launches["dp_reduce"] += 1
     return out[:, :lp], out[:, lp], out[:, lp + 1]
@@ -120,7 +104,7 @@ def dp_map(w, s, u, delta, V):
     w: (C, lp) fp32; s: (C,) fp32; u, delta: (C, d); V: (C, lp, d) (fp32 or
     bf16, one dtype). Returns ``(v, delta')`` in the input dtype.
     """
-    if _on_cpu(w, s, u, delta, V):
+    if build.on_cpu(w, s, u, delta, V):
         return ref.dp_map_ref(w, s, u, delta, V)
     C, lp, d = _check_cohort(u, delta, V)
     if w.shape != (C, lp) or s.shape != (C,):
@@ -134,7 +118,7 @@ def dp_map(w, s, u, delta, V):
     err = _lib().fedpa_dp_map(w.data_ptr(), s.data_ptr(), u.data_ptr(),
                               delta.data_ptr(), V.data_ptr(), vout.data_ptr(),
                               dout.data_ptr(), C, lp, d,
-                              int(u.dtype == torch.bfloat16), _stream())
+                              int(u.dtype == torch.bfloat16), build.stream())
     _raise_on(err, "dp_map")
     launches["dp_map"] += 1
     return vout, dout

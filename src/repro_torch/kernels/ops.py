@@ -1,5 +1,7 @@
-"""The Sherman-Morrison DP step and the flat DP on the cohort (port of
-``repro/kernels/ops.py:dp_step`` and ``dp_delta_flat``).
+"""The glue around the kernels (port of ``repro/kernels/ops.py``): the
+Sherman-Morrison DP step and the flat DP on the cohort (``dp_step``,
+``dp_delta_flat``), and decode attention on ``(B, H, dh)`` query heads
+(``swa_decode``).
 
 ``dp_step`` is the scalar glue around the two kernels: one ``dp_reduce``
 pass gives every dot the step needs, the coefficients follow in a few
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import fedpa_dp
+from repro_torch.kernels import fedpa_dp, swa_decode as swa
 from repro_torch.kernels.ref import dp_step_with
 
 
@@ -51,3 +53,17 @@ def dp_delta_flat(x0, samples, *, rho: float):
         xbar = xbar + u / t
     rho_l = 1.0 / (1.0 + (ell - 1.0) * rho)
     return delta / rho_l
+
+
+def swa_decode(q, cache_k, cache_v, slot_pos, pos: int, *, window: int = 0):
+    """Decode attention of one token's query heads over a KV cache.
+
+    q: (B, H, dh); cache_k/v: (B, L, KV, dh); slot_pos: (L,) int32; pos:
+    host int. The H heads are grouped G = H / KV per KV head for the kernel
+    and ungrouped after. Returns (B, H, dh).
+    """
+    B, H, dh = q.shape
+    KV = cache_k.shape[2]
+    out = swa.swa_decode_attention(q.reshape(B, KV, H // KV, dh), cache_k,
+                                   cache_v, slot_pos, pos, window=window)
+    return out.reshape(B, H, dh)

@@ -1,14 +1,21 @@
-"""Plain PyTorch twins of the DP kernels (port of ``repro/kernels/ref.py``).
+"""Plain PyTorch twins of the kernels (port of ``repro/kernels/ref.py``).
 
-Every function takes the cohort with a leading client axis ``C``: ``u`` and
+The DP twins take the cohort with a leading client axis ``C``: ``u`` and
 ``delta`` are ``(C, d)``, the history ``V`` is ``(C, lp, d)``, ``w`` is
 ``(C, lp)`` and ``s`` is ``(C,)``. Math in fp32. The wrappers in
 ``fedpa_dp.py`` call these for CPU tensors; ``chip_smoke.py`` holds the CUDA
-kernels against them on the card.
+kernels against them on the card. ``swa_decode_ref`` is the twin of the
+decode-attention kernel (``swa_decode.py``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: The masked score of the TPU kernel: finite, so a row masked everywhere
+#: softmaxes to uniform weights instead of NaN.
+NEG_INF = -2.0e38
 
 
 def dp_reduce_ref(u, delta, V):
@@ -53,3 +60,19 @@ def dp_step_ref(u, delta, V, c_hist, t: int, rho: float):
     """One full DP step on the twins — see ``ops.dp_step``."""
     return dp_step_with(dp_reduce_ref, dp_map_ref, u, delta, V, c_hist, t,
                         rho)
+
+
+def swa_decode_ref(q, k, v, slot_pos, pos: int, *, window: int = 0):
+    """Masked-softmax decode attention in fp32; shapes as in
+    ``swa_decode.swa_decode_attention``: q (B, KV, G, dh), k/v
+    (B, L, KV, dh), slot_pos (L,). Returns q's dtype."""
+    qf = q.float()
+    kf = k.float().transpose(1, 2)                     # (B, KV, L, dh)
+    vf = v.float().transpose(1, 2)
+    scores = torch.einsum("bhgd,bhld->bhgl", qf, kf) / math.sqrt(q.shape[-1])
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window > 0:
+        valid = valid & (slot_pos > pos - window)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgl,bhld->bhgd", p, vf).to(q.dtype)
