@@ -21,11 +21,18 @@
    the same weights and data; final params must agree.
 5. Holds the decode-attention kernel ``swa_decode`` against its twin at
    gemma3-27b's serving shapes (B 4, 32 heads, 16 KV heads, head_dim 128: a
-   wrapped ring of L=1024 with window 1024, a linear cache of L=1344), in
-   bf16 and fp32, and on the sweep of ``tests/test_kernels.py``, a ragged
-   L=1000 and caches whose first chunks (or all slots) are masked; times
-   kernel, twin and ``scaled_dot_product_attention`` with the K/V caches
-   rotated through more memory than the L2 cache holds.
+   wrapped ring of L=1024 with window 1024, a linear cache of L=1344) and
+   qwen3-32b's (B 4, 64 heads, 8 KV heads: G 8, linear L=1344), in bf16 and
+   fp32, and on the sweep of ``tests/test_kernels.py``, a ragged L=1000,
+   L of 1 and 5 (fewer slots than CTAs in a cluster), G 16 at head_dim 256,
+   and caches whose first slots (or all) are masked; two calls must agree
+   bit for bit. Times kernel and ``scaled_dot_product_attention`` in turns
+   (kernel, SDPA, SDPA, kernel) and the twin, with the K/V caches rotated
+   through more memory than the L2 cache holds: ``ms`` by CUDA events over
+   back-to-back calls (the wrapper's host time included), and at the
+   serving shapes ``device_ms``, the same calls replayed from a CUDA graph
+   (no host time between them), and ``host_ms``, the wrapper's host time
+   per call.
 6. fp32 wiring check: full-width gemma3-27b cut to one repeat (8 layers,
    both cache kinds), prompt 1100 (past the window), 8 decode steps; the
    kernel route's logits must equal the plain route's, teacher-forced from
@@ -249,20 +256,73 @@ def slot_positions(kind: str, L: int, pos: int):
     return np.where(p >= 0, p, -1).astype(np.int32)
 
 
-#: (name, B, H, KV, dh, L, window, pos, slots): gemma3-27b's serving shapes
-#: first (a local layer: wrapped ring; a global layer: linear), then the
-#: sweep of tests/test_kernels.py, a ragged L, masked leading chunks and a
-#: cache masked everywhere (-> the mean of V).
+#: (name, B, H, KV, dh, L, window, pos, slots): the serving shapes first
+#: (gemma3-27b's local layer: wrapped ring; its global layer: linear;
+#: qwen3-32b's layer: linear, G 8), then the sweep of tests/test_kernels.py,
+#: a ragged L, L below the cluster's 8 CTAs, the widest CTA (G 16, head_dim
+#: 256), masked leading ranges and a cache masked everywhere (-> the mean
+#: of V).
 SWA_CASES = [
     ("local", 4, 32, 16, 128, 1024, 1024, 1300, "ring"),
     ("global", 4, 32, 16, 128, 1344, 0, 1300, "linear"),
+    ("qwen3", 4, 64, 8, 128, 1344, 0, 1300, "linear"),
     *[("sweep", B, H, KV, dh, L, w, L - 50, "linear")
       for B, H, KV, dh, L in ((1, 4, 1, 64, 512), (2, 8, 2, 64, 1024),
                               (2, 4, 4, 128, 512)) for w in (0, 300)],
     ("ragged", 2, 8, 2, 64, 1000, 256, 1100, "ring"),
+    ("L=1", 2, 8, 2, 64, 1, 0, 0, "linear"),
+    ("L=5", 2, 8, 2, 64, 5, 0, 4, "linear"),
+    ("widest", 2, 32, 2, 256, 700, 300, 699, "linear"),
     ("masked-head", 4, 32, 16, 128, 1344, 0, 1343, "masked-head"),
     ("all-masked", 4, 32, 16, 128, 1344, 0, 1343, "empty"),
 ]
+SERVING = ("local", "global", "qwen3")
+
+
+def device_ms_in_turns(kernel, library, iters: int = 20):
+    """Device time per call of ``kernel`` and of ``library``: each one's
+    ``iters`` calls captured in a CUDA graph, the graphs replayed in turns
+    (kernel, library, library, kernel) and timed with CUDA events, so no
+    host time comes between the calls. Returns (kernel ms, library ms)."""
+    import torch
+
+    graphs = []
+    for fn in (kernel, library):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        graphs.append(graph)
+    times = ([], [])
+    for which in (0, 1, 1, 0):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        graphs[which].replay()
+        end.record()
+        torch.cuda.synchronize()
+        times[which].append(start.elapsed_time(end) / iters)
+    return sum(times[0]) / 2, sum(times[1]) / 2
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host time per call of ``fn`` (the enqueue, no sync inside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
 
 
 def check_swa_decode(card: str):
@@ -289,7 +349,7 @@ def check_swa_decode(card: str):
         caches = [tuple(torch.randn(B, L, KV, dh, device="cuda",
                                     generator=g).to(dtype) for _ in range(2))
                   for _ in range(copies)]
-        if kind == "masked-head":       # the first 5 chunks of 64 are empty
+        if kind == "masked-head":       # the first 320 slots are empty
             sp_np = slot_positions("linear", L, pos)
             sp_np[:320] = -1
         elif kind == "empty":
@@ -299,6 +359,7 @@ def check_swa_decode(card: str):
         sp = torch.from_numpy(sp_np).cuda()
         k, v = caches[0]
         got = swa.swa_decode_attention(q, k, v, sp, pos, window=window)
+        again = swa.swa_decode_attention(q, k, v, sp, pos, window=window)
         want = ref.swa_decode_ref(q, k, v, sp, pos, window=window)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -309,6 +370,8 @@ def check_swa_decode(card: str):
                f"pos={pos} {str(dtype).split('.')[-1]}")
         if not (diff <= tol + tol * want.float().abs()).all():
             fail(f"swa_decode {tag}: max err {err}")
+        if not torch.equal(got, again):
+            fail(f"swa_decode {tag}: two calls differ")
         if kind == "empty":
             mean_v = v.float().mean(dim=1)[:, :, None].expand(B, KV, G, dh)
             if not (got.float() - mean_v).abs().max().item() <= tol * 4:
@@ -319,23 +382,42 @@ def check_swa_decode(card: str):
             & ((window <= 0) | (sp_np > pos - window))).cuda()
         mask = valid[None, None, None, :]
         q4 = q.reshape(B, H, 1, dh)
+
+        def kernel():
+            return swa.swa_decode_attention(q, *next(it), sp, pos,
+                                            window=window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q4, *(t.transpose(1, 2) for t in next(it)), attn_mask=mask,
+                enable_gqa=True)
+
         out_bytes = nbytes(q) + 2 * nbytes(k) + nbytes(sp) + nbytes(got)
+        turns = [time_ms(fn) for fn in (kernel, library, library, kernel)]
         row = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: swa.swa_decode_attention(
-                q, *next(it), sp, pos, window=window)),
+            max_abs_err=err, ms=(turns[0] + turns[3]) / 2,
             plain_ms=time_ms(lambda: ref.swa_decode_ref(
                 q, *next(it), sp, pos, window=window)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q4, *(t.transpose(1, 2) for t in next(it)), attn_mask=mask,
-                enable_gqa=True)),
+            library_ms=(turns[1] + turns[2]) / 2,
             bound_ms=max(out_bytes / rate,
                          4 * B * H * L * dh / FP32_PEAK) * 1e3)
-        print(f"kernel swa_decode [{tag}]: max_abs_err={err:.3g} "
-              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} "
-              f"bound_ms={row['bound_ms']:.4f} (bytes, {out_bytes / 1e6:.1f} "
-              f"MB; K/V rotated over {copies} copies)", flush=True)
+        line = (f"kernel swa_decode [{tag}]: max_abs_err={err:.3g} "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={row['library_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.4f} (bytes, "
+                f"{out_bytes / 1e6:.1f} MB; K/V rotated over {copies} "
+                f"copies); turns kernel/SDPA/SDPA/kernel "
+                f"{' '.join(f'{x:.4f}' for x in turns)}")
+        if name in SERVING:
+            dev, lib_dev = device_ms_in_turns(kernel, library)
+            row.update(device_ms=dev, library_device_ms=lib_dev,
+                       host_ms=host_ms(kernel))
+            clusters = swa._check(q, k, v, sp, pos, window)[-1]
+            line += (f"; device_ms={dev:.4f} library_device_ms={lib_dev:.4f} "
+                     f"host_ms={row['host_ms']:.4f}; {clusters} clusters "
+                     f"of 8 CTAs fit at once, this call has {B * KV}")
+            line += f"; device share of bound {row['bound_ms'] / dev:.3f}"
+        print(line, flush=True)
         rows[(name, dtype)] = row
     return rows[("local", torch.bfloat16)]
 
@@ -419,6 +501,11 @@ def profile_decode(res, cfg, step_ms: float, steps: int = 4) -> None:
           f"{per_step / step_ms:.3f} of the warm step "
           f"({step_ms:.3f} ms); device idle share "
           f"{1 - per_step / step_ms:.3f}")
+    ours = [e for e in events if "swa_decode" in e.key]
+    print(f"  swa_decode: "
+          f"{sum(e.self_device_time_total for e in ours) / steps / 1e3:.3f} "
+          f"ms/step device time in {sum(e.count for e in ours) // steps} "
+          f"launches/step")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
@@ -604,7 +691,10 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by="bytes", library_ms=r["library_ms"])
+                    bound_by="bytes", library_ms=r["library_ms"],
+                    **{key: r[key] for key in ("device_ms",
+                                               "library_device_ms",
+                                               "host_ms") if key in r})
                for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

@@ -87,11 +87,11 @@ def on_cpu(*tensors) -> bool:
     """True if every tensor is on the CPU (the wrapper takes the plain twin),
     False if every one is on one CUDA device (it launches the kernel);
     raises on a mix or on any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if all(t.is_cuda for t in tensors):
+        if len({t.get_device() for t in tensors}) == 1:
+            return False
+    elif all(t.device.type == "cpu" for t in tensors):
         return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
     raise ValueError(f"kernels take tensors on one CUDA device or all on "
                      f"the CPU, got {sorted(str(t.device) for t in tensors)}")
 

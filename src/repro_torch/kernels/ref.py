@@ -5,7 +5,8 @@ The DP twins take the cohort with a leading client axis ``C``: ``u`` and
 ``(C, lp)`` and ``s`` is ``(C,)``. Math in fp32. The wrappers in
 ``fedpa_dp.py`` call these for CPU tensors; ``chip_smoke.py`` holds the CUDA
 kernels against them on the card. ``swa_decode_ref`` is the twin of the
-decode-attention kernel (``swa_decode.py``).
+decode-attention kernel (``swa_decode.py``); ``swa_decode_split_ref``
+models how that kernel splits the work (for the tests).
 """
 from __future__ import annotations
 
@@ -76,3 +77,54 @@ def swa_decode_ref(q, k, v, slot_pos, pos: int, *, window: int = 0):
     scores = scores.masked_fill(~valid, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhgl,bhld->bhgd", p, vf).to(q.dtype)
+
+
+def swa_decode_split_ref(q, k, v, slot_pos, pos: int, *, window: int = 0,
+                         cluster: int = 8, tile: int = 32):
+    """The CUDA kernel's split of ``swa_decode_ref``'s work, in plain fp32
+    PyTorch, so that its arithmetic can be checked without a card (only
+    tests use it).
+
+    The L slots go to ``cluster`` contiguous ranges of ceil(L / cluster)
+    slots (the last ones short or empty). Each range runs an online
+    softmax (m, s, acc) over tiles of ``tile`` slots; an empty range keeps
+    m = -FLT_MAX, s = acc = 0 and weighs 0. The ranges' partials are then
+    combined in rank order: M = max m_r, out = sum w_r acc_r / sum w_r s_r
+    with w_r = exp(m_r - M).
+    """
+    B, KV, G, dh = q.shape
+    L = k.shape[1]
+    qf = q.float()
+    kf = k.float().transpose(1, 2)                     # (B, KV, L, dh)
+    vf = v.float().transpose(1, 2)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window > 0:
+        valid = valid & (slot_pos > pos - window)
+    empty = torch.finfo(torch.float32).min
+    per = -(-L // cluster)
+    parts = []
+    for r in range(cluster):
+        r0, r1 = min(L, r * per), min(L, r * per + per)
+        m = torch.full((B, KV, G), empty, dtype=torch.float32)
+        s = torch.zeros(B, KV, G)
+        acc = torch.zeros(B, KV, G, dh)
+        for t0 in range(r0, r1, tile):
+            t1 = min(r1, t0 + tile)
+            sc = torch.einsum("bhgd,bhld->bhgl", qf, kf[:, :, t0:t1]) \
+                / math.sqrt(dh)
+            sc = sc.masked_fill(~valid[t0:t1], NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            s = s * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgl,bhld->bhgd", p, vf[:, :, t0:t1])
+            m = m_new
+        parts.append((m, s, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    S, A = torch.zeros(B, KV, G), torch.zeros(B, KV, G, dh)
+    for m, s, acc in parts:
+        w = torch.exp(m - M)
+        S = S + w * s
+        A = A + w[..., None] * acc
+    return (A / S.clamp_min(1e-30)[..., None]).to(q.dtype)

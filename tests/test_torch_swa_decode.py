@@ -1,7 +1,9 @@
 """The port's decode attention (the kernel's plain twin, on the CPU) against
 the JAX package's Pallas kernel in interpret mode (``ops.swa_decode``) and
-its oracle (``ref.swa_decode_ref``), on the same numpy inputs. The CUDA
-kernel against the twin: ``test_torch_gpu.py``.
+its oracle (``ref.swa_decode_ref``), on the same numpy inputs; and the plain
+model of how the CUDA kernel splits the work (``ref.swa_decode_split_ref``:
+cluster ranges, tiles, the empty-range sentinel, the rank-order combine)
+against both. The CUDA kernel against the twin: ``test_torch_gpu.py``.
 
 Tolerances are ``tests/test_kernels.py``'s: 2e-5 in fp32 (softmax sums in
 another order), 2e-2 in bf16 (one bf16 rounding of the output).
@@ -120,6 +122,97 @@ def test_twin_vs_jax_oracle_ragged_length(window):
     np.testing.assert_allclose(
         _port(q, k, v, slot_pos, pos, window, "float32"),
         np.asarray(want).reshape(B, H, dh), rtol=2e-5, atol=2e-5)
+
+
+def _split_case(L, G, kind, dtype, seed=0):
+    """Inputs with B 2, KV 2, dh 64: q (B, H, dh), k, v, slot_pos, pos and
+    window; ``kind`` "linear" (a window of 300 where L > 300), "empty" (no
+    slot visible) or "masked-head" (the first 3 of the 8 ranges empty)."""
+    B, KV, dh = 2, 2, 64
+    q, k, v = _inputs(seed + L + G, B, KV * G, KV, dh, L, dtype)
+    pos = L - 1
+    slot_pos = np.arange(L, dtype=np.int32)
+    window = 300 if kind == "linear" and L > 300 else 0
+    if kind == "empty":
+        slot_pos[:] = -1
+    elif kind == "masked-head":
+        slot_pos[:3 * -(-L // 8)] = -1
+    return q, k, v, slot_pos, pos, window
+
+
+def _split(q, k, v, slot_pos, pos, window, dtype):
+    B, H, dh = q.shape
+    KV = k.shape[2]
+    t = lambda x: torch.from_numpy(np.array(x)).to(_TDT[dtype])
+    out = ref.swa_decode_split_ref(t(q).reshape(B, KV, H // KV, dh), t(k),
+                                   t(v), torch.from_numpy(slot_pos), pos,
+                                   window=window)
+    assert out.dtype == _TDT[dtype]
+    return out.float().numpy().reshape(B, H, dh)
+
+
+def _jax_reference(q, k, v, slot_pos, pos, window, dtype):
+    """The Pallas kernel in interpret mode where it takes L (L <= 512 or a
+    multiple of 512: it asserts L % tile == 0), else the JAX oracle."""
+    L = k.shape[1]
+    if L <= 512 or L % 512 == 0:
+        return _jax_kernel(q, k, v, slot_pos, pos, window, dtype)
+    B, H, dh = q.shape
+    KV = k.shape[2]
+    j = lambda x: jnp.asarray(x, getattr(jnp, dtype))
+    out = jax_ref.swa_decode_ref(j(q).reshape(B, KV, H // KV, dh), j(k), j(v),
+                                 jnp.asarray(slot_pos), pos, window=window)
+    return np.asarray(out, np.float32).reshape(B, H, dh)
+
+
+_SPLIT_L = [1, 5, 7, 1000, 1344]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("L", _SPLIT_L)
+def test_split_model_vs_twin(L, G, dtype):
+    """The kernel's split (8 ranges, tiles of 32, fewer slots than ranges
+    at L 1, 5, 7) gives the twin's attention."""
+    case = _split_case(L, G, "linear", dtype)
+    q, k, v, slot_pos, pos, window = case
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_split(*case, dtype),
+                               _port(q, k, v, slot_pos, pos, window, dtype),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("L,G,dtype", [
+    *[(L, 2, dt) for L in _SPLIT_L for dt in ("float32", "bfloat16")],
+    (7, 1, "float32"), (7, 8, "float32"), (1344, 1, "float32"),
+    (1344, 8, "float32"),
+])
+def test_split_model_vs_jax(L, G, dtype):
+    case = _split_case(L, G, "linear", dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_split(*case, dtype),
+                               _jax_reference(*case, dtype), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["empty", "masked-head"])
+@pytest.mark.parametrize("L", [5, 1024, 1344])
+def test_split_model_masked(L, kind):
+    """Ranges masked everywhere weigh 0 beside a visible slot, and a row
+    with no visible slot is the mean of V over all L slots, as in the
+    twin and the JAX package; the empty ranges of L 5 weigh 0 too."""
+    case = _split_case(L, 2, kind, "float32")
+    q, k, v, slot_pos, pos, window = case
+    got = _split(*case, "float32")
+    np.testing.assert_allclose(
+        got, _port(q, k, v, slot_pos, pos, window, "float32"),
+        rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, _jax_reference(*case, "float32"),
+                               rtol=2e-5, atol=2e-5)
+    if kind == "empty":
+        B, H, dh = q.shape
+        mean_v = np.repeat(v.mean(axis=1), H // k.shape[2], axis=1)
+        np.testing.assert_allclose(got, mean_v, rtol=1e-5, atol=1e-6)
 
 
 def _cpu_args(dh=64, L=8, dtype=torch.float32):
