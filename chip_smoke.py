@@ -10,7 +10,8 @@
    ``src/repro_torch/kernels/csrc`` with ``nvcc``, one process per source,
    all at once.
 2. Holds each DP kernel against its plain PyTorch twin on the card at the
-   FedPA path's shapes (C=16 clients, d=428,350, lp in {1, 4}), on a ragged
+   FedPA path's shapes (C=16 clients, d=428,350, lp in {1, 4}; C=1 and
+   C=6, the stacks of the sequential and chunked placements), on a ragged
    d=1300, and with bf16 inputs; times kernel, twin and one library call,
    and computes each kernel's bound from the bytes it must move.
 3. Drives the FedPA path: ``FedSim(device="cuda").run`` for 3 FedPA rounds
@@ -45,6 +46,20 @@
    logit difference must stay within one bf16 rounding (2^-8) of the
    largest logit per layer, plus one for the bf16 logits themselves:
    (62 + 1) x 2^-8 x max |logit|.
+8. The rest of the synchronous round on the full-width EMNIST CNN, with
+   phase 3's settings (16 of 64 clients, 14 local steps, l=5, 3 rounds,
+   one burn-in round), through ``FedSim.round``: FedPA at ``sequential``
+   (one client per DP launch) and at ``chunked`` with chunk 6 (three
+   chunks, two zero-weight padding clients), ``fedpa_precision`` at
+   ``parallel``, and FedPA at ``chunked`` chunk 6 with ``dropout_rate``
+   0.25 and ``qffl_q`` 1.0. Prints each run's round ms and its launches
+   of each DP kernel against the count worked out from the code (FedPA
+   rounds x (l - 1) DP steps x stacks per round); the FedPA params must
+   agree with phase 3's ``parallel`` ones and every run with its CPU
+   replay (phase 4's bound). Then the least-squares quickstart
+   (``repro_torch.examples.quickstart``, cut to 10 of its 60 rounds) on
+   the card and on the CPU: FedPA must end closer to the optimum than
+   FedAvg, and the card's params must equal the CPU's.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -77,6 +92,16 @@ FED_KW = dict(algorithm="fedpa", clients_per_round=16, local_steps=14,
               burn_in_rounds=1, client_opt="sgdm", client_lr=0.01,
               server_opt="sgdm", server_lr=0.3)
 NUM_CLIENTS, BATCH, ROUNDS = 64, 16, 3
+# phase 8: (name, FedConfig overrides) of the rest of the round
+ROUND_RUNS = (
+    ("sequential", dict(round_placement="sequential")),
+    ("chunked", dict(round_placement="chunked", round_chunk_size=6)),
+    ("fedpa_precision", dict(algorithm="fedpa_precision")),
+    ("chunked+dropout+qffl", dict(round_placement="chunked",
+                                  round_chunk_size=6, dropout_rate=0.25,
+                                  qffl_q=1.0)),
+)
+QUICKSTART_ROUNDS = 10
 SOURCES = {"dp_reduce": "src/repro_torch/kernels/csrc/fedpa_dp.cu",
            "dp_map": "src/repro_torch/kernels/csrc/fedpa_dp.cu",
            "swa_decode": "src/repro_torch/kernels/csrc/swa_decode.cu"}
@@ -134,7 +159,10 @@ def check_kernels(card: str):
 
     rate = hbm_rate(card)
     d_main = 428_350
+    # the FedPA path's stacks: the cohort (parallel), one client
+    # (sequential), a chunk of 6 (chunked)
     cases = [(16, 4, d_main, torch.float32), (16, 1, d_main, torch.float32),
+             (1, 4, d_main, torch.float32), (6, 4, d_main, torch.float32),
              (3, 4, 1300, torch.float32), (16, 4, d_main, torch.bfloat16)]
     main = {}
     for C, lp, d, dtype in cases:
@@ -212,15 +240,16 @@ def make_batch_fn(cfg, seed: int):
     return batch_fn
 
 
-def make_sim(device: str, seed: int, streaming: bool):
-    """The main path's ``FedSim`` on the full-width EMNIST CNN."""
+def make_sim(device: str, seed: int, streaming: bool, **over):
+    """The main path's ``FedSim`` on the full-width EMNIST CNN
+    (``FED_KW`` with ``over`` on top)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.emnist_cnn import config
     from repro_torch.core.round import FedSim
     from repro_torch.models.cnn import cnn_grad_fn
 
     cfg = config()
-    return FedSim(FedConfig(**FED_KW, streaming_dp=streaming),
+    return FedSim(FedConfig(**{**FED_KW, **over}, streaming_dp=streaming),
                   cnn_grad_fn(cfg), make_batch_fn(cfg, seed), NUM_CLIENTS,
                   seed=seed, device=device)
 
@@ -511,6 +540,139 @@ def profile_decode(res, cfg, step_ms: float, steps: int = 4) -> None:
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
 
 
+def expected_dp_launches(over: dict) -> int:
+    """Launches of each DP kernel in one ``ROUNDS``-round run of
+    ``FED_KW`` with ``over``: FedPA rounds x (l - 1) DP steps x the stacks
+    of clients a round hands the kernels (the cohort at ``parallel``, each
+    client at ``sequential``, each chunk, padding included, at
+    ``chunked``)."""
+    fed = {**FED_KW, **over}
+    C = fed["clients_per_round"]
+    ell = (fed["local_steps"] - fed["burn_in_steps"]) \
+        // fed["steps_per_sample"]
+    place = fed.get("round_placement", "parallel")
+    stacks = (C if place == "sequential"
+              else -(-C // fed["round_chunk_size"]) if place == "chunked"
+              else 1)
+    return (ROUNDS - fed["burn_in_rounds"]) * (ell - 1) * stacks
+
+
+def run_rounds(device: str, params, seed: int, over: dict):
+    """``ROUNDS`` rounds of ``make_sim(..., **over)`` through
+    ``FedSim.round``, each timed with a device sync; returns (state,
+    records, round ms)."""
+    import torch
+
+    sim = make_sim(device, seed, False, **over)
+    state = sim.init(params)
+    records, ms = [], []
+    for r in range(ROUNDS):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rec = sim.round(state, r)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        records.append(rec)
+    losses = [h[k] for h in records for k in ("loss_first", "loss_last")]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite losses on {device} ({over}): {losses}")
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        fail(f"non-finite params on {device} ({over})")
+    return state, records, ms
+
+
+def params_close(got, want, what: str) -> None:
+    """Phase 4's bound on two param trees (``got`` may be on the card):
+    rtol 1e-3, atol 1e-4; prints the max abs difference."""
+    import torch
+
+    err = max((got[k].cpu() - v.cpu()).abs().max().item()
+              for k, v in want.items())
+    print(f"  {what}: max abs diff {err:.3g}", flush=True)
+    for k, v in want.items():
+        if not torch.allclose(got[k].cpu(), v.cpu(), rtol=1e-3, atol=1e-4):
+            fail(f"{what}: {k} differs (max abs diff {err})")
+
+
+def rest_of_round(params, parallel_params, seed: int) -> dict:
+    """Phase 8, part 1: the placements, ``fedpa_precision`` and the faults
+    on the full-width CNN; returns each run's DP launches."""
+    from repro_torch.kernels import fedpa_dp
+
+    by_run = {}
+    for name, over in ROUND_RUNS:
+        fedpa_dp.reset_launches()
+        state, records, ms = run_rounds("cuda", params, seed, over)
+        launches = dict(fedpa_dp.launches)
+        expected = expected_dp_launches(over)
+        dropped = [h["dropped"] for h in records]
+        alg = over.get("algorithm", FED_KW["algorithm"])
+        print(f"round run {name}: round ms {[round(x, 2) for x in ms]} "
+              f"(round 0 the FedAvg burn-in, rounds 1-2 {alg}, round 2 "
+              f"warm); DP launches {launches} (expected {expected} "
+              f"each); dropped {dropped}; loss_last "
+              f"{[round(h['loss_last'], 4) for h in records]}", flush=True)
+        if any(n != expected for n in launches.values()):
+            fail(f"{name}: DP launches {launches} != {expected} each")
+        if over.get("dropout_rate") and not sum(dropped):
+            fail(f"{name}: no client dropped, the mask path did not run")
+        by_run[name] = launches
+        if "algorithm" not in over and "dropout_rate" not in over:
+            params_close(state.params, parallel_params,
+                         f"{name} vs phase 3's parallel params")
+        cpu_state, cpu_records, _ = run_rounds("cpu", params, seed, over)
+        if [h["dropped"] for h in cpu_records] != dropped:
+            fail(f"{name}: the CPU replay dropped other clients")
+        params_close(state.params, cpu_state.params,
+                     f"{name} vs its CPU replay")
+    return by_run
+
+
+def quickstart_check() -> dict:
+    """Phase 8, part 2: the least-squares quickstart on the card and on the
+    CPU; returns the card run's DP launches."""
+    import numpy as np
+
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import fedpa_dp
+
+    fedpa_dp.reset_launches()
+    t0 = time.perf_counter()
+    card = quickstart.run("cuda", QUICKSTART_ROUNDS)
+    card_s = time.perf_counter() - t0
+    launches = dict(fedpa_dp.launches)
+    fed = quickstart.CONFIGS["fedpa"]
+    ell = (fed.local_steps - fed.burn_in_steps) // fed.steps_per_sample
+    expected = (QUICKSTART_ROUNDS * (ell - 1)
+                * -(-fed.clients_per_round // fed.round_chunk_size))
+    t0 = time.perf_counter()
+    cpu = quickstart.run("cpu", QUICKSTART_ROUNDS)
+    cpu_s = time.perf_counter() - t0
+    print(f"quickstart ({QUICKSTART_ROUNDS} rounds of 60; D {quickstart.D}, "
+          f"{fed.clients_per_round} of {quickstart.N_CLIENTS} clients, "
+          f"{fed.local_steps} local steps, fedpa chunked chunk "
+          f"{fed.round_chunk_size}): distance to the optimum on the card "
+          f"fedavg {card['fedavg']['distance']:.4f}, fedpa "
+          f"{card['fedpa']['distance']:.4f}; on the CPU fedavg "
+          f"{cpu['fedavg']['distance']:.4f}, fedpa "
+          f"{cpu['fedpa']['distance']:.4f}; {card_s:.1f} s on the card, "
+          f"{cpu_s:.1f} s on the CPU; DP launches {launches} (expected "
+          f"{expected} each)", flush=True)
+    if any(n != expected for n in launches.values()):
+        fail(f"quickstart: DP launches {launches} != {expected} each")
+    if not card["fedpa"]["distance"] < card["fedavg"]["distance"]:
+        fail("quickstart: FedPA did not end closer to the optimum than "
+             "FedAvg")
+    for name in card:
+        if not np.allclose(card[name]["params"], cpu[name]["params"],
+                           rtol=1e-3, atol=1e-4):
+            fail(f"quickstart {name}: card params {card[name]['params']} "
+                 f"!= CPU params {cpu[name]['params']}")
+    return launches
+
+
 def serve_path(seed: int) -> int:
     """Phase 7: the full 62-layer gemma3-27b served through
     ``launch/serve.py``; returns the kernel's launches on that run."""
@@ -566,7 +728,7 @@ def serve_path(seed: int) -> int:
 
 
 def main() -> int:
-    """Run the seven phases; returns the exit code."""
+    """Run the eight phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -686,6 +848,14 @@ def main() -> int:
     # -- phase 7: the serving path, full gemma3-27b -------------------------
     launches["swa_decode"] = serve_path(args.seed)
     done(7)
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the rest of the synchronous round, and the quickstart ------
+    by_run = {"fedpa parallel (phase 3)": {k: launches[k] for k in
+                                           ("dp_reduce", "dp_map")}}
+    by_run.update(rest_of_round(params, cuda_runs[False].params, args.seed))
+    by_run["quickstart"] = quickstart_check()
+    done(8)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
@@ -694,7 +864,10 @@ def main() -> int:
                     bound_by="bytes", library_ms=r["library_ms"],
                     **{key: r[key] for key in ("device_ms",
                                                "library_device_ms",
-                                               "host_ms") if key in r})
+                                               "host_ms") if key in r},
+                    **({"launches_by_path": {run: n[name] for run, n in
+                                             by_run.items()}}
+                       if name in ("dp_reduce", "dp_map") else {}))
                for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

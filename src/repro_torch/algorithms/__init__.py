@@ -1,7 +1,8 @@
 """Federated-algorithm strategy API of the port (see ``base.py``).
 
-Importing this package registers the ported algorithms: ``fedavg`` and
-``fedpa`` (batch and streaming DP).
+Importing this package registers the ported algorithms: ``fedavg``,
+``fedpa`` (batch and streaming DP), ``fedprox``, ``mime`` and
+``fedpa_precision``.
 """
 from repro_torch.algorithms.base import (  # noqa: F401  (base binds the
     ClientResult,                          # registry before the modules
@@ -15,3 +16,6 @@ from repro_torch.algorithms.base import (  # noqa: F401  (base binds the
 )
 from repro_torch.algorithms.fedavg import FedAvg  # noqa: F401
 from repro_torch.algorithms.fedpa import FedPA  # noqa: F401
+from repro_torch.algorithms.fedpa_precision import FedPAPrecision  # noqa: F401
+from repro_torch.algorithms.fedprox import FedProx  # noqa: F401
+from repro_torch.algorithms.mime import Mime  # noqa: F401

@@ -3,11 +3,17 @@
 by name through a registry.
 
 The hooks are the reference's, with the client axis written out: the
-client update takes the server params and the cohort's ``(C, K, ...)``
-batches and returns a ``ClientResult`` whose payload and metrics carry a
-leading client axis (the reference ``vmap``s a per-client update instead;
-a raw CUDA kernel has no batching rule). Aggregation reduces in fp32
-(``reduce_stacked``) and casts once (``finalize``).
+client update takes the server params, the cohort's ``(C, K, ...)``
+batches and the broadcast extras, and returns a ``ClientResult`` whose
+payload and metrics carry a leading client axis (the reference ``vmap``s
+a per-client update instead; a raw CUDA kernel has no batching rule). The
+round program calls it on the whole cohort (``parallel``), on one client
+at a time (``sequential``, C = 1) or on one chunk at a time (``chunked``).
+
+Aggregation lives in a linear fp32 accumulator space: ``reduce_stacked``
+sums a stacked cohort, ``accumulate`` folds one client, ``payload_accum``
+maps a payload into the space, and ``finalize`` casts once. Every payload
+map is elementwise, so it applies to a stacked payload as it is.
 """
 from __future__ import annotations
 
@@ -127,24 +133,89 @@ class FedAlgorithm:
         """Algorithm run during the first ``fed.burn_in_rounds`` rounds."""
         return self
 
+    def broadcast(self, state, server_opt: Optimizer) -> tuple:
+        """Server statistics shipped to every client with the params; they
+        become trailing arguments of the client update, unstacked (the
+        same for the whole cohort). Default: none."""
+        del state, server_opt
+        return ()
+
     def make_client_update(self, grad_fn: Callable,
                            client_opt: Optimizer) -> Callable:
-        """Build ``update(params, batches) -> ClientResult`` for a cohort.
+        """Build ``update(params, batches, *extras) -> ClientResult`` for a
+        cohort.
 
         ``params`` is the server's (unstacked) tree; ``batches`` carry
-        ``(C, K, ...)``; ``grad_fn`` is batched over the client axis.
+        ``(C, K, ...)``; ``grad_fn`` is batched over the client axis;
+        ``extras`` are :meth:`broadcast`'s.
         """
         raise NotImplementedError
+
+    # -- aggregation (accumulator space) ------------------------------------
+    def init_accum(self, params):
+        """Zero element of the accumulator space: fp32 whatever
+        ``fed.delta_dtype`` is, so the sequential and chunked folds never
+        round in a low precision; :meth:`finalize` casts once."""
+        return tm.tzeros_like(params, torch.float32)
+
+    def payload_accum(self, payload):
+        """Map a payload (one client's, or stacked) into the accumulator
+        space (the linear part; anything nonlinear belongs in
+        :meth:`finalize`)."""
+        return payload
+
+    def accumulate(self, acc, payload, weight):
+        """Fold one client into the accumulator: ``acc + w * accum(p)``,
+        the product formed in fp32."""
+        return tm.tmap(lambda a, d: a + weight * d.to(a.dtype),
+                       acc, self.payload_accum(payload))
 
     def reduce_stacked(self, stacked_payloads, weights):
         """Weighted sum of the cohort's payloads in fp32 (the accumulator);
         :meth:`finalize` owns the single cast."""
-        return server_lib.weighted_sum(stacked_payloads, weights, cast=False)
+        return server_lib.weighted_sum(self.payload_accum(stacked_payloads),
+                                       weights, cast=False)
 
     def finalize(self, agg):
         """Accumulator -> pseudo-gradient: the single cast out of fp32."""
         return tm.tcast(agg, self.delta_dtype)
 
-    def server_update(self, state, agg, server_opt: Optimizer):
-        """Finalize the aggregate and take one server-optimizer step."""
-        return server_lib.server_update(state, self.finalize(agg), server_opt)
+    def finish_cohort(self, state, agg):
+        """Epilogue on the summed accumulator, once per round, before it
+        leaves the cohort stage. Default: identity."""
+        del state
+        return agg
+
+    def map_components(self, fn: Callable, obj):
+        """Apply ``fn`` to each parameter-shaped component of a payload or
+        accumulator. Default: the object is one parameter-shaped tree."""
+        return fn(obj)
+
+    # -- communicated-bytes accounting --------------------------------------
+    def abstract_payload(self, params):
+        """One client's uplink payload as meta-device tensors (shapes and
+        dtypes, no allocation; ``compression.accounting.round_bytes``)."""
+        return tm.tmap(lambda p: torch.empty(p.shape, dtype=self.delta_dtype,
+                                             device="meta"), params)
+
+    def abstract_broadcast_extras(self, params):
+        """Downlink extras beyond the params (:meth:`broadcast`) as
+        meta-device tensors. Default: none."""
+        del params
+        return ()
+
+    # -- server ------------------------------------------------------------
+    def server_update(self, state, agg, server_opt: Optimizer,
+                      discount=None):
+        """Finalize the aggregate and take one server-optimizer step.
+
+        ``discount`` (the async engine's ``staleness_discount ** s``; the
+        synchronous round passes None) scales the pseudo-gradient in fp32
+        and casts back.
+        """
+        pseudo_grad = self.finalize(agg)
+        if discount is not None:
+            d = float(discount)
+            pseudo_grad = tm.tmap(
+                lambda x: (d * x.to(torch.float32)).to(x.dtype), pseudo_grad)
+        return server_lib.server_update(state, pseudo_grad, server_opt)

@@ -74,11 +74,13 @@ class FedPA(FedAlgorithm):
         """The flat (d,) fp32 anchor of the DP: params in ``delta_dtype``."""
         return tm.flatten(tm.tcast(params, self.delta_dtype), lead_dims=0)
 
-    def _make_batch_update(self, grad_fn, client_opt):
-        """Samples stacked first as (C, l, d), then the DP over them."""
+    def _iasg_delta(self, grad_fn, client_opt):
+        """Build ``run(params, batches) -> (delta, iasg_result, metrics)``:
+        one IASG pass and the shrinkage-DP delta, the core shared with
+        ``fedpa_precision``. The samples are stacked first as (C, l, d)."""
         fed = self.fed
 
-        def update(params, batches):
+        def run(params, batches):
             C = tm.tleaves(batches)[0].shape[0]
             start = tm.tbroadcast(params, C)
             res = iasg_sample(
@@ -90,10 +92,19 @@ class FedPA(FedAlgorithm):
                              fed.shrinkage_rho)
             first = (res.burn_in_losses[:, 0] if fed.burn_in_steps
                      else res.sample_losses[:, 0, 0])
-            return ClientResult(
-                tm.unflatten(delta, params, self.delta_dtype),
-                {"loss_first": first,
-                 "loss_last": res.sample_losses[:, -1, -1]})
+            return (tm.unflatten(delta, params, self.delta_dtype), res,
+                    {"loss_first": first,
+                     "loss_last": res.sample_losses[:, -1, -1]})
+
+        return run
+
+    def _make_batch_update(self, grad_fn, client_opt):
+        """IASG samples stacked first, then the DP over them."""
+        run = self._iasg_delta(grad_fn, client_opt)
+
+        def update(params, batches):
+            delta, _, metrics = run(params, batches)
+            return ClientResult(delta, metrics)
 
         return update
 

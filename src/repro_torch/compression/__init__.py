@@ -1,1 +1,2 @@
-"""Payload byte accounting of the port (dense payloads only)."""
+"""Payload byte accounting of the port (dense payloads; codecs wait for
+ROADMAP.md queue 1, item 9)."""

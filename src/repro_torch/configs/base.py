@@ -25,8 +25,7 @@ STATE_PLACEMENTS = ("host", "device")
 
 #: Algorithms registered in the JAX package that this port does not have
 #: yet, with the ROADMAP.md queue-1 item that ports them.
-PENDING_ALGORITHMS = {"mime": 6, "fedprox": 6, "fedpa_precision": 6,
-                      "scaffold": 7, "fedep": 7, "fedlora": 9}
+PENDING_ALGORITHMS = {"scaffold": 7, "fedep": 7, "fedlora": 9}
 
 
 #: Mixer kinds the JAX model code understands, and those ported here.
@@ -355,15 +354,8 @@ class FedConfig:
     def _check_ported(self):
         """Refuse valid knobs whose code paths this port does not have."""
         pending = [
-            (self.round_placement != "parallel",
-             f"round_placement={self.round_placement!r}", 4),
             (self.async_rounds, "async_rounds=True", 8),
             (self.prefetch_rounds > 0, "prefetch_rounds > 0", 8),
-            (self.availability != "always",
-             f"availability={self.availability!r}", 8),
-            (self.dropout_rate > 0, "dropout_rate > 0", 6),
-            (self.min_local_steps > 0, "min_local_steps > 0", 6),
-            (self.qffl_q > 0, "qffl_q > 0", 6),
             (self.client_state_placement != "host",
              f"client_state_placement={self.client_state_placement!r}", 7),
         ]

@@ -1,2 +1,3 @@
 """Round math of the port: tree ops, IASG, the Sherman-Morrison DP, the
-server, the round program, the engine and ``FedSim``."""
+shrinkage and exact-posterior oracles, the server, the client update, the
+round program, the engine and ``FedSim``."""

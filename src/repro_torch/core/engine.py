@@ -1,7 +1,8 @@
 """The round engine of the port (from ``repro/core/engine.py``): the fused
 window-1 backend — one round program per round, applied in order — with
 burn-in regime switching, eval cadence and history through
-``RoundRecorder``.
+``RoundRecorder``. Each cohort's survivor mask (``data.cohort_source``) is
+threaded into the round, and its ``dropped`` count rides the record.
 
 The reference's split backend (async windows, stragglers), client-state
 stores and prefetchers wait for ROADMAP.md queue 1, items 7 and 8.
@@ -23,9 +24,10 @@ BuildCohort = Callable[[int], Cohort]
 class RoundEngine:
     """Drives ``num_rounds`` synchronous rounds (an in-flight window of 1).
 
-    ``round_fn(state, batches, weights) -> (state, metrics)`` is the fused
-    round of ``make_round_program``; ``burn_round_fn`` (optional) runs the
-    first ``burn_in_rounds`` rounds (the FedAvg regime of a FedPA config).
+    ``round_fn(state, batches, weights, survivors) -> (state, metrics)`` is
+    the fused round of ``make_round_program``; ``burn_round_fn`` (optional)
+    runs the first ``burn_in_rounds`` rounds (the FedAvg regime of a FedPA
+    config).
     ``round_bytes`` / ``burn_round_bytes`` are stamped on every record.
     """
 
@@ -39,7 +41,8 @@ class RoundEngine:
         is_burn = t < self.burn_in_rounds
         fn = (self.burn_round_fn if is_burn and self.burn_round_fn is not None
               else self.round_fn)
-        state, metrics = fn(state, cohort.batches, cohort.weights)
+        state, metrics = fn(state, cohort.batches, cohort.weights,
+                            cohort.survivors)
         return state, metrics, is_burn
 
     def round(self, state: ServerState, cohort: Cohort, round_idx: int
@@ -50,7 +53,7 @@ class RoundEngine:
                                  burn_round_bytes=self.burn_round_bytes)
         state, metrics, is_burn = self._apply(state, cohort, round_idx)
         recorder.record(round_idx=round_idx, metrics=metrics,
-                        is_burn=is_burn)
+                        is_burn=is_burn, dropped=cohort.dropped)
         return state, recorder.history()[0]
 
     def run(self, state: ServerState, build_cohort: BuildCohort,
@@ -68,11 +71,12 @@ class RoundEngine:
         recorder = RoundRecorder(round_bytes=self.round_bytes,
                                  burn_round_bytes=self.burn_round_bytes)
         for t in range(num_rounds):
-            state, metrics, is_burn = self._apply(state, build_cohort(t), t)
+            cohort = build_cohort(t)
+            state, metrics, is_burn = self._apply(state, cohort, t)
             ev = (eval_fn(state.params)
                   if eval_fn is not None and (t % eval_every == 0
                                               or t == num_rounds - 1)
                   else None)
             recorder.record(round_idx=t, metrics=metrics, is_burn=is_burn,
-                            eval_metrics=ev)
+                            dropped=cohort.dropped, eval_metrics=ev)
         return state, recorder.history()

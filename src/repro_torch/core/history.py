@@ -36,13 +36,15 @@ class RoundRecorder:
         self._raw: List[dict] = []
 
     def record(self, *, round_idx: int, metrics: dict, is_burn: bool = False,
+               dropped: int = 0,
                eval_metrics: Optional[dict] = None) -> dict:
         """Append one round's raw record (values may still be on device).
-        The synchronous, fault-free rounds of this port have no staleness,
-        drops or stragglers: those fields are stamped 0."""
+        ``dropped`` counts the cohort's masked-out clients. The synchronous
+        rounds of this port have no staleness, stragglers or client-state
+        drops: those fields are stamped 0."""
         bts = (self.burn_round_bytes if is_burn
                else self.round_bytes) or self.round_bytes
-        rec = {"round": round_idx, "metrics": metrics,
+        rec = {"round": round_idx, "metrics": metrics, "dropped": dropped,
                "bytes_up": None if bts is None else bts["bytes_up"],
                "bytes_down": None if bts is None else bts["bytes_down"]}
         if eval_metrics is not None:
@@ -62,7 +64,8 @@ class RoundRecorder:
                                  else json_scalar(rec["bytes_up"]))
             entry["bytes_down"] = (None if rec["bytes_down"] is None
                                    else json_scalar(rec["bytes_down"]))
-            entry.update(dropped=0, straggled=0, state_drops=0)
+            entry.update(dropped=int(rec["dropped"]), straggled=0,
+                         state_drops=0)
             entry.update({k: json_scalar(v)
                           for k, v in rec.get("eval", {}).items()})
             history.append(entry)

@@ -27,7 +27,8 @@ class IASGResult(NamedTuple):
     sample_losses: torch.Tensor   # (C, num_samples, steps_per_sample)
 
 
-def _step_batch(batches, i: int):
+def step_batch(batches, i: int):
+    """Step ``i`` of every client: ``(C, K, ...)`` leaves -> ``(C, ...)``."""
     return tm.tmap(lambda x: x[:, i], batches)
 
 
@@ -47,7 +48,7 @@ def sgd_steps(params, opt: Optimizer, opt_state, grad_fn: Callable, batches,
     losses = []
     for i in range(start, stop):
         params, opt_state, loss = _local_step(params, opt, opt_state,
-                                              grad_fn, _step_batch(batches, i))
+                                              grad_fn, step_batch(batches, i))
         losses.append(loss)
     return params, opt_state, torch.stack(losses, dim=1)
 
@@ -64,7 +65,7 @@ def iasg_window(params, opt: Optimizer, opt_state, grad_fn: Callable,
     losses = []
     for i in range(start, start + steps):
         params, opt_state, loss = _local_step(params, opt, opt_state,
-                                              grad_fn, _step_batch(batches, i))
+                                              grad_fn, step_batch(batches, i))
         acc = tm.tmap(lambda a, p: a + p.to(sample_dtype), acc, params)
         losses.append(loss)
     sample = tm.flatten(tm.tscale(1.0 / steps, acc))

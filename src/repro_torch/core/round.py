@@ -3,12 +3,10 @@
 
 ``FedSim`` resolves a ``FedConfig`` into round programs (the sampling
 regime and, with ``burn_in_rounds``, the FedAvg burn-in regime) and hands
-them to the window-1 ``RoundEngine``. The host samples client ids and
-stacks their numpy batches; the whole round then runs on ``device``, the
-cohort batched over a leading client axis. With every fault knob at its
-default the reference's ``CohortSource`` draws exactly ``ClientSampler``'s
-cohorts (``repro/core/round.py:79-84``), so the port samples with
-``ClientSampler`` directly.
+them to the window-1 ``RoundEngine``. Its cohorts come from the
+fault-injecting ``CohortSource`` (availability, dropout, step budgets),
+which samples client ids and stacks their numpy batches on the host; the
+whole round then runs on ``device`` in the configured placement.
 """
 from __future__ import annotations
 
@@ -24,10 +22,9 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core import tree_math as tm
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round_program import make_round_program
-from repro_torch.core.server import (ServerState, check_weight_total,
-                                     init_server_state)
+from repro_torch.core.server import ServerState, init_server_state
+from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.prefetch import Cohort, stack_host
-from repro_torch.data.sampling import ClientSampler
 from repro_torch.optim import get_optimizer
 
 
@@ -51,9 +48,10 @@ class FedSim:
     leading step axis (numpy leaves); ``grad_fn(params, batch) -> (loss,
     grads)`` for ONE client, written with ``torch.func`` so the round can
     ``vmap`` it over the cohort. ``params`` are a dict of tensors (or one
-    tensor). ``device`` defaults to ``cuda`` and raises without a GPU. The
-    placement is ``fed.round_placement``, which ``FedConfig`` holds to
-    ``"parallel"`` in this port.
+    tensor). ``device`` defaults to ``cuda`` and raises without a GPU.
+    ``placement`` / ``chunk_size`` override ``fed.round_placement`` /
+    ``fed.round_chunk_size``: the round math is the same in all three
+    placements, only the stacks of clients the kernels see differ.
     """
 
     fed: FedConfig
@@ -63,12 +61,18 @@ class FedSim:
     client_weights: Optional[np.ndarray] = None
     seed: int = 0
     device: Optional[object] = None
+    placement: Optional[str] = None
+    chunk_size: Optional[int] = None
 
     def __post_init__(self):
-        """Resolve the device, the sampler, the optimizers, the algorithm."""
+        """Resolve the device, the cohort source, the optimizers, the
+        algorithm."""
         self.device = resolve_device(self.device)
-        self.sampler = ClientSampler(self.num_clients,
-                                     self.fed.clients_per_round, self.seed)
+        self.source = CohortSource(self.fed, self.num_clients,
+                                   self.stack_cohort, self.client_weights,
+                                   self.seed)
+        # ClientSampler API parity (the source draws on its stream)
+        self.sampler = self.source.sampler
         self.server_opt = get_optimizer(self.fed.server_opt,
                                         self.fed.server_lr,
                                         self.fed.server_momentum)
@@ -97,16 +101,9 @@ class FedSim:
         ])
 
     def cohort(self, round_idx: int) -> Cohort:
-        """Sample and materialize one round's inputs."""
-        ids = self.sampler.sample(round_idx)
-        batches = self.stack_cohort(ids, round_idx)
-        weights = None
-        if self.client_weights is not None:
-            weights = np.asarray([self.client_weights[int(c)] for c in ids],
-                                 np.float32)
-            check_weight_total(float(weights.sum()), weights.shape,
-                               context=f"round {round_idx}: ")
-        return Cohort(round_idx, ids, batches, weights)
+        """Sample and materialize one round's inputs, with its fault
+        annotations (``CohortSource.cohort``)."""
+        return self.source.cohort(round_idx)
 
     def round(self, state: ServerState, round_idx: int,
               cohort: Optional[Cohort] = None):
@@ -129,7 +126,8 @@ class FedSim:
         if self._engine is None:
             def program(use_sampling: bool):
                 return make_round_program(
-                    self.grad_fn, self.fed, use_sampling=use_sampling,
+                    self.grad_fn, self.fed, placement=self.placement,
+                    chunk_size=self.chunk_size, use_sampling=use_sampling,
                     server_opt=self.server_opt)
 
             self._engine = RoundEngine(

@@ -37,16 +37,25 @@ def check_weight_total(total: float, shape=None, context: str = "") -> None:
             + (f" for weights of shape {shape}" if shape is not None else ""))
 
 
-def normalized_weights(client_weights, num_clients: int,
-                       device=None) -> torch.Tensor:
+def normalized_weights(client_weights, num_clients: int, device=None,
+                       *, masked: bool = False) -> torch.Tensor:
     """Host cohort weights (None = uniform) -> fp32 simplex weights on
-    ``device``; a non-positive sum raises."""
+    ``device``.
+
+    A user's weights with a non-positive sum raise. ``masked=True`` is the
+    survivor-masked path (the mask is already folded into the weights):
+    an all-zero vector degrades to zero weights, so an all-dropped round
+    is a zero aggregate, as the reference's traced weights are.
+    """
     if client_weights is None:
         return torch.full((num_clients,), 1.0 / num_clients,
                           dtype=torch.float32, device=device)
     w = np.asarray(client_weights, np.float32)
     total = w.sum(dtype=np.float32)
-    check_weight_total(float(total), w.shape)
+    if not masked:
+        check_weight_total(float(total), w.shape)
+    elif not total > 0:
+        return torch.zeros(w.shape, dtype=torch.float32, device=device)
     return torch.as_tensor(w / total, device=device)
 
 

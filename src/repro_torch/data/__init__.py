@@ -1,2 +1,3 @@
-"""Host-side data plumbing of the port: client sampling, cohorts and
+"""Host-side data plumbing of the port: client sampling, the
+fault-injecting cohort source, cohorts, synthetic least squares and
 synthetic LM tokens."""

@@ -1,6 +1,6 @@
 """One round's host-side inputs (port of the inline parts of
 ``repro/data/prefetch.py``: ``stack_host`` and ``Cohort``; the prefetchers
-wait for ROADMAP.md queue 1, item 8)."""
+wait for ROADMAP.md queue 1, item 8, and the port never forks a process)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -26,10 +26,20 @@ def stack_host(trees):
 class Cohort(NamedTuple):
     """One round's materialized inputs: ids are informational, ``batches``
     carries the (C, K, ...) stacked trees, ``weights`` is None for
-    uniform. (The reference's fault annotations come with
-    ``data/cohort_source.py``, ROADMAP.md queue 1, item 8.)"""
+    uniform.
+
+    The trailing fields are the fault annotations of
+    ``data.cohort_source.CohortSource``: ``survivors`` is the (C,) float
+    0/1 mid-round dropout mask the round program threads into the
+    aggregation (None = no mask faults this run), ``extra_staleness`` the
+    straggler lateness (always 0 in the synchronous port) and ``dropped``
+    the count of masked-out cohort slots (for the round history).
+    """
 
     round_idx: int
     client_ids: object
     batches: object
     weights: Optional[object] = None
+    survivors: Optional[object] = None
+    extra_staleness: int = 0
+    dropped: int = 0

@@ -7,12 +7,20 @@ reduce's fp32 sums over d run in another order (1e-4 relative, 1e-2 absolute
 on sums of ~4e5 terms); the map is one fused pass, 1e-5 (fp32) or one bf16
 rounding, 2e-2 (bf16 outputs); decode attention 2e-5 (fp32) and 2e-2
 (bf16), as ``tests/test_kernels.py``, and two calls of it agree bit for
-bit.
+bit. One DP step on the card against the twins' step: 1e-4 relative plus
+1e-4 of the largest entry (the coefficients come from reduce sums in
+another order; entries that cancel keep an absolute error of the largest
+entry's size). A round on the card against the same round on the CPU:
+1e-4 relative, 1e-5 absolute (fp32 least squares, 12 local steps).
 """
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fedpa_dp, ref, swa_decode
+from repro_torch.configs.base import FedConfig
+from repro_torch.core.round import FedSim
+from repro_torch.data.synthetic_lsq import lsq_batches, make_federated_lsq
+from repro_torch.kernels import fedpa_dp, ops, ref, swa_decode
 
 
 @pytest.mark.gpu
@@ -141,3 +149,103 @@ def test_swa_decode_one_launch_and_checks_after_memo():
     with pytest.raises(ValueError, match="16-byte"):
         kk = torch.empty(k.numel() + 1, device="cuda", dtype=k.dtype)
         swa_decode.swa_decode_attention(q, kk[1:].view(k.shape), v, sp, 299)
+
+
+def _cohort_with_padding(C, lp, d, pad, seed):
+    """A DP step's operands for C clients whose last ``pad`` clients
+    duplicate client 0, as the chunked placement pads a chunk: u, delta
+    (C, d), V (C, lp, d), the combine weights w and coefficients c_hist
+    (C, lp), the scale s (C,)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u, delta = (torch.randn(C, d, device="cuda", generator=g)
+                for _ in range(2))
+    V = torch.randn(C, lp, d, device="cuda", generator=g)
+    w = torch.randn(C, lp, device="cuda", generator=g)
+    c_hist = torch.rand(C, lp, device="cuda", generator=g)
+    s = torch.randn(C, device="cuda", generator=g)
+    for x in (u, delta, V, w, c_hist, s):
+        x[C - pad:] = x[:1]
+    return u, delta, V, w, c_hist, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,d,pad", [(1, 1300, 0), (1, 428_350, 0),
+                                     (6, 1300, 2), (6, 428_350, 2)])
+def test_dp_kernels_and_step_at_sequential_and_chunk_shapes(C, d, pad):
+    """The stacks the new placements launch: one client (``sequential``)
+    and a chunk of 6 whose last 2 clients are zero-weight copies of
+    client 0 (``chunked``); a copy's results equal client 0's bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lp, t, rho = 4, 4, 0.1
+    u, delta, V, w, c_hist, s = _cohort_with_padding(C, lp, d, pad,
+                                                      C * 7 + pad)
+    before = dict(fedpa_dp.launches)
+    got = fedpa_dp.dp_reduce(u, delta, V)
+    for a, b in zip(got, ref.dp_reduce_ref(u, delta, V)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-2)
+    vout, dout = fedpa_dp.dp_map(w, s, u, delta, V)
+    v_ref, d_ref = ref.dp_map_ref(w, s, u, delta, V)
+    torch.testing.assert_close(vout, v_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dout, d_ref, rtol=1e-5, atol=1e-5)
+    step = ops.dp_step(u, delta, V, c_hist, t, rho)
+    for a, b in zip(step, ref.dp_step_ref(u, delta, V, c_hist, t, rho)):
+        tol = 1e-4 * max(b.abs().max().item(), 1.0)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=tol)
+    torch.cuda.synchronize()
+    for out in (*got, vout, dout, *step):
+        for row in range(C - pad, C):
+            assert torch.equal(out[row], out[0])
+    assert fedpa_dp.launches["dp_reduce"] == before["dp_reduce"] + 2
+    assert fedpa_dp.launches["dp_map"] == before["dp_map"] + 2
+
+
+def _lsq_sim(device, placement, chunk):
+    """FedPA on a 4-client least-squares problem: 12 local steps, 4
+    burn-in, windows of 2 (l = 4, so 3 DP steps per client)."""
+    _, data = make_federated_lsq(4, 50, 3, heterogeneity=20.0, seed=0)
+
+    def batch_fn(cid, r, steps):
+        X, y = data[cid]
+        return lsq_batches(X, y, 10, steps, seed=r * 131 + cid)
+
+    grad_and_value = torch.func.grad_and_value(
+        lambda p, b: 0.5 * ((b["x"] @ p - b["y"]) ** 2).mean() * 50)
+
+    def grad_fn(p, b):
+        g, value = grad_and_value(p, b)
+        return value, g
+
+    fed = FedConfig(algorithm="fedpa", clients_per_round=4, local_steps=12,
+                    burn_in_steps=4, steps_per_sample=2, shrinkage_rho=0.5,
+                    client_opt="sgd", client_lr=0.01, server_opt="sgd",
+                    server_lr=0.1)
+    return FedSim(fed, grad_fn, batch_fn, num_clients=4, device=device,
+                  placement=placement, chunk_size=chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("placement,chunk,stacks", [
+    ("sequential", None, 4), ("chunked", 3, 2), ("parallel", None, 1)])
+def test_round_launches_each_dp_kernel_once_per_stack_and_step(
+        placement, chunk, stacks):
+    """A FedPA round makes (l - 1) DP steps per stack of clients: C stacks
+    at ``sequential``, one per chunk (padding included) at ``chunked``;
+    its params equal the same round on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sim = _lsq_sim("cuda", placement, chunk)
+    state = sim.init(torch.zeros(3))
+    fedpa_dp.reset_launches()
+    state, record = sim.round(state, 0)
+    torch.cuda.synchronize()
+    assert fedpa_dp.launches == {"dp_reduce": stacks * 3,
+                                 "dp_map": stacks * 3}
+    cpu = _lsq_sim("cpu", placement, chunk)
+    cpu_state, cpu_record = cpu.round(cpu.init(torch.zeros(3)), 0)
+    np.testing.assert_allclose(state.params.cpu().numpy(),
+                               cpu_state.params.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    assert record["loss_last"] == pytest.approx(cpu_record["loss_last"],
+                                                rel=1e-4)

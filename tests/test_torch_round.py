@@ -24,13 +24,12 @@ from test_torch_core import numpy_cnn_params
 from repro.configs import emnist_cnn as jax_emnist
 from repro.configs.base import FedConfig as JaxFedConfig
 from repro.core import FedSim as JaxFedSim
-from repro.data import make_federated_lsq
-from repro.data.synthetic_lsq import lsq_batches
 from repro.models import cnn as jax_cnn
 from repro_torch.configs import emnist_cnn
 from repro_torch.configs.base import FedConfig
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core.round import FedSim
+from repro_torch.data.synthetic_lsq import lsq_batches, make_federated_lsq
 from repro_torch.models import cnn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -48,18 +47,16 @@ def _x32():
     jax.config.update("jax_enable_x64", prev)
 
 
-@pytest.fixture(scope="module")
-def lsq_problem():
-    """``engine_goldens_common.make_problem``'s problem, batches as numpy
-    and the loss in torch."""
+def torch_lsq_problem():
+    """``engine_goldens_common.make_problem``'s problem through the port's
+    ``synthetic_lsq`` (the same numpy draws): numpy batches, the loss in
+    torch. Returns ``(grad_fn, batch_fn)``."""
     _, data = make_federated_lsq(egc.C, 50, egc.D, heterogeneity=20.0,
                                  seed=0)
-    data = [(np.asarray(X), np.asarray(y)) for X, y in data]
 
     def batch_fn(cid, r, steps):
         X, y = data[cid]
-        b = lsq_batches(X, y, 10, steps, seed=r * 131 + cid)
-        return {k: np.asarray(v) for k, v in b.items()}
+        return lsq_batches(X, y, 10, steps, seed=r * 131 + cid)
 
     def loss(p, batch):
         r = batch["x"] @ p - batch["y"]
@@ -72,6 +69,12 @@ def lsq_problem():
         return value, g
 
     return grad_fn, batch_fn
+
+
+@pytest.fixture(scope="module")
+def lsq_problem():
+    """``torch_lsq_problem`` once per module."""
+    return torch_lsq_problem()
 
 
 @pytest.mark.parametrize("name", ["fedavg", "fedavg_weighted", "fedpa",
@@ -157,6 +160,13 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for f in files[:-1]}
+    assert {"data/synthetic_lsq.py", "data/cohort_source.py",
+            "core/shrinkage.py", "core/posterior.py", "core/client.py",
+            "optim/schedules.py", "algorithms/fedprox.py",
+            "algorithms/mime.py", "algorithms/fedpa_precision.py",
+            "examples/quickstart.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
