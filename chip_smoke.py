@@ -12,8 +12,18 @@
 2. Holds each DP kernel against its plain PyTorch twin on the card at the
    FedPA path's shapes (C=16 clients, d=428,350, lp in {1, 4}; C=1 and
    C=6, the stacks of the sequential and chunked placements), on a ragged
-   d=1300, and with bf16 inputs; times kernel, twin and one library call,
-   and computes each kernel's bound from the bytes it must move.
+   d=1300, and with bf16 inputs; two calls must agree bit for bit, and at
+   C=16 each client alone must equal its row of the stack bit for bit.
+   Times kernel and one library call in turns (kernel, library, library,
+   kernel) and the twin, with the inputs rotated through more memory than
+   the L2 cache holds: ``ms`` by CUDA events over back-to-back calls (host
+   time included) and, at C = 1, 6, 16 fp32 and C = 16 bf16, ``device_ms``
+   (the calls replayed from a CUDA graph) and ``host_ms`` (the wrapper's
+   host time per call); computes each kernel's bound from the bytes it
+   must move. Then the whole ``ops.dp_step`` at C = 1, 6 and 16 against
+   the twins' step and against the step through library calls (``bmm``,
+   the coefficients, ``baddbmm``), with the device operations one step
+   makes as ``torch.profiler`` counts them.
 3. Drives the FedPA path: ``FedSim(device="cuda").run`` for 3 FedPA rounds
    of the full-width EMNIST CNN (16 of 64 clients, l=5, one burn-in round),
    with batch and with streaming DP; each DP kernel must have been launched
@@ -150,78 +160,278 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_kernels(card: str):
-    """Phase 2: every kernel against its twin; returns the numbers of the
-    main path's shape (fp32, C=16, lp=4) per kernel."""
+def rotating(n: int, make):
+    """``n`` copies made by ``make()`` and a function that hands them out in
+    turn, so that timed calls find their inputs cold in the L2 cache."""
+    copies = [make() for _ in range(n)]
+    it = itertools.cycle(copies)
+    return copies, lambda: next(it)
+
+
+def copies_past_l2(nbytes_one: int) -> int:
+    """How many copies of inputs of ``nbytes_one`` bytes make 3x the L2."""
+    return max(1, min(8, math.ceil(3 * L2_BYTES / nbytes_one)))
+
+
+def device_ops_per_call(fn, calls: int = 10, tries: int = 3):
+    """Device operations (kernels, copies, memsets) per call of ``fn``, as
+    ``torch.profiler`` sees them over ``calls`` calls; the profiler misses
+    a record now and then, never adds one, so the most of ``tries`` tries
+    is kept. Returns (ops per call, sorted names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best, names = 0, set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(ev) > best:
+            best, names = len(ev), {e.name for e in ev}
+    return best / calls, sorted(names)
+
+
+#: phase 2's DP cases (C, lp, d, dtype): the main path's shape (the
+#: cohort at ``parallel``), lp 1, the stacks of ``sequential`` (1) and
+#: ``chunked`` chunk 6, a ragged small d, and bf16 inputs. The cases marked
+#: timed also get device and host times.
+DP_D = 428_350
+DP_CASES = ((16, 4, DP_D, "float32", True), (16, 1, DP_D, "float32", False),
+            (1, 4, DP_D, "float32", True), (6, 4, DP_D, "float32", True),
+            (3, 4, 1300, "float32", False), (16, 4, DP_D, "bfloat16", True))
+#: the ``ops.dp_step`` rows: stacks of 1, 6 and 16 clients
+STEP_CS = (1, 6, 16)
+
+
+def library_reduce(u, delta, V):
+    """The reduce's dots as one library call (``bmm``), then ``uu``, ``ud``
+    by two more: the library form of ``dp_step``'s reduce."""
+    import torch
+
+    return (torch.bmm(V, u[..., None])[..., 0], (u * u).sum(-1),
+            (u * delta).sum(-1))
+
+
+def library_map(w, s, u, delta, V):
+    """The map's combine as one library call (``baddbmm``), then
+    ``delta'``: the library form of ``dp_step``'s map."""
+    import torch
+
+    v = torch.baddbmm(u[:, None, :], w.to(u.dtype)[:, None, :], V,
+                      alpha=-1)[:, 0]
+    return v, delta - s[:, None].to(u.dtype) * v
+
+
+def check_dp_case(C, lp, d, dtype_name, timed, rate):
+    """One DP case of phase 2: both kernels against their twins, two calls
+    bit for bit, at C = 16 every client alone against its row of the stack,
+    and their times; returns {kernel: row}."""
     import torch
 
     from repro_torch.kernels import fedpa_dp, ref
 
-    rate = hbm_rate(card)
-    d_main = 428_350
-    # the FedPA path's stacks: the cohort (parallel), one client
-    # (sequential), a chunk of 6 (chunked)
-    cases = [(16, 4, d_main, torch.float32), (16, 1, d_main, torch.float32),
-             (1, 4, d_main, torch.float32), (6, 4, d_main, torch.float32),
-             (3, 4, 1300, torch.float32), (16, 4, d_main, torch.bfloat16)]
-    main = {}
-    for C, lp, d, dtype in cases:
-        g = torch.Generator(device="cuda").manual_seed(C * 1000 + lp)
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(C * 1000 + lp)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    n = copies_past_l2(C * (lp + 2) * d * esize)
+
+    def make():
         u, delta = (torch.randn(C, d, device="cuda", generator=g).to(dtype)
                     for _ in range(2))
         V = torch.randn(C, lp, d, device="cuda", generator=g).to(dtype)
-        w = torch.randn(C, lp, device="cuda", generator=g)
-        s = torch.randn(C, device="cuda", generator=g)
-        tag = f"C={C} lp={lp} d={d} {str(dtype).split('.')[-1]}"
+        return u, delta, V
 
-        got = fedpa_dp.dp_reduce(u, delta, V)
-        want = ref.dp_reduce_ref(u, delta, V)
-        torch.cuda.synchronize()
-        red_err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        scale = max(b.abs().max().item() for b in want)
-        # fp32 sums of d terms in another order: 1e-5 of the largest sum
-        if not red_err <= 1e-5 * max(scale, 1.0):
-            fail(f"dp_reduce {tag}: max err {red_err} (scale {scale})")
+    copies, nxt = rotating(n, make)
+    u, delta, V = copies[0]
+    w = torch.randn(C, lp, device="cuda", generator=g)
+    s = torch.randn(C, device="cuda", generator=g)
+    tag = f"C={C} lp={lp} d={d} {dtype_name}"
 
-        vout, dout = fedpa_dp.dp_map(w, s, u, delta, V)
-        v_ref, d_ref = ref.dp_map_ref(w, s, u, delta, V)
-        torch.cuda.synchronize()
-        map_err = max((vout.float() - v_ref.float()).abs().max().item(),
-                      (dout.float() - d_ref.float()).abs().max().item())
-        scale = max(v_ref.float().abs().max().item(),
-                    d_ref.float().abs().max().item())
-        # fp32: an ulp or so of the largest entry; bf16 outputs: one bf16
-        # rounding (2^-8 relative) of the largest entry
-        tol = (2e-2 if dtype == torch.bfloat16 else 1e-6) * max(scale, 1.0)
-        if not map_err <= tol:
-            fail(f"dp_map {tag}: max err {map_err} (scale {scale})")
+    got = fedpa_dp.dp_reduce(u, delta, V)
+    again = fedpa_dp.dp_reduce(u, delta, V)
+    want = ref.dp_reduce_ref(u, delta, V)
+    torch.cuda.synchronize()
+    red_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    scale = max(b.abs().max().item() for b in want)
+    # fp32 sums of d terms in another order: 1e-5 of the largest sum
+    if not red_err <= 1e-5 * max(scale, 1.0):
+        fail(f"dp_reduce {tag}: max err {red_err} (scale {scale})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"dp_reduce {tag}: two calls differ")
 
-        red_bytes = nbytes(u, delta, V) + C * (lp + 2) * 4
-        map_bytes = nbytes(w, s, u, delta, V) + nbytes(u, delta)
-        rows = {
-            "dp_reduce": dict(
-                max_abs_err=red_err,
-                ms=time_ms(lambda: fedpa_dp.dp_reduce(u, delta, V)),
-                plain_ms=time_ms(lambda: ref.dp_reduce_ref(u, delta, V)),
-                library_ms=time_ms(lambda: torch.bmm(V, u[..., None])),
-                bound_ms=max(red_bytes / rate,
-                             2 * C * (lp + 2) * d / FP32_PEAK) * 1e3),
-            "dp_map": dict(
-                max_abs_err=map_err,
-                ms=time_ms(lambda: fedpa_dp.dp_map(w, s, u, delta, V)),
-                plain_ms=time_ms(lambda: ref.dp_map_ref(w, s, u, delta, V)),
-                library_ms=time_ms(lambda: torch.baddbmm(
-                    u[:, None, :], w.to(dtype)[:, None, :], V, alpha=-1)),
-                bound_ms=max(map_bytes / rate,
-                             2 * C * (lp + 1) * d / FP32_PEAK) * 1e3),
-        }
-        for name, r in rows.items():
-            print(f"kernel {name} [{tag}]: max_abs_err={r['max_abs_err']:.3g} "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']:.4f} "
-                  f"bound_ms={r['bound_ms']:.4f} (bytes)", flush=True)
-        if (C, lp, d, dtype) == cases[0]:
+    vout, dout = fedpa_dp.dp_map(w, s, u, delta, V)
+    v2, d2 = fedpa_dp.dp_map(w, s, u, delta, V)
+    v_ref, d_ref = ref.dp_map_ref(w, s, u, delta, V)
+    torch.cuda.synchronize()
+    map_err = max((vout.float() - v_ref.float()).abs().max().item(),
+                  (dout.float() - d_ref.float()).abs().max().item())
+    scale = max(v_ref.float().abs().max().item(),
+                d_ref.float().abs().max().item())
+    # fp32: an ulp or so of the largest entry; bf16 outputs: one bf16
+    # rounding (2^-8 relative) of the largest entry
+    tol = (2e-2 if dtype == torch.bfloat16 else 1e-6) * max(scale, 1.0)
+    if not map_err <= tol:
+        fail(f"dp_map {tag}: max err {map_err} (scale {scale})")
+    if not (torch.equal(vout, v2) and torch.equal(dout, d2)):
+        fail(f"dp_map {tag}: two calls differ")
+
+    alone = ""
+    if C == 16:
+        for c in range(C):
+            one = [x[c:c + 1].clone() for x in (u, delta, V)]
+            red1 = fedpa_dp.dp_reduce(*one)
+            map1 = fedpa_dp.dp_map(w[c:c + 1].clone(), s[c:c + 1].clone(),
+                                   *one)
+            if not all(torch.equal(a[0], b[c]) for a, b in zip(red1, got)):
+                fail(f"dp_reduce {tag}: client {c} alone differs from its "
+                     f"row of the stack")
+            if not all(torch.equal(a[0], b[c])
+                       for a, b in zip(map1, (vout, dout))):
+                fail(f"dp_map {tag}: client {c} alone differs from its row "
+                     f"of the stack")
+        alone = "; each client alone == its row of the stack (bitwise)"
+
+    red_bytes = nbytes(u, delta, V) + C * (lp + 2) * 4
+    map_bytes = nbytes(w, s, u, delta, V) + nbytes(u, delta)
+    rows = {
+        "dp_reduce": dict(
+            max_abs_err=red_err,
+            kernel=lambda: fedpa_dp.dp_reduce(*nxt()),
+            plain=lambda: ref.dp_reduce_ref(*nxt()),
+            library=lambda: torch.bmm(nxt()[2], u[..., None]),
+            bound_ms=max(red_bytes / rate,
+                         2 * C * (lp + 2) * d / FP32_PEAK) * 1e3),
+        "dp_map": dict(
+            max_abs_err=map_err,
+            kernel=lambda: fedpa_dp.dp_map(w, s, *nxt()),
+            plain=lambda: ref.dp_map_ref(w, s, *nxt()),
+            library=lambda: torch.baddbmm(
+                u[:, None, :], w.to(dtype)[:, None, :], nxt()[2], alpha=-1),
+            bound_ms=max(map_bytes / rate,
+                         2 * C * (lp + 1) * d / FP32_PEAK) * 1e3),
+    }
+    for name, r in rows.items():
+        kernel, library = r.pop("kernel"), r.pop("library")
+        turns = [time_ms(fn) for fn in (kernel, library, library, kernel)]
+        r.update(ms=(turns[0] + turns[3]) / 2,
+                 library_ms=(turns[1] + turns[2]) / 2,
+                 plain_ms=time_ms(r.pop("plain")))
+        line = (f"kernel {name} [{tag}]: max_abs_err={r['max_abs_err']:.3g} "
+                f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                f"library_ms={r['library_ms']:.4f} "
+                f"bound_ms={r['bound_ms']:.4f} (bytes; inputs rotated over "
+                f"{n} copies); two calls equal bitwise{alone}")
+        if timed:
+            dev, lib_dev = device_ms_in_turns(kernel, library)
+            r.update(device_ms=dev, library_device_ms=lib_dev,
+                     host_ms=host_ms(kernel))
+            line += (f"; device_ms={dev:.4f} library_device_ms="
+                     f"{lib_dev:.4f} host_ms={r['host_ms']:.4f}; device "
+                     f"share of bound {r['bound_ms'] / dev:.3f}")
+        print(line, flush=True)
+    return rows
+
+
+def check_dp_step(C, rate, lp: int = 4, t: int = 5, rho: float = 0.01):
+    """One ``ops.dp_step`` row of phase 2 (fp32, main d, all lp history rows
+    live at t = lp + 1): the step against the twins' step, two calls bit for
+    bit, its times against the step through library calls, and the device
+    operations one step makes."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    d = DP_D
+    g = torch.Generator(device="cuda").manual_seed(C * 7 + t)
+    n = copies_past_l2(C * (lp + 2) * d * 4)
+
+    def make():
+        u, delta = (torch.randn(C, d, device="cuda", generator=g)
+                    for _ in range(2))
+        V = torch.randn(C, lp, d, device="cuda", generator=g)
+        c_hist = torch.rand(C, lp, device="cuda", generator=g)
+        return u, delta, V, c_hist
+
+    copies, nxt = rotating(n, make)
+    args = copies[0]
+    got = ops.dp_step(*args, t, rho)
+    again = ops.dp_step(*args, t, rho)
+    want = ref.dp_step_ref(*args, t, rho)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        err = max(err, (a - b).abs().max().item())
+        # the coefficients come from reduce sums in another order (1e-4
+        # relative); entries that cancel keep an error of the largest's size
+        tol = 1e-4 * max(b.abs().max().item(), 1.0)
+        if not torch.allclose(a, b, rtol=1e-4, atol=tol):
+            fail(f"dp_step C={C}: differs from the twins' step (max {err})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"dp_step C={C}: two calls differ")
+
+    def kernel():
+        return ops.dp_step(*nxt(), t, rho)
+
+    def library():
+        return ref.dp_step_with(library_reduce, library_map, *nxt(), t, rho)
+
+    u, delta, V, c_hist = args
+    step_bytes = 2 * nbytes(u, delta, V) + nbytes(c_hist) + 2 * nbytes(u) \
+        + 2 * C * 4
+    turns = [time_ms(fn) for fn in (kernel, library, library, kernel)]
+    dev, lib_dev = device_ms_in_turns(kernel, library)
+    ops_per_step, names = device_ops_per_call(kernel)
+    lib_ops, _ = device_ops_per_call(library)
+    # two launches and no other device operation (the profiler may miss a
+    # record, never add one)
+    if not 0 < ops_per_step <= 2 or not all(
+            "reduce_kernel" in k or "map_kernel" in k for k in names):
+        fail(f"dp_step C={C}: {ops_per_step} device ops per step: {names}")
+    row = dict(max_abs_err=err, ms=(turns[0] + turns[3]) / 2,
+               library_ms=(turns[1] + turns[2]) / 2, device_ms=dev,
+               library_device_ms=lib_dev, host_ms=host_ms(kernel),
+               plain_ms=time_ms(lambda: ref.dp_step_ref(*nxt(), t, rho)),
+               bound_ms=max(step_bytes / rate,
+                            2 * C * (2 * lp + 3) * d / FP32_PEAK) * 1e3,
+               device_ops=ops_per_step)
+    print(f"ops.dp_step [C={C} lp={lp} d={d} float32 t={t}]: max_abs_err="
+          f"{err:.3g} ms={row['ms']:.4f} device_ms={dev:.4f} host_ms="
+          f"{row['host_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
+          f"{row['library_ms']:.4f} library_device_ms={lib_dev:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} (bytes, both passes; inputs "
+          f"rotated over {n} copies); device ops per step "
+          f"{ops_per_step:g} (library form {lib_ops:g}): "
+          f"{', '.join(k[:60] for k in names)}", flush=True)
+    return row
+
+
+def check_kernels(card: str):
+    """Phase 2: every DP kernel against its twin and its times, then the
+    whole ``ops.dp_step``; returns the numbers of the main path's shape
+    (fp32, C=16, lp=4) per kernel, with ``by_stack`` holding the timed
+    cases' rows."""
+    rate = hbm_rate(card)
+    main, by_stack = {}, {}
+    for C, lp, d, dtype_name, timed in DP_CASES:
+        rows = check_dp_case(C, lp, d, dtype_name, timed, rate)
+        if timed:
+            for name, r in rows.items():
+                by_stack.setdefault(name, {})[f"C={C} {dtype_name}"] = r
+        if (C, lp, d, dtype_name) == DP_CASES[0][:4]:
             main = rows
+    for C in STEP_CS:
+        check_dp_step(C, rate)
+    for name in main:
+        main[name]["by_stack"] = {
+            k: {key: r[key] for key in ("ms", "device_ms", "host_ms",
+                                        "bound_ms", "library_ms",
+                                        "library_device_ms")}
+            for k, r in by_stack[name].items()}
     return main
 
 
@@ -864,7 +1074,8 @@ def main() -> int:
                     bound_by="bytes", library_ms=r["library_ms"],
                     **{key: r[key] for key in ("device_ms",
                                                "library_device_ms",
-                                               "host_ms") if key in r},
+                                               "host_ms", "by_stack")
+                       if key in r},
                     **({"launches_by_path": {run: n[name] for run, n in
                                              by_run.items()}}
                        if name in ("dp_reduce", "dp_map") else {}))

@@ -96,6 +96,10 @@ def on_cpu(*tensors) -> bool:
                      f"the CPU, got {sorted(str(t.device) for t in tensors)}")
 
 
-def stream() -> int:
-    """The current CUDA stream's handle, for a kernel's launch."""
-    return torch.cuda.current_stream().cuda_stream
+def stream(index: int | None = None) -> int:
+    """The current CUDA stream's handle, for a kernel's launch: of device
+    ``index`` (the cheaper call, without a ``Stream`` object), else of the
+    current device."""
+    if index is None:
+        return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -3,18 +3,17 @@ Sherman-Morrison DP step and the flat DP on the cohort (``dp_step``,
 ``dp_delta_flat``), and decode attention on ``(B, H, dh)`` query heads
 (``swa_decode``).
 
-``dp_step`` is the scalar glue around the two kernels: one ``dp_reduce``
-pass gives every dot the step needs, the coefficients follow in a few
-``(C,)``-sized ops, and one ``dp_map`` pass writes ``v_t`` and
-``Delta~_t``. CUDA tensors go to the kernels, CPU tensors to their plain
-twins (``fedpa_dp.dp_reduce`` / ``dp_map`` dispatch on the device).
+``dp_step`` on the card is two kernel launches and nothing between them:
+the reduce pass gives every dot the step needs and, in its epilogue, the
+step's coefficients (``ref.dp_coeffs``); the map pass reads them where the
+reduce left them and writes ``v_t`` and ``Delta~_t``. CPU tensors go to the
+plain twins (``fedpa_dp.dp_step`` dispatches on the device).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import fedpa_dp, swa_decode as swa
-from repro_torch.kernels.ref import dp_step_with
 
 
 def dp_step(u, delta, V, c_hist, t: int, rho: float):
@@ -25,11 +24,10 @@ def dp_step(u, delta, V, c_hist, t: int, rho: float):
     masked); c_hist: (C, lp) fp32 combine coefficients; t: sample index
     (>= 2).
 
-    Returns (v_t, Delta~_t, a_t, c_t): two passes over the history (one
-    launch of each kernel on CUDA) for the whole cohort.
+    Returns (v_t, Delta~_t, a_t, c_t): two passes over the live history
+    rows (one launch of each kernel on CUDA) for the whole cohort.
     """
-    return dp_step_with(fedpa_dp.dp_reduce, fedpa_dp.dp_map, u, delta, V,
-                        c_hist, t, rho)
+    return fedpa_dp.dp_step(u, delta, V, c_hist, t, rho)
 
 
 def dp_delta_flat(x0, samples, *, rho: float):

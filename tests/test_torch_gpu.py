@@ -25,8 +25,14 @@ from repro_torch.kernels import fedpa_dp, ops, ref, swa_decode
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C,lp,d", [(3, 1, 1300), (16, 4, 428_350)])
+@pytest.mark.parametrize("C,lp,d", [
+    (3, 1, 1300), (16, 4, 428_350),
+    *[(C, 4, d) for C in (1, 6, 16) for d in (4096, 1297, 1299, 428_350)
+      if (C, d) != (16, 428_350)]])
 def test_cuda_kernels_vs_twins(C, lp, d, dtype):
+    """The stacks of the three placements (1, 6, 16 clients) at every load
+    width: d 4096 (16-byte rows), 428,350 (8-byte in fp32, 4 in bf16), odd
+    d (one element)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(C * lp)
@@ -249,3 +255,130 @@ def test_round_launches_each_dp_kernel_once_per_stack_and_step(
                                atol=1e-5)
     assert record["loss_last"] == pytest.approx(cpu_record["loss_last"],
                                                 rel=1e-4)
+
+
+def _dp_operands(C, lp, d, tdt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u, delta = (torch.randn(C, d, device="cuda", generator=g).to(tdt)
+                for _ in range(2))
+    V = torch.randn(C, lp, d, device="cuda", generator=g).to(tdt)
+    w = torch.randn(C, lp, device="cuda", generator=g)
+    s = torch.randn(C, device="cuda", generator=g)
+    return u, delta, V, w, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [428_350, 4096, 1299])
+def test_dp_kernels_repeat_bitwise_and_client_alone_equals_its_row(d, dtype):
+    """Two calls give the same bits (the reduce's partials are combined in
+    a fixed order, no atomic on a value), and each client of a 16-stack
+    called alone gives its row of the stack bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    u, delta, V, w, s = _dp_operands(16, 4, d, getattr(torch, dtype), 11)
+    red = fedpa_dp.dp_reduce(u, delta, V)
+    mapped = fedpa_dp.dp_map(w, s, u, delta, V)
+    for a, b in zip(red, fedpa_dp.dp_reduce(u, delta, V)):
+        assert torch.equal(a, b)
+    for a, b in zip(mapped, fedpa_dp.dp_map(w, s, u, delta, V)):
+        assert torch.equal(a, b)
+    for c in range(16):
+        one = [x[c:c + 1].clone() for x in (u, delta, V)]
+        for a, b in zip(fedpa_dp.dp_reduce(*one), red):
+            assert torch.equal(a[0], b[c]), c
+        for a, b in zip(fedpa_dp.dp_map(w[c:c + 1].clone(),
+                                        s[c:c + 1].clone(), *one), mapped):
+            assert torch.equal(a[0], b[c]), c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dp_reduce_tile_matches_the_cpu_model(dtype):
+    """The reduce kernel's tile is the one ``ref.dp_reduce_split_ref``
+    models, so the CPU tests of its sum order hold for the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    esize = torch.tensor([], dtype=dtype).element_size()
+    assert fedpa_dp._lib().fedpa_dp_tile(int(dtype == torch.bfloat16)) \
+        == ref.reduce_tile(esize)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,t", [(1, 2), (6, 4), (16, 5)])
+def test_dp_step_is_two_kernels_and_captures_in_a_cuda_graph(C, t):
+    """``ops.dp_step`` on the card: the reduce (with the coefficients) and
+    the map, no other device operation, no host sync: it captures into a
+    CUDA graph whose replay gives the eager step's bits, within 1e-4 of the
+    twins' step (rows k >= t-1 hold values that must weigh nothing)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    lp, rho, d = 4, 0.1, 428_350
+    g = torch.Generator(device="cuda").manual_seed(C + t)
+    u, delta = (torch.randn(C, d, device="cuda", generator=g)
+                for _ in range(2))
+    V = torch.randn(C, lp, d, device="cuda", generator=g)
+    c_hist = torch.rand(C, lp, device="cuda", generator=g)
+    eager = ops.dp_step(u, delta, V, c_hist, t, rho)
+    for a, b in zip(eager, ref.dp_step_ref(u, delta, V, c_hist, t, rho)):
+        tol = 1e-4 * max(b.abs().max().item(), 1.0)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=tol)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(fedpa_dp.launches)
+    with torch.cuda.graph(graph):
+        captured = ops.dp_step(u, delta, V, c_hist, t, rho)
+    assert fedpa_dp.launches["dp_reduce"] == before["dp_reduce"] + 1
+    assert fedpa_dp.launches["dp_map"] == before["dp_map"] + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.dp_step(u, delta, V, c_hist, t, rho)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the profiler may miss a record now and then, never add one
+    assert 1 <= len(names) <= 2 * calls, names
+    assert all("reduce_kernel" in n or "map_kernel" in n for n in names), \
+        names
+
+
+@pytest.mark.gpu
+def test_dp_reduce_scratch_grows_and_counters_return_to_zero():
+    """The reduce's scratch (per-tile partials, per-client ticket counters)
+    grows for a larger call after a smaller one, the counters are 0 after
+    every launch, and a graph captured at the small shape still replays
+    right after the scratch grew."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    small = _dp_operands(1, 2, 3000, torch.float32, 5)[:3]
+    want_small = ref.dp_reduce_ref(*small)
+    fedpa_dp._scratch.pop(small[0].device.index, None)   # start it small
+    fedpa_dp.dp_reduce(*small)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_small = fedpa_dp.dp_reduce(*small)
+    index = small[0].device.index
+    partials, tickets = fedpa_dp._scratch[index]
+    large = _dp_operands(16, 6, 200_000, torch.float32, 6)[:3]
+    got = fedpa_dp.dp_reduce(*large)
+    for a, b in zip(got, ref.dp_reduce_ref(*large)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-2)
+    grown = fedpa_dp._scratch[index]
+    assert grown[0].numel() > partials.numel()
+    assert grown[1].numel() >= 16
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out_small, want_small):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    assert not tickets.any() and not grown[1].any()
+    for a, b in zip(fedpa_dp.dp_reduce(*small), want_small):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    torch.cuda.synchronize()
+    assert not fedpa_dp._scratch[index][1].any()
+
