@@ -23,7 +23,11 @@
    must move. Then the whole ``ops.dp_step`` at C = 1, 6 and 16 against
    the twins' step and against the step through library calls (``bmm``,
    the coefficients, ``baddbmm``), with the device operations one step
-   makes as ``torch.profiler`` counts them.
+   makes as ``torch.profiler`` counts them. Last, both DP kernels at the
+   LM training path's d = 100,684,032 (fedlm-100m), lp 3: C = 4, the
+   path's cohort, and C = 8, where ``V`` holds 2.42e9 elements (past
+   2^31, so the 64-bit offsets are exercised); each case's buffers are
+   freed after it.
 3. Drives the FedPA path: ``FedSim(device="cuda").run`` for 3 FedPA rounds
    of the full-width EMNIST CNN (16 of 64 clients, l=5, one burn-in round),
    with batch and with streaming DP; each DP kernel must have been launched
@@ -70,6 +74,19 @@
    (``repro_torch.examples.quickstart``, cut to 10 of its 60 rounds) on
    the card and on the CPU: FedPA must end closer to the optimum than
    FedAvg, and the card's params must equal the CPU's.
+9. LM training: ``repro_torch.launch.train.main`` on the full-width
+   fedlm-100m (d = 100,684,032) in bf16 compute, FedPA with 4 of 64
+   clients, 12 local steps (l = 4), batch 4 x 128 tokens, one burn-in
+   round and two FedPA rounds. Prints each round's record and host ms
+   beside the round's bound reckoned from the code, the peak memory,
+   and the launches: each DP kernel must have been launched (rounds -
+   burn-in rounds) x (l - 1) = 6 times, ``swa_decode`` never; a second,
+   profiled run of two FedPA rounds gives the device time per round, its
+   idle share and the kernels that take the most of it. Then the
+   same path in fp32 compute on fedlm-100m cut to one layer (2 clients,
+   batch 2 x 64 tokens, one burn-in and one FedPA round) on the card and
+   on the CPU from the same weights: the final params must agree (phase
+   4's bound).
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -95,6 +112,7 @@ SRC = ROOT / "src"
 HBM_RATES = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
 FP32_PEAK = 67e12          # H100 SXM, fp32 outside the tensor cores
+BF16_PEAK = 989e12         # H100 SXM, bf16 tensor cores, dense
 
 # the main path's configuration (ISSUE: one FedPA round of the EMNIST CNN)
 FED_KW = dict(algorithm="fedpa", clients_per_round=16, local_steps=14,
@@ -118,6 +136,20 @@ SOURCES = {"dp_reduce": "src/repro_torch/kernels/csrc/fedpa_dp.cu",
 REPLACES = {"dp_reduce": "src/repro/kernels/fedpa_dp.py:69",
             "dp_map": "src/repro/kernels/fedpa_dp.py:97",
             "swa_decode": "src/repro/kernels/swa_decode.py:70"}
+
+# phase 9: the LM training path at full width (the example's --full
+# settings, cut to 3 rounds and 1 burn-in round, 12 local steps for l = 4)
+TRAIN_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
+              "4", "--num-clients", "64", "--local-steps", "12",
+              "--burn-in-steps", "4", "--steps-per-sample", "2",
+              "--burn-in-rounds", "1", "--rounds", "3", "--batch", "4",
+              "--seq-len", "128", "--server-lr", "0.3"]
+# ... and its fp32 replay on one layer, card against CPU
+REPLAY_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
+               "2", "--num-clients", "64", "--local-steps", "12",
+               "--burn-in-steps", "4", "--steps-per-sample", "2",
+               "--burn-in-rounds", "1", "--rounds", "2", "--batch", "2",
+               "--seq-len", "64", "--server-lr", "0.3"]
 
 # the serving path (gemma3-27b at full width): batch, prompt, generated
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 64
@@ -201,9 +233,14 @@ def device_ops_per_call(fn, calls: int = 10, tries: int = 3):
 #: ``chunked`` chunk 6, a ragged small d, and bf16 inputs. The cases marked
 #: timed also get device and host times.
 DP_D = 428_350
+#: d of the LM training path (fedlm-100m's parameter count)
+LM_D = 100_684_032
 DP_CASES = ((16, 4, DP_D, "float32", True), (16, 1, DP_D, "float32", False),
             (1, 4, DP_D, "float32", True), (6, 4, DP_D, "float32", True),
-            (3, 4, 1300, "float32", False), (16, 4, DP_D, "bfloat16", True))
+            (3, 4, 1300, "float32", False), (16, 4, DP_D, "bfloat16", True),
+            (4, 3, LM_D, "float32", True), (8, 3, LM_D, "float32", True))
+#: the outputs a CUDA graph of timed calls may hold (phase 2)
+GRAPH_BYTES = 4 * 2**30
 #: the ``ops.dp_step`` rows: stacks of 1, 6 and 16 clients
 STEP_CS = (1, 6, 16)
 
@@ -279,6 +316,7 @@ def check_dp_case(C, lp, d, dtype_name, timed, rate):
         fail(f"dp_map {tag}: max err {map_err} (scale {scale})")
     if not (torch.equal(vout, v2) and torch.equal(dout, d2)):
         fail(f"dp_map {tag}: two calls differ")
+    del again, want, v2, d2, v_ref, d_ref
 
     alone = ""
     if C == 16:
@@ -327,7 +365,10 @@ def check_dp_case(C, lp, d, dtype_name, timed, rate):
                 f"bound_ms={r['bound_ms']:.4f} (bytes; inputs rotated over "
                 f"{n} copies); two calls equal bitwise{alone}")
         if timed:
-            dev, lib_dev = device_ms_in_turns(kernel, library)
+            # 20 calls in a graph, or 2 where 20 calls' outputs would hold
+            # more than GRAPH_BYTES (the map's (v, delta') at the LM's d)
+            iters = 20 if 20 * nbytes(u, delta) <= GRAPH_BYTES else 2
+            dev, lib_dev = device_ms_in_turns(kernel, library, iters=iters)
             r.update(device_ms=dev, library_device_ms=lib_dev,
                      host_ms=host_ms(kernel))
             line += (f"; device_ms={dev:.4f} library_device_ms="
@@ -415,15 +456,19 @@ def check_kernels(card: str):
     whole ``ops.dp_step``; returns the numbers of the main path's shape
     (fp32, C=16, lp=4) per kernel, with ``by_stack`` holding the timed
     cases' rows."""
+    import torch
+
     rate = hbm_rate(card)
     main, by_stack = {}, {}
     for C, lp, d, dtype_name, timed in DP_CASES:
         rows = check_dp_case(C, lp, d, dtype_name, timed, rate)
         if timed:
+            key = f"C={C} {dtype_name}" + (f" d={d}" if d != DP_D else "")
             for name, r in rows.items():
-                by_stack.setdefault(name, {})[f"C={C} {dtype_name}"] = r
+                by_stack.setdefault(name, {})[key] = r
         if (C, lp, d, dtype_name) == DP_CASES[0][:4]:
             main = rows
+        torch.cuda.empty_cache()
     for C in STEP_CS:
         check_dp_step(C, rate)
     for name in main:
@@ -798,12 +843,14 @@ def params_close(got, want, what: str) -> None:
     rtol 1e-3, atol 1e-4; prints the max abs difference."""
     import torch
 
-    err = max((got[k].cpu() - v.cpu()).abs().max().item()
-              for k, v in want.items())
+    from repro_torch.core import tree_math as tm
+
+    pairs = list(zip(tm.tleaves(got), tm.tleaves(want)))
+    err = max((a.cpu() - b.cpu()).abs().max().item() for a, b in pairs)
     print(f"  {what}: max abs diff {err:.3g}", flush=True)
-    for k, v in want.items():
-        if not torch.allclose(got[k].cpu(), v.cpu(), rtol=1e-3, atol=1e-4):
-            fail(f"{what}: {k} differs (max abs diff {err})")
+    for i, (a, b) in enumerate(pairs):
+        if not torch.allclose(a.cpu(), b.cpu(), rtol=1e-3, atol=1e-4):
+            fail(f"{what}: leaf {i} differs (max abs diff {err})")
 
 
 def rest_of_round(params, parallel_params, seed: int) -> dict:
@@ -937,8 +984,169 @@ def serve_path(seed: int) -> int:
     return launches
 
 
+def train_round_bound_ms(cfg, args, rate: float):
+    """The least time the card could take for one FedPA round of the
+    training path, reckoned from the port's code, operation by operation,
+    each at the larger of its bytes over ``rate`` and its FLOPs over the
+    bf16 peak. Returns ms of (total, matmuls, local-step elementwise work,
+    DP and server). Counts what the code does, not what a fused round
+    would need:
+
+    * matmuls: forward 2 x tokens x the weights each token multiplies (the
+      projections, the FFN, the tied unembedding) plus attention 4 B H S^2
+      dh a layer (each q chunk scores every key), backward twice that; for
+      C x K client steps and the eval forward;
+    * per client step and element of d: the bf16 cast of the params (6 B),
+      the fp32 cast of the bf16 grads (6 B), sgdm (momentum, scale, add:
+      40 B); on a sampling step the IASG sum (12 B); per sample its scale,
+      flatten and stack (24 B);
+    * per DP step at t (rows = t - 1) and element: u (12 B), the reduce (4
+      (2 + rows) B), the map (4 (4 + rows) B), the history row (8 B), the
+      mean (20 B); then the delta's rescale and unflatten (16 B a client)
+      and the server's sgdm (40 B, once).
+    """
+    d, C, K = cfg.param_count(), args.clients, args.local_steps
+    B, S, L = args.batch, args.seq_len, cfg.num_layers
+    D, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    weights = L * (2 * D * qd + 2 * D * kvd + 3 * D * cfg.d_ff) \
+        + cfg.padded_vocab * D
+    fwd = 2 * B * S * weights + L * 4 * B * cfg.num_heads * S * S \
+        * cfg.head_dim
+    mm_ms = (3 * fwd * C * K + fwd) / BF16_PEAK * 1e3
+    ell = (K - args.burn_in_steps) // args.steps_per_sample
+    sampling = ell * args.steps_per_sample
+    local = C * d * (52 * K + 12 * sampling + 24 * ell)
+    dp = C * d * (sum(12 + 4 * (2 + t - 1) + 4 * (4 + t - 1) + 8 + 20
+                      for t in range(2, ell + 1)) + 16) + 40 * d
+    local_ms, dp_ms = local / rate * 1e3, dp / rate * 1e3
+    return mm_ms + local_ms + dp_ms, mm_ms, local_ms, dp_ms
+
+
+def train_path(card: str, seed: int) -> dict:
+    """Phase 9, part 1: the full-width fedlm-100m through
+    ``launch.train.main``; returns the DP kernels' launches."""
+    import torch
+
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import train
+
+    args = train.parse_args(TRAIN_ARGV)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
+    fedpa_dp.reset_launches()
+    swa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(TRAIN_ARGV + ["--seed", str(seed)])
+    torch.cuda.synchronize()
+    launches = dict(fedpa_dp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, recs = res["cfg"], res["records"]
+    d = cfg.param_count()
+    total, mm, local, dp = train_round_bound_ms(cfg, args, hbm_rate(card))
+    # the DP's live vectors per client (samples 4, iterate and momentum 2,
+    # history 3, mean, delta, u, v, new delta and mean 6) and the server's
+    # params, momentum and anchor, in fp32
+    reckoned = (15 * args.clients + 3) * 4 * d
+    for rec, sec in zip(recs, res["seconds"]):
+        print(f"  round {rec['round']} ({rec['phase']}): host ms "
+              f"{sec * 1e3:.1f}; eval_loss {rec['eval_loss']:.4f}",
+              flush=True)
+    warm = [sec * 1e3 for rec, sec in zip(recs, res["seconds"])
+            if rec["phase"] == "fedpa"]
+    print(f"train {cfg.name}: d={d:,}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}; {args.clients} clients x "
+          f"{args.local_steps} steps x {args.batch}x{args.seq_len} tokens, "
+          f"l={ell}: FedPA round host ms {[round(x, 1) for x in warm]} "
+          f"(the first includes warm-up) against a bound of {total:.1f} ms "
+          f"(matmuls {mm:.1f}, local-step elementwise {local:.1f}, DP and "
+          f"server {dp:.1f}); peak memory allocated {peak / 2**30:.2f} GiB "
+          f"(reckoned {reckoned / 2**30:.2f} GiB of fp32 vectors); DP "
+          f"launches {launches} (expected {expected} each); swa_decode "
+          f"launches {swa.launches['swa_decode']} (expected 0)", flush=True)
+    if d != LM_D:
+        fail(f"fedlm-100m has d={d}, expected {LM_D}")
+    if any(n != expected for n in launches.values()):
+        fail(f"train: DP launches {launches} != {expected} each")
+    if swa.launches["swa_decode"] != 0:
+        fail("swa_decode launched on the training path")
+    losses = [r[k] for r in recs for k in ("eval_loss", "client_loss_first",
+                                           "client_loss_last")]
+    if len(recs) != args.rounds or not all(map(math.isfinite, losses)):
+        fail(f"train: records {recs}")
+    profile_train(sum(warm[1:]) / len(warm[1:]), seed)
+    return launches
+
+
+def profile_train(round_ms: float, seed: int, rounds: int = 2) -> None:
+    """Where a FedPA round's time goes: ``torch.profiler`` over a second run
+    of the path with every round in the FedPA regime (no burn-in). Prints
+    the device time and kernel count per round, their share of the
+    unprofiled warm round ``round_ms`` (the rest is the card waiting for
+    the host), and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train.main(TRAIN_ARGV + ["--seed", str(seed), "--rounds",
+                                 str(rounds), "--burn-in-rounds", "0"])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"train profile: the profiled run and its analysis took "
+          f"{time.perf_counter() - t0:.1f} s")
+    dev_ms = sum(e.self_device_time_total for e in events) / rounds / 1e3
+    if dev_ms <= 0:
+        print("train profile: the profiler saw no device time (device "
+              "share not measured)")
+        return
+    print(f"train profile ({rounds} FedPA rounds): "
+          f"{sum(e.count for e in events) / rounds:.0f} device ops and "
+          f"device time {dev_ms:.1f} ms per round, {dev_ms / round_ms:.3f} "
+          f"of the warm round ({round_ms:.1f} ms); device idle share "
+          f"{1 - dev_ms / round_ms:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / rounds / 1e3:8.2f} ms/round "
+              f"{e.count // rounds:6d} calls/round  {e.key[:90]}")
+
+
+def train_replay(seed: int) -> dict:
+    """Phase 9, part 2: the training path in fp32 on fedlm-100m cut to one
+    layer, on the card and on the CPU; returns the card run's DP
+    launches."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    argv = REPLAY_ARGV + ["--seed", str(seed)]
+    fedpa_dp.reset_launches()
+    t0 = time.perf_counter()
+    card = train.main(argv, cfg=cfg, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(fedpa_dp.launches)
+    t0 = time.perf_counter()
+    cpu = train.main(argv + ["--device", "cpu"], cfg=cfg,
+                     compute_dtype=torch.float32)
+    print(f"train replay ({cfg.name} cut to {cfg.num_layers} layer, d="
+          f"{cfg.param_count():,}, fp32): {card_s:.1f} s on the card, "
+          f"{time.perf_counter() - t0:.1f} s on the CPU; eval_loss card "
+          f"{[r['eval_loss'] for r in card['records']]}, CPU "
+          f"{[r['eval_loss'] for r in cpu['records']]}; DP launches "
+          f"{launches}", flush=True)
+    params_close(card["state"].params, cpu["state"].params,
+                 "fp32 one-layer train, card vs CPU")
+    return launches
+
+
 def main() -> int:
-    """Run the eight phases; returns the exit code."""
+    """Run the nine phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1066,6 +1274,13 @@ def main() -> int:
     by_run.update(rest_of_round(params, cuda_runs[False].params, args.seed))
     by_run["quickstart"] = quickstart_check()
     done(8)
+    torch.cuda.empty_cache()
+
+    # -- phase 9: LM training, full-width fedlm-100m ------------------------
+    by_run["fedlm-100m train"] = train_path(card, args.seed)
+    torch.cuda.empty_cache()
+    by_run["fedlm-100m 1 layer fp32 (vs CPU)"] = train_replay(args.seed)
+    done(9)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -1,2 +1,2 @@
-"""Payload byte accounting of the port (dense payloads; codecs wait for
-ROADMAP.md queue 1, item 9)."""
+"""Payload byte accounting and codec-spec validation of the port (dense
+payloads; the codecs wait for ROADMAP.md queue 1, item 9)."""

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List
 
-from repro_torch.configs import gemma3_27b, qwen3_32b
+from repro_torch.configs import fedlm_100m, gemma3_27b, qwen3_32b
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
     LM_ITEM,
     FedConfig,
@@ -24,13 +24,14 @@ from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
 )
 
 _MODULES = {
+    "fedlm-100m": fedlm_100m,
     "gemma3-27b": gemma3_27b,
     "qwen3-32b": qwen3_32b,
 }
 #: Architecture ids of the JAX package not registered here yet.
 PENDING_ARCHS = ("xlstm-125m", "minitron-4b", "musicgen-medium",
                  "internvl2-26b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
-                 "granite-34b", "llama4-scout-17b-a16e", "fedlm-100m")
+                 "granite-34b", "llama4-scout-17b-a16e")
 
 ALL_ARCHS: List[str] = list(_MODULES) + list(PENDING_ARCHS)
 

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.algorithms import get_algorithm
+from repro_torch.compression.base import parse_codec
 from repro_torch.optim import get_optimizer
 
 #: Client-state placements the JAX engine knows (``core.client_state.STORES``).
@@ -299,7 +300,8 @@ class FedConfig:
             raise ValueError(str(e)) from e
 
     def _validate_payload(self):
-        """``delta_dtype`` must name a torch floating dtype; codec knobs are
+        """``delta_dtype`` must name a torch floating dtype; the codec spec
+        is parsed as the reference parses it and the codec knobs are
         range-checked (only ``"none"`` runs in this port)."""
         dt = getattr(torch, str(self.delta_dtype), None)
         if not isinstance(dt, torch.dtype):
@@ -310,9 +312,7 @@ class FedConfig:
             raise ValueError(
                 f"delta_dtype must be a floating dtype (it carries deltas "
                 f"and posterior statistics), got {self.delta_dtype!r}")
-        if not isinstance(self.payload_codec, str) or not self.payload_codec:
-            raise ValueError(f"payload_codec must be a non-empty str, got "
-                             f"{self.payload_codec!r}")
+        parse_codec(self.payload_codec)
         if self.lora_rank < 1:
             raise ValueError(f"lora_rank must be >= 1, got {self.lora_rank}")
         if self.quant_bits not in (8, 16):

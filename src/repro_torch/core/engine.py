@@ -58,11 +58,17 @@ class RoundEngine:
 
     def run(self, state: ServerState, build_cohort: BuildCohort,
             num_rounds: int, *, eval_fn: Optional[Callable] = None,
-            eval_every: int = 1) -> Tuple[ServerState, List[dict]]:
+            eval_every: int = 1, on_round: Optional[Callable] = None
+            ) -> Tuple[ServerState, List[dict]]:
         """Returns ``(state, history)``: one uniform-schema record per
         round, converted to Python once at the end. ``eval_fn(params)``
         metrics ride the records of rounds with ``t % eval_every == 0``
-        (plus the last round)."""
+        (plus the last round).
+
+        ``on_round(record, state)`` fires after each server update with the
+        raw record (its metrics may still be on the device) and the
+        post-update state, for live logging; forcing the metrics there
+        costs one device sync per round."""
         if eval_fn is not None and eval_every < 1:
             raise ValueError(
                 f"eval_every must be >= 1 when eval_fn is set, got "
@@ -77,6 +83,9 @@ class RoundEngine:
                   if eval_fn is not None and (t % eval_every == 0
                                               or t == num_rounds - 1)
                   else None)
-            recorder.record(round_idx=t, metrics=metrics, is_burn=is_burn,
-                            dropped=cohort.dropped, eval_metrics=ev)
+            rec = recorder.record(round_idx=t, metrics=metrics,
+                                  is_burn=is_burn, dropped=cohort.dropped,
+                                  eval_metrics=ev)
+            if on_round is not None:
+                on_round(rec, state)
         return state, recorder.history()

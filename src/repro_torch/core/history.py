@@ -38,15 +38,17 @@ class RoundRecorder:
     def record(self, *, round_idx: int, metrics: dict, is_burn: bool = False,
                dropped: int = 0,
                eval_metrics: Optional[dict] = None) -> dict:
-        """Append one round's raw record (values may still be on device).
-        ``dropped`` counts the cohort's masked-out clients. The synchronous
-        rounds of this port have no staleness, stragglers or client-state
-        drops: those fields are stamped 0."""
+        """Append one round's raw record (values may still be on device)
+        and return it for live ``on_round`` consumers. ``dropped`` counts
+        the cohort's masked-out clients. The synchronous rounds of this
+        port have no staleness, stragglers or client-state drops: those
+        fields are stamped 0."""
         bts = (self.burn_round_bytes if is_burn
                else self.round_bytes) or self.round_bytes
-        rec = {"round": round_idx, "metrics": metrics, "dropped": dropped,
+        rec = {"round": round_idx, "staleness": 0, "metrics": metrics,
                "bytes_up": None if bts is None else bts["bytes_up"],
-               "bytes_down": None if bts is None else bts["bytes_down"]}
+               "bytes_down": None if bts is None else bts["bytes_down"],
+               "dropped": dropped, "straggled": 0, "state_drops": 0}
         if eval_metrics is not None:
             rec["eval"] = eval_metrics
         self._raw.append(rec)
@@ -56,7 +58,7 @@ class RoundRecorder:
         """Finalize every record to JSON-safe Python in one pass."""
         history = []
         for rec in self._raw:
-            entry = {"round": rec["round"], "staleness": 0,
+            entry = {"round": rec["round"], "staleness": rec["staleness"],
                      "loss_first": float(rec["metrics"]["loss_first"]),
                      "loss_last": float(rec["metrics"]["loss_last"])}
             entry["client_loss"] = entry["loss_last"]
@@ -64,8 +66,9 @@ class RoundRecorder:
                                  else json_scalar(rec["bytes_up"]))
             entry["bytes_down"] = (None if rec["bytes_down"] is None
                                    else json_scalar(rec["bytes_down"]))
-            entry.update(dropped=int(rec["dropped"]), straggled=0,
-                         state_drops=0)
+            entry.update(dropped=int(rec["dropped"]),
+                         straggled=rec["straggled"],
+                         state_drops=rec["state_drops"])
             entry.update({k: json_scalar(v)
                           for k, v in rec.get("eval", {}).items()})
             history.append(entry)

@@ -232,7 +232,8 @@ def make_cohort_program(grad_fn: Callable, fed, *,
                         chunk_size: Optional[int] = None,
                         use_sampling: bool = True,
                         client_opt: Optional[Optimizer] = None,
-                        server_opt: Optional[Optimizer] = None) -> Callable:
+                        server_opt: Optional[Optimizer] = None,
+                        wrap_client: Optional[Callable] = None) -> Callable:
     """Build ``cohort_fn(state, client_batches, client_weights=None,
     survivor_mask=None) -> (agg, {"loss_first", "loss_last"})``.
 
@@ -244,7 +245,8 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     is the algorithm's fp32 accumulator, which the server stage finalizes.
     ``use_sampling=False`` builds the algorithm's burn-in regime. Only
     ``state.params`` and the server-optimizer state (MIME's broadcast)
-    are read.
+    are read. ``wrap_client(update) -> update'`` wraps the algorithm's
+    client update (``core.sharded_round``'s compute-dtype boundary).
     """
     alg = resolve_algorithm(fed, use_sampling)
     eff = alg.fed
@@ -255,9 +257,11 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     grad = batched_grad(grad_fn)
     if eff.min_local_steps:
         grad = _budget_masked(grad)
-    ctx = _CohortCtx(alg=alg, client_update=alg.make_client_update(
-                         grad, client_opt),
-                     fed=fed, place=resolve_placement(fed, placement),
+    client_update = alg.make_client_update(grad, client_opt)
+    if wrap_client is not None:
+        client_update = wrap_client(client_update)
+    ctx = _CohortCtx(alg=alg, client_update=client_update, fed=fed,
+                     place=resolve_placement(fed, placement),
                      chunk_size=chunk_size, server_opt=server_opt)
 
     # torch.func.grad inside grad_fn ignores the outer no_grad: only the
@@ -294,7 +298,8 @@ def make_round_program(grad_fn: Callable, fed, *,
                        chunk_size: Optional[int] = None,
                        use_sampling: bool = True,
                        client_opt: Optional[Optimizer] = None,
-                       server_opt: Optional[Optimizer] = None) -> Callable:
+                       server_opt: Optional[Optimizer] = None,
+                       wrap_client: Optional[Callable] = None) -> Callable:
     """Build ``round_fn(state, client_batches, client_weights=None,
     survivor_mask=None) -> (new_state, {"loss_first", "loss_last"})``: the
     cohort stage then the server stage (see ``make_cohort_program``). The
@@ -303,7 +308,7 @@ def make_round_program(grad_fn: Callable, fed, *,
     cohort_fn = make_cohort_program(
         grad_fn, fed, placement=placement, chunk_size=chunk_size,
         use_sampling=use_sampling, client_opt=client_opt,
-        server_opt=server_opt)
+        server_opt=server_opt, wrap_client=wrap_client)
     server_fn = make_server_program(fed, server_opt=server_opt,
                                     use_sampling=use_sampling)
 

@@ -1,0 +1,88 @@
+"""The production federated round of the LM (port of
+``repro/core/sharded_round.py``), on one device.
+
+The reference builds one jitted SPMD program per placement and adds the
+sharding hooks of the TPU mesh:
+
+  * ``parallel`` — the cohort is a ``vmap`` whose client axis shards over
+    the mesh's data axes;
+  * ``sequential`` (>= 10B-param archs) — clients one after another, each
+    on the whole mesh, with FSDP-sharded master state and a bf16
+    all-gather at each client's compute boundary;
+  * ``chunked`` — ``chunk`` clients batched at a time, chunks in turn.
+
+On one device every sharding hook is the identity: ``fsdp_constrain`` and
+``tp_constrain`` (the reference's ``prepare_params``, ``constrain_accum``,
+``finalize_params`` and the payload constraint) place nothing, so they are
+left out. What stays of the sequential placement's client wrapper is its
+cast of the master params to ``compute_dtype`` before the client update:
+its clients step on params in the compute dtype, as the reference's do.
+The program structure and the client math live in
+``round_program.make_round_program``; this module contributes the LM
+``grad_fn`` and that wrapper.
+
+The reference's split (async) pair ``make_fed_round_split`` is not
+ported: it needs the engine's split backend (ROADMAP.md queue 1, item 8).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import FedConfig, ModelConfig
+from repro_torch.core import tree_math as tm
+from repro_torch.core.round_program import make_round_program
+from repro_torch.models.steps import lm_grad_fn
+
+
+def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
+                    compute_dtype, q_chunk: int, remat: str,
+                    use_sampling: bool, chunk_size: Optional[int]):
+    """Shared wiring: ``(grad_fn, round_kwargs)`` for a placement."""
+    grad_fn = lm_grad_fn(cfg, compute_dtype=compute_dtype, q_chunk=q_chunk,
+                         remat=remat)
+    kw = dict(placement=placement, use_sampling=use_sampling)
+    if placement in ("parallel", "chunked"):
+        return grad_fn, dict(kw, chunk_size=chunk_size)
+    if placement != "sequential":
+        raise ValueError(f"unknown placement {placement!r}")
+
+    def wrap_client(client_update):
+        def cast_client_update(master_params, batches, *extra):
+            """One client on the master params cast to the compute dtype
+            (the reference's all-gather boundary, without the gather)."""
+            return client_update(tm.tcast(master_params, compute_dtype),
+                                 batches, *extra)
+
+        return cast_client_update
+
+    return grad_fn, dict(kw, wrap_client=wrap_client)
+
+
+def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
+                   placement: str = "parallel",
+                   compute_dtype=torch.bfloat16, q_chunk: int = 1024,
+                   remat: str = "none", use_sampling: bool = True,
+                   chunk_size: Optional[int] = None) -> Callable:
+    """Build ``round_fn(server_state, client_batches, client_weights=None,
+    survivor_mask=None) -> (state, metrics)``.
+
+    client_batches: ``{"tokens": (C, K, B_local, S+1) int}`` (numpy or
+    tensors). ``use_sampling=False`` gives the burn-in-round variant
+    (FedAvg regime) of the same FedPA config. The reference's default
+    ``remat="full"`` does not compose with the round's ``torch.func``
+    transforms (``models.steps.lm_grad_fn``), so the port's default is
+    ``"none"``; the reference's ``spmd_axes`` have no counterpart on one
+    device.
+    """
+    grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
+                                  q_chunk, remat, use_sampling, chunk_size)
+    return make_round_program(grad_fn, fed, **kw)
+
+
+def default_placement(cfg: ModelConfig,
+                      threshold: int = 10_000_000_000) -> str:
+    """parallel for <10B-param archs (one client per data slice fits),
+    sequential otherwise."""
+    return "parallel" if cfg.param_count() < threshold else "sequential"

@@ -1,0 +1,296 @@
+"""Federated LM training entry point (port of ``repro/launch/train.py``), one
+process on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch fedlm-100m \\
+      --smoke --rounds 20 --algorithm fedpa --device cpu
+
+Runs federated rounds of the selected architecture on ``cuda`` unless
+``--device cpu`` is given, and raises without a GPU. The flags are the
+reference's, plus ``--device``. Each round prints one JSON record with the
+reference's keys. The weights are random, drawn on the CPU from ``--seed``
+(so every device starts from the same ones) and moved to the device in
+fp32; the local steps compute in bf16. On the card FedPA's DP steps run
+through the CUDA kernels ``dp_reduce`` / ``dp_map``.
+
+Differences from the reference:
+
+* ``--prefetch-rounds`` defaults to 0: the prefetchers are not ported.
+  Prefetching changes no number, only when cohorts are built.
+* No remat: torch's checkpointing does not compose with the round's
+  ``torch.func`` transforms (``models.steps.lm_grad_fn``), so every
+  repeat's activations are kept.
+* Flags whose paths are not ported raise ``NotImplementedError`` naming
+  their ROADMAP.md queue-1 item (``refuse_unported``).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.algorithms import algorithm_names, get_algorithm, phase_name
+from repro_torch.compression.accounting import round_bytes
+from repro_torch.configs.base import PENDING_ALGORITHMS, FedConfig, _not_ported
+from repro_torch.core import tree_math as tm
+from repro_torch.core.engine import RoundEngine
+from repro_torch.core.round import resolve_device
+from repro_torch.core.round_program import to_device
+from repro_torch.core.server import init_server_state
+from repro_torch.core.sharded_round import make_fed_round
+from repro_torch.data.cohort_source import CohortSource
+from repro_torch.data.lm_synthetic import SyntheticLMData
+from repro_torch.models.model import init_params
+from repro_torch.models.steps import lm_loss
+from repro_torch.optim import get_optimizer
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def build_fed(args) -> FedConfig:
+    """CLI flags -> the run's ``FedConfig``."""
+    return FedConfig(
+        algorithm=args.algorithm,
+        clients_per_round=args.clients,
+        local_steps=args.local_steps,
+        burn_in_steps=args.burn_in_steps,
+        steps_per_sample=args.steps_per_sample,
+        shrinkage_rho=args.rho,
+        server_opt=args.server_opt, server_lr=args.server_lr,
+        client_opt=args.client_opt, client_lr=args.client_lr,
+        burn_in_rounds=args.burn_in_rounds,
+        payload_codec=args.payload_codec,
+        lora_rank=args.lora_rank,
+        quant_bits=args.quant_bits,
+        error_feedback=not args.no_error_feedback,
+        async_rounds=args.async_rounds,
+        max_staleness=args.max_staleness,
+        staleness_discount=args.staleness_discount,
+        prefetch_rounds=args.prefetch_rounds,
+        prefetch_backend=args.prefetch_backend,
+        client_state_placement=args.client_state_placement,
+        availability=args.availability,
+        availability_period=args.availability_period,
+        availability_duty=args.availability_duty,
+        dropout_rate=args.dropout_rate,
+        straggler_rate=args.straggler_rate,
+        straggler_max_lateness=args.straggler_max_lateness,
+        min_local_steps=args.min_local_steps,
+    )
+
+
+def parse_args(argv=None):
+    """CLI flags of the training entry point: the reference's, plus
+    ``--device``."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="fedlm-100m",
+                    choices=configs.ALL_ARCHS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-friendly)")
+    ap.add_argument("--algorithm", default="fedpa",
+                    choices=sorted((*algorithm_names(), *PENDING_ALGORITHMS)),
+                    help="registered federated algorithm")
+    ap.add_argument("--rounds", type=int, default=50)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--num-clients", type=int, default=64,
+                    help="population size")
+    ap.add_argument("--local-steps", type=int, default=8)
+    ap.add_argument("--burn-in-steps", type=int, default=4)
+    ap.add_argument("--steps-per-sample", type=int, default=2)
+    ap.add_argument("--burn-in-rounds", type=int, default=5)
+    ap.add_argument("--rho", type=float, default=0.01)
+    ap.add_argument("--server-opt", default="sgdm")
+    ap.add_argument("--server-lr", type=float, default=0.5)
+    ap.add_argument("--client-opt", default="sgdm")
+    ap.add_argument("--client-lr", type=float, default=0.05)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--payload-codec", default="none",
+                    help="client payload codec chain; only 'none' is ported")
+    ap.add_argument("--lora-rank", type=int, default=4)
+    ap.add_argument("--quant-bits", type=int, default=8, choices=(8, 16))
+    ap.add_argument("--no-error-feedback", action="store_true")
+    ap.add_argument("--async-rounds", action="store_true",
+                    help="not ported (ROADMAP.md queue 1, item 8)")
+    ap.add_argument("--max-staleness", type=int, default=1)
+    ap.add_argument("--staleness-discount", type=float, default=0.9)
+    ap.add_argument("--prefetch-rounds", type=int, default=0,
+                    help="cohort batches built ahead; only 0 (inline) is "
+                         "ported (the reference's default is 2)")
+    ap.add_argument("--prefetch-backend", default="process",
+                    choices=("process", "thread"))
+    ap.add_argument("--availability", default="always",
+                    choices=("always", "diurnal"))
+    ap.add_argument("--availability-period", type=int, default=24)
+    ap.add_argument("--availability-duty", type=float, default=0.5)
+    ap.add_argument("--dropout-rate", type=float, default=0.0)
+    ap.add_argument("--straggler-rate", type=float, default=0.0)
+    ap.add_argument("--straggler-max-lateness", type=int, default=2)
+    ap.add_argument("--min-local-steps", type=int, default=0)
+    ap.add_argument("--client-state-placement", default="host",
+                    choices=("host", "device"))
+    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--shard-population", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="not ported (ROADMAP.md queue 1, item 7)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--log", default=None, help="JSONL metrics path")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without one)")
+    return ap.parse_args(argv)
+
+
+def refuse_unported(args) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP.md queue-1 item
+    for the first flag whose path this port does not have."""
+    pending = [
+        (args.async_rounds, "--async-rounds", 8),
+        (args.prefetch_rounds > 0, "--prefetch-rounds > 0", 8),
+        (args.client_state_placement != "host",
+         f"--client-state-placement {args.client_state_placement}", 7),
+        (args.ckpt_dir is not None, "--ckpt-dir (checkpoint/io.py)", 7),
+        (args.algorithm in ("scaffold", "fedep"),
+         f"--algorithm {args.algorithm}", 7),
+        (args.coordinator is not None, "--coordinator", 10),
+        ((args.num_processes or 1) > 1, "--num-processes > 1", 10),
+        (args.process_id is not None, "--process-id", 10),
+        (args.shard_population, "--shard-population", 10),
+        (args.payload_codec != "none",
+         f"--payload-codec {args.payload_codec}", 9),
+        (args.algorithm == "fedlora", "--algorithm fedlora", 9),
+    ]
+    for bad, what, item in pending:
+        if bad:
+            raise _not_ported(what, item)
+
+
+def make_round_batches(args, fed, data, s_text):
+    """The cohort batch function ``(ids, round) -> {"tokens": (C, K, B, S+1)}``
+    for ``CohortSource`` (numpy; the round moves it to the device)."""
+    def round_batches(ids, r):
+        return {"tokens": data.round_batches(ids, fed.local_steps,
+                                             args.batch, s_text,
+                                             round_idx=r)}
+
+    return round_batches
+
+
+def make_eval_fn(args, cfg, data, s_text, q_chunk, device, compute_dtype):
+    """Held-out eval loss on a batch from the unseen client
+    ``num_clients + 1``, without a graph."""
+    eval_batch = to_device({"tokens": data.client_batches(
+        args.num_clients + 1, 1, args.batch, s_text)[0]}, device)
+
+    @torch.no_grad()
+    def eval_fn(params):
+        return lm_loss(params, eval_batch, cfg, compute_dtype=compute_dtype,
+                       q_chunk=q_chunk, remat="none")[0]
+
+    return eval_fn
+
+
+def run_rounds(args, cfg, fed, alg, state, source, eval_fn, emit, q_chunk,
+               compute_dtype):
+    """Drive the window-1 ``RoundEngine`` over the burn-in and sampling
+    programs; returns ``(state, history)``."""
+    has_burn = alg.has_burn_regime and fed.burn_in_rounds > 0
+
+    def program(use_sampling):
+        return make_fed_round(cfg, fed, placement="parallel",
+                              compute_dtype=compute_dtype, q_chunk=q_chunk,
+                              use_sampling=use_sampling)
+
+    rb = round_bytes(fed, state.params)
+    engine = RoundEngine(
+        round_fn=program(True),
+        burn_round_fn=program(False) if has_burn else None,
+        burn_in_rounds=fed.burn_in_rounds,
+        round_bytes=rb,
+        burn_round_bytes=(round_bytes(fed, state.params, use_sampling=False)
+                          if has_burn else rb),
+    )
+    last_t = time.time()
+
+    def on_round(rec, round_state):
+        # one device sync per round, for live logging
+        nonlocal last_t
+        del round_state
+        r = rec["round"]
+        out = {"round": r,
+               "eval_loss": (float(rec["eval"]["eval_loss"])
+                             if "eval" in rec else None),
+               "client_loss_last": float(rec["metrics"]["loss_last"]),
+               "client_loss_first": float(rec["metrics"]["loss_first"]),
+               "staleness": rec["staleness"],
+               "phase": phase_name(fed, r),
+               "sec": round(time.time() - last_t, 2)}
+        for k in ("dropped", "straggled", "bytes_up", "bytes_down"):
+            out[k] = rec[k]
+        emit(out, time.time() - last_t)
+        last_t = time.time()
+
+    return engine.run(state, source.cohort, args.rounds,
+                      eval_fn=lambda p: {"eval_loss": eval_fn(p)},
+                      on_round=on_round)
+
+
+def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
+    """Parse flags, build the round programs, drive the training loop.
+
+    ``cfg`` replaces the config that ``--arch`` / ``--smoke`` name, and
+    ``compute_dtype`` the bf16 compute of the local steps (a full-width
+    model cut in depth, in fp32, for comparing devices). Returns ``cfg``,
+    the final ``state``, the engine's ``history``, the printed
+    ``records`` and each round's host ``seconds``.
+    """
+    args = parse_args(argv)
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    if cfg is None:
+        cfg = (configs.get_smoke(args.arch) if args.smoke
+               else configs.get_config(args.arch))
+    fed = build_fed(args)
+    print(f"arch={cfg.name} params={cfg.param_count():,} "
+          f"algorithm={fed.algorithm} rounds={args.rounds} device={device}")
+
+    data = SyntheticLMData(vocab_size=cfg.vocab_size,
+                           num_clients=args.num_clients, seed=args.seed)
+    s_text = args.seq_len
+    params = tm.tmap(lambda t: t.to(device), init_params(
+        torch.Generator().manual_seed(args.seed), cfg, device="cpu"))
+    server_opt = get_optimizer(fed.server_opt, fed.server_lr,
+                               fed.server_momentum)
+    state = init_server_state(params, server_opt)
+    q_chunk = min(64, s_text)
+    source = CohortSource(fed, args.num_clients,
+                          make_round_batches(args, fed, data, s_text),
+                          seed=args.seed)
+    eval_fn = make_eval_fn(args, cfg, data, s_text, q_chunk, device,
+                           compute_dtype)
+
+    records, seconds = [], []
+    with (open(args.log, "a") if args.log
+          else contextlib.nullcontext()) as logf:
+        def emit(rec, sec):
+            print(json.dumps(rec), flush=True)
+            if logf:
+                logf.write(json.dumps(rec) + "\n")
+                logf.flush()
+            records.append(rec)
+            seconds.append(sec)
+
+        state, history = run_rounds(args, cfg, fed, get_algorithm(fed),
+                                    state, source, eval_fn, emit, q_chunk,
+                                    compute_dtype)
+    return {"cfg": cfg, "state": state, "history": history,
+            "records": records, "seconds": seconds}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 """Common layers (port of ``repro/models/layers.py``): RMSNorm, RoPE,
-SwiGLU FFN."""
+SwiGLU FFN, the LM's cross entropy."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +32,22 @@ def rope(x, positions, theta: float = 10_000.0):
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU FFN: silu(x Wg) * (x Wu) Wd."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def softmax_cross_entropy(logits, targets, valid_vocab: int | None = None,
+                          mask=None):
+    """Mean token-level cross entropy. logits (B, S, V), taken in fp32;
+    targets int (B, S). ``valid_vocab`` masks out padded vocab rows;
+    ``mask`` (B, S) weights the tokens (the mean over its sum, at least
+    1)."""
+    logits = logits.float()
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= valid_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

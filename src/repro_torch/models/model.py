@@ -1,5 +1,6 @@
 """The pattern decoder (port of ``repro/models/model.py``), for attention
-mixers (``attn``, ``swa``) with dense or no FFNs.
+mixers (``attn``, ``swa``) with dense or no FFNs: the training forward,
+prefill and decode.
 
 Parameters keep the JAX package's tree and layout: ``embed`` (V, d),
 ``final_norm``, ``pattern/pos_i/...`` stacked over repeats (leading axis R)
@@ -16,10 +17,12 @@ device and are dropped.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import tree_math as tm
@@ -121,7 +124,7 @@ def _unembed(cparams, x):
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, q_chunk: int,
@@ -135,6 +138,62 @@ def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, q_chunk: int,
         u = rms_norm(x, f["norm"], cfg.norm_eps)
         x = x + swiglu(u, f["w_gate"], f["w_up"], f["w_down"])
     return x, cache
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the products
+    with the weights (``mm``; the attention einsums are batched ``bmm``),
+    recompute the rest, as ``checkpoint_dots_with_no_batch_dims`` does."""
+    del ctx, args, kwargs
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+            q_chunk: int = 1024, remat: str = "full",
+            logits_slice: Optional[int] = None):
+    """tokens: (B, S) int -> (logits (B, S_out, V), aux-loss scalar).
+
+    ``logits_slice``: if given, only the logits of the last N positions are
+    computed. The aux loss is the MoE router's in the JAX package; the
+    port builds no MoE FFN (``ModelConfig`` refuses one), so it is 0.
+
+    ``remat`` ("full" | "dots" | anything else: none) recomputes each
+    repeat of the pattern in the backward pass, as the JAX package's
+    ``jax.checkpoint`` does: ``torch.utils.checkpoint`` (non-reentrant),
+    with ``"dots"`` keeping the weight products. It applies only where
+    autograd records a graph. Under ``torch.func`` transforms (the
+    federated round's ``vmap(grad)``) torch refuses checkpointing with a
+    ``RuntimeError`` (saved-tensor hooks), so ``models.steps.lm_grad_fn``
+    refuses a remat request before it gets here.
+    """
+    cparams = _cast(params, compute_dtype)
+    x = cparams["embed"][tokens]                      # (B, S, d)
+
+    def unit(x, unit_params):
+        """Apply one repeat of the whole pattern."""
+        for i, spec in enumerate(cfg.pattern):
+            x, _ = _apply_layer(unit_params[f"pos_{i}"], x, cfg, spec,
+                                q_chunk, False)
+        return x
+
+    recompute = remat in ("full", "dots") and torch.is_grad_enabled()
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_matmuls) if remat == "dots"
+               else ckpt.noop_context_fn)
+    for r in range(cfg.repeats):
+        unit_params = _unit(cparams["pattern"], r)
+        x = (ckpt.checkpoint(unit, x, unit_params, use_reentrant=False,
+                             context_fn=context) if recompute
+             else unit(x, unit_params))
+    for i, spec in enumerate(cfg.tail):
+        x, _ = _apply_layer(cparams["tail"][f"layer_{i}"], x, cfg, spec,
+                            q_chunk, False)
+    x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
+    if logits_slice is not None:
+        x = x[:, -logits_slice:]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(cparams, x), aux
 
 
 # ---------------------------------------------------------------------------

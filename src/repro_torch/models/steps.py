@@ -1,13 +1,84 @@
-"""Serving steps (port of ``repro/models/steps.py``: ``serve_step``,
-``prefill_step``). The loss and training steps are not ported."""
+"""Loss, training and serving steps (port of ``repro/models/steps.py``):
+``lm_loss``, ``lm_grad_fn`` (the federated round's per-client gradient),
+``centralized_train_step`` (plain autograd), ``serve_step`` and
+``prefill_step``."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, _not_ported
 from repro_torch.models import model as model_lib
+from repro_torch.models.layers import softmax_cross_entropy
+
+#: ROADMAP.md queue-1 item that brings a recompute composing with
+#: ``torch.func`` (item 11, part 2).
+REMAT_ITEM = 11
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+            q_chunk: int = 1024, remat: str = "full"):
+    """batch: {"tokens": (B, S+1) int}. Returns (loss, metrics): the mean
+    next-token cross entropy over the valid vocab, in fp32. The MoE aux
+    loss of the JAX package is 0 here (no MoE FFN is built)."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = model_lib.forward(params, inputs, cfg,
+                                    compute_dtype=compute_dtype,
+                                    q_chunk=q_chunk, remat=remat)
+    xent = softmax_cross_entropy(logits, targets, valid_vocab=cfg.vocab_size)
+    return xent, {"xent": xent, "moe_aux": aux}
+
+
+def lm_grad_fn(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+               q_chunk: int = 1024, remat: str = "none"):
+    """The per-client ``grad_fn(params, batch) -> (loss, grads)`` that
+    FedAvg/FedPA step with, written with ``torch.func.grad_and_value`` so
+    that the round program can ``vmap`` it over the cohort. Compute runs
+    in ``compute_dtype`` on the fp32 master params; grads come back fp32.
+
+    ``remat="full"`` / ``"dots"`` raise ``NotImplementedError``: torch's
+    checkpointing does not compose with ``torch.func`` transforms, and a
+    recompute that does waits for ROADMAP.md queue 1, item 11 part 2. Every
+    repeat's activations are kept instead (README: the memory it costs).
+    """
+    if remat in ("full", "dots"):
+        raise _not_ported(f"remat={remat!r} under torch.func (the federated "
+                          f"round's vmap(grad))", REMAT_ITEM)
+
+    def loss(params, batch):
+        return lm_loss(params, batch, cfg, compute_dtype=compute_dtype,
+                       q_chunk=q_chunk, remat="none")[0]
+
+    grad_and_value = torch.func.grad_and_value(loss)
+
+    def fn(params, batch):
+        grads, value = grad_and_value(params, batch)
+        return value, grads
+
+    return fn
+
+
+def centralized_train_step(params, opt_state, batch, cfg: ModelConfig, opt,
+                           **kw):
+    """Plain (non-federated) step with autograd, the MB-SGD baseline at LM
+    scale; ``kw`` goes to ``lm_loss`` (remat applies here). Returns
+    ``(params, opt_state, loss, metrics)``, nothing attached to a graph."""
+    flat, spec = pytree.tree_flatten(params)
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        loss, metrics = lm_loss(pytree.tree_unflatten(leaves, spec), batch,
+                                cfg, **kw)
+        grads = pytree.tree_unflatten(
+            list(torch.autograd.grad(loss, leaves)), spec)
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = pytree.tree_map(lambda p, u: p + u.to(p.dtype), params,
+                                 updates)
+    return (params, opt_state, loss.detach(),
+            {k: v.detach() for k, v in metrics.items()})
 
 
 def serve_step(params, token, state, cfg: ModelConfig, *,

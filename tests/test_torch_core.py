@@ -207,7 +207,15 @@ def test_flatten_round_trip():
 
 
 #: In-scope knobs: both packages accept or both raise ValueError.
+#: Codec specs the reference's ``parse_codec`` rejects: an unknown stage,
+#: ``none`` composed, a duplicate stage, a linear stage after a nonlinear
+#: one; with the codec algorithm and with one that takes no codec.
+BAD_CODECS = [dict(algorithm=alg, payload_codec=spec)
+              for alg in ("fedlora", "fedavg")
+              for spec in ("bogus", "none+int8", "int8+int8", "int8+lowrank")]
+
 CONFIG_CASES = [
+    *BAD_CODECS,
     *[kw for kw, _ in (egc.SPECS[n] for n in
                        ("fedavg", "fedpa", "fedpa_stream"))],
     dict(algorithm="fedpa", burn_in_rounds=2, delta_dtype="bfloat16"),
@@ -249,6 +257,14 @@ def _outcome(cls, kw):
 @pytest.mark.parametrize("kw", CONFIG_CASES, ids=lambda kw: repr(kw)[:60])
 def test_fedconfig_accepts_and_rejects_like_jax(kw):
     assert _outcome(FedConfig, kw) == _outcome(JaxFedConfig, kw)
+
+
+@pytest.mark.parametrize("kw", BAD_CODECS, ids=lambda kw: repr(kw)[:60])
+def test_bad_codec_specs_raise_value_error_in_both(kw):
+    """The spec is parsed before the port refuses ``fedlora``."""
+    for cls in (FedConfig, JaxFedConfig):
+        with pytest.raises(ValueError, match="codec"):
+            cls(**kw)
 
 
 #: Knobs valid in the reference -> the ROADMAP.md queue-1 item the port

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import FedConfig
+from repro_torch.core import tree_math as tm
 from repro_torch.core.round import FedSim
 from repro_torch.data.synthetic_lsq import lsq_batches, make_federated_lsq
 from repro_torch.kernels import fedpa_dp, ops, ref, swa_decode
@@ -382,3 +383,39 @@ def test_dp_reduce_scratch_grows_and_counters_return_to_zero():
     torch.cuda.synchronize()
     assert not fedpa_dp._scratch[index][1].any()
 
+
+
+@pytest.mark.gpu
+def test_smoke_train_path_on_the_card_equals_the_cpu():
+    """``launch.train.main`` on the smoke fedlm in fp32 compute (TF32 off):
+    one burn-in and two FedPA rounds with l = 3, so (3 - 1) x 2 = 4 DP
+    launches of each kernel and none of ``swa_decode``; the card's final
+    params equal the CPU run's to 1e-3 relative, 1e-4 absolute (phase 4 of
+    ``chip_smoke.py``: matmuls and sums in another order through 24 local
+    steps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import train
+
+    argv = ["--smoke", "--rounds", "3", "--clients", "2", "--local-steps",
+            "8", "--burn-in-steps", "2", "--steps-per-sample", "2",
+            "--burn-in-rounds", "1", "--batch", "2", "--seq-len", "32"]
+    fedpa_dp.reset_launches()
+    swa_decode.reset_launches()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = train.main(argv + ["--device", "cuda"],
+                          compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert fedpa_dp.launches == {"dp_reduce": 4, "dp_map": 4}
+    assert swa_decode.launches["swa_decode"] == 0
+    cpu = train.main(argv + ["--device", "cpu"], compute_dtype=torch.float32)
+    for a, b in zip(card["records"], cpu["records"]):
+        assert a["phase"] == b["phase"]
+        assert a["eval_loss"] == pytest.approx(b["eval_loss"], rel=1e-4)
+    for got, want in zip(tm.tleaves(card["state"].params),
+                         tm.tleaves(cpu["state"].params)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
