@@ -87,6 +87,27 @@
    batch 2 x 64 tokens, one burn-in and one FedPA round) on the card and
    on the CPU from the same weights: the final params must agree (phase
    4's bound).
+10. Per-client state. (a) FedEP on the device store trains the full-width
+   fedlm-100m through ``launch.train.main`` (phase 9's settings, the
+   population cut from 64 to 16 for the store's 2 fp32 vectors of d per
+   client): DP launches 6 each, ``swa_decode`` none, each stamp equal to
+   the FedEP rounds its client was drawn in, the sites of clients never
+   drawn exactly zero and of drawn ones finite and non-zero; FedEP round
+   ms against the reckoned bound, peak memory, the store's bytes. (b)
+   FedEP on one layer of it, fp32, client lr 0.01, with the host store
+   and the device store on the card (bit for bit equal, with
+   deterministic algorithms) and the device store on the CPU (phase 4's
+   bound); then, as a report, the same runs at phase 9b's client lr 0.05
+   beside FedPA's, card against CPU after every round. (c) ``device_gather`` / ``device_scatter`` with a stale stamp
+   and a write mask under ``torch.cuda.set_sync_debug_mode("error")``,
+   against the host store. (d) SCAFFOLD on the host and the device store
+   (bit for bit equal, cuDNN deterministic) and FedEP at ``parallel`` and
+   ``chunked`` chunk 6 on the full-width CNN with phase 3's settings, each
+   against its CPU replay, with their DP launches (0, 0, 8, 24). (e) The
+   smoke fedlm-100m with FedEP checkpointed after 2 rounds and resumed to
+   4 against a straight 4-round run. (f) Whether phase 3's rounds, and
+   (b)'s device-store card run, repeat bit for bit in one process, with
+   ``cudnn.deterministic`` off and on (a report, no check).
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -96,9 +117,11 @@ phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -150,6 +173,29 @@ REPLAY_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
                "--burn-in-steps", "4", "--steps-per-sample", "2",
                "--burn-in-rounds", "1", "--rounds", "2", "--batch", "2",
                "--seq-len", "64", "--server-lr", "0.3"]
+
+# phase 10: the population of the full-width FedEP run (cut from 64: the
+# device store holds 2 fp32 vectors of d per client) ...
+FEDEP_CLIENTS = 16
+# ... the one-layer FedEP replay's changes to phase 9b's command: a third
+# round, so a site is read back, and a client lr at which the local steps
+# train (the loss falls); at 9b's 0.05 the card-vs-CPU distance passes
+# phase 4's bound, and ``lr_witness`` reports it beside FedPA's
+FEDEP_REPLAY = ["--rounds", "3", "--client-lr", "0.01"]
+# ... and the stateful CNN runs (phase 3's settings)
+STATE_RUNS = (
+    ("scaffold host store", dict(algorithm="scaffold", client_opt="sgd",
+                                 burn_in_rounds=0)),
+    ("scaffold device store", dict(algorithm="scaffold", client_opt="sgd",
+                                   burn_in_rounds=0,
+                                   client_state_placement="device")),
+    ("fedep device store", dict(algorithm="fedep",
+                                client_state_placement="device")),
+    ("fedep chunked chunk 6", dict(algorithm="fedep",
+                                   client_state_placement="device",
+                                   round_placement="chunked",
+                                   round_chunk_size=6)),
+)
 
 # the serving path (gemma3-27b at full width): batch, prompt, generated
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 64
@@ -984,13 +1030,13 @@ def serve_path(seed: int) -> int:
     return launches
 
 
-def train_round_bound_ms(cfg, args, rate: float):
-    """The least time the card could take for one FedPA round of the
-    training path, reckoned from the port's code, operation by operation,
-    each at the larger of its bytes over ``rate`` and its FLOPs over the
-    bf16 peak. Returns ms of (total, matmuls, local-step elementwise work,
-    DP and server). Counts what the code does, not what a fused round
-    would need:
+def train_round_bound_ms(cfg, args, rate: float, fedep: bool = False):
+    """The least time the card could take for one FedPA (or, with
+    ``fedep``, FedEP) round of the training path, reckoned from the port's
+    code, operation by operation, each at the larger of its bytes over
+    ``rate`` and its FLOPs over the bf16 peak. Returns ms of (total,
+    matmuls, local-step elementwise work, DP, server and client state).
+    Counts what the code does, not what a fused round would need:
 
     * matmuls: forward 2 x tokens x the weights each token multiplies (the
       projections, the FFN, the tied unembedding) plus attention 4 B H S^2
@@ -1003,7 +1049,13 @@ def train_round_bound_ms(cfg, args, rate: float):
     * per DP step at t (rows = t - 1) and element: u (12 B), the reduce (4
       (2 + rows) B), the map (4 (4 + rows) B), the history row (8 B), the
       mean (20 B); then the delta's rescale and unflatten (16 B a client)
-      and the server's sgdm (40 B, once).
+      and the server's sgdm (40 B, once);
+    * FedEP, per client and element: the sites' gather from the device
+      store (2 fp32 reads and writes, 16 B), the sample variance over l
+      samples and the precision (4 l + 16 B), ``P * delta`` (12 B), the
+      damping of ``num`` and ``den`` (56 B), the CAS scatter (read the
+      current rows, ``where``, ``index_copy_``: 56 B), the second
+      accumulator's sum (4 B); once, the ratio ``num / den`` (12 B).
     """
     d, C, K = cfg.param_count(), args.clients, args.local_steps
     B, S, L = args.batch, args.seq_len, cfg.num_layers
@@ -1018,6 +1070,8 @@ def train_round_bound_ms(cfg, args, rate: float):
     local = C * d * (52 * K + 12 * sampling + 24 * ell)
     dp = C * d * (sum(12 + 4 * (2 + t - 1) + 4 * (4 + t - 1) + 8 + 20
                       for t in range(2, ell + 1)) + 16) + 40 * d
+    if fedep:
+        dp += C * d * (16 + 4 * ell + 16 + 12 + 56 + 56 + 4) + 12 * d
     local_ms, dp_ms = local / rate * 1e3, dp / rate * 1e3
     return mm_ms + local_ms + dp_ms, mm_ms, local_ms, dp_ms
 
@@ -1145,8 +1199,516 @@ def train_replay(seed: int) -> dict:
     return launches
 
 
+def fedep_argv(argv, num_clients: int) -> list:
+    """``argv`` (a ``launch.train`` command) switched to FedEP on the
+    device store with a population of ``num_clients``."""
+    out = list(argv)
+    out[out.index("--algorithm") + 1] = "fedep"
+    out[out.index("--num-clients") + 1] = str(num_clients)
+    return out + ["--client-state-placement", "device"]
+
+
+def drawn_per_client(args, burn_in_rounds: int):
+    """How many stateful rounds each client was drawn in: the draws of
+    ``launch.train``'s ``CohortSource``, replayed from its seed."""
+    import numpy as np
+
+    from repro_torch.data.cohort_source import CohortSource
+    from repro_torch.launch import train
+
+    src = CohortSource(train.build_fed(args), args.num_clients,
+                       lambda ids, r: None, seed=args.seed)
+    want = np.zeros(args.num_clients, np.int64)
+    for r in range(burn_in_rounds, args.rounds):
+        want[np.asarray(src.draw(r)[0])] += 1
+    return want
+
+
+def check_sites(store, want_stamps, what: str) -> None:
+    """The store after a run: each stamp equals the rounds its client was
+    drawn in; the sites of clients never drawn are exactly zero, those of
+    drawn clients finite and non-zero (read on the device, per client)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import tree_math as tm
+
+    state = store.device_state()
+    stamps = state["stamps"].cpu().numpy()
+    leaves = tm.tleaves(state["buffers"])
+    amax = torch.stack([b.flatten(1).abs().amax(1) for b in leaves]).amax(0)
+    finite = torch.stack([torch.isfinite(b.flatten(1)).all(1)
+                          for b in leaves]).all(0)
+    amax, finite = amax.cpu().numpy(), finite.cpu().numpy()
+    drawn = want_stamps > 0
+    print(f"  {what}: stamps {stamps.tolist()} (drawn {want_stamps.tolist()},"
+          f" sum {int(stamps.sum())}); sites' max |x| of drawn clients "
+          f"{float(amax[drawn].min()):.3g}..{float(amax[drawn].max()):.3g},"
+          f" of the others {float(amax[~drawn].max(initial=0.0)):.3g}",
+          flush=True)
+    if not np.array_equal(stamps, want_stamps):
+        fail(f"{what}: stamps {stamps} != rounds drawn {want_stamps}")
+    if amax[~drawn].any():
+        fail(f"{what}: a client never drawn has a non-zero site")
+    if not (finite[drawn].all() and amax[drawn].all()):
+        fail(f"{what}: a drawn client's site is zero or not finite")
+
+
+def fedep_train_path(card: str, seed: int) -> dict:
+    """Phase 10a: FedEP on the device store trains the full-width
+    fedlm-100m through ``launch.train.main`` (phase 9's settings with the
+    population cut from 64 to 16 for the store's memory); returns the DP
+    kernels' launches."""
+    import torch
+
+    from repro_torch.core import tree_math as tm
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import train
+
+    argv = fedep_argv(TRAIN_ARGV, FEDEP_CLIENTS) + ["--seed", str(seed)]
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
+    fedpa_dp.reset_launches()
+    swa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(fedpa_dp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, recs, store = res["cfg"], res["records"], res["store"]
+    d = cfg.param_count()
+    total, mm, local, dp = train_round_bound_ms(cfg, args, hbm_rate(card),
+                                                fedep=True)
+    store_bytes = sum(nbytes(b) for b in tm.tleaves(store.device_state()))
+    # phase 9's FedPA reckoning (15 vectors per client, 3 on the server),
+    # plus the store (2 per client of the population), the gathered sites
+    # (2 per cohort client), the precision, P * delta and the damped pair
+    # (6 per cohort client) and the second accumulator
+    reckoned = (15 * args.clients + 3 + 2 * args.num_clients
+                + 8 * args.clients + 1) * 4 * d
+    for rec, sec in zip(recs, res["seconds"]):
+        print(f"  round {rec['round']} ({rec['phase']}): host ms "
+              f"{sec * 1e3:.1f}; eval_loss {rec['eval_loss']:.4f}",
+              flush=True)
+    warm = [sec * 1e3 for rec, sec in zip(recs, res["seconds"])
+            if rec["phase"] == "fedep"]
+    print(f"train fedep {cfg.name}: d={d:,}; {args.clients} of "
+          f"{args.num_clients} clients (population cut from 64), "
+          f"{args.local_steps} steps x {args.batch}x{args.seq_len} tokens, "
+          f"l={ell}, device store: FedEP round host ms "
+          f"{[round(x, 1) for x in warm]} (the first includes warm-up) "
+          f"against a bound of {total:.1f} ms (matmuls {mm:.1f}, local-step "
+          f"elementwise {local:.1f}, DP, server and client state {dp:.1f});"
+          f" peak memory allocated {peak / 2**30:.2f} GiB (reckoned "
+          f"{reckoned / 2**30:.2f} GiB of fp32 vectors); store "
+          f"{store_bytes / 1e9:.2f} GB ({args.num_clients} x 2 x "
+          f"{4 * d / 1e6:.1f} MB); DP launches {launches} (expected "
+          f"{expected} each); swa_decode launches "
+          f"{swa.launches['swa_decode']} (expected 0)", flush=True)
+    if d != LM_D:
+        fail(f"fedlm-100m has d={d}, expected {LM_D}")
+    if any(n != expected for n in launches.values()):
+        fail(f"train fedep: DP launches {launches} != {expected} each")
+    if swa.launches["swa_decode"] != 0:
+        fail("swa_decode launched on the FedEP training path")
+    losses = [r[k] for r in recs for k in ("eval_loss", "client_loss_first",
+                                           "client_loss_last")]
+    if len(recs) != args.rounds or not all(map(math.isfinite, losses)):
+        fail(f"train fedep: records {recs}")
+    want = drawn_per_client(args, args.burn_in_rounds)
+    if want.sum() != (args.rounds - args.burn_in_rounds) * args.clients:
+        fail(f"train fedep: draws {want}")
+    check_sites(store, want, "fedep store")
+    return launches
+
+
+def equal_bitwise(a, b) -> bool:
+    """Whether two trees of tensors or arrays are equal bit for bit."""
+    import numpy as np
+
+    from repro_torch.core import tree_math as tm
+
+    la, lb = tm.tleaves(a), tm.tleaves(b)
+    return len(la) == len(lb) and all(
+        np.array_equal(np.asarray(x.cpu() if hasattr(x, "cpu") else x),
+                       np.asarray(y.cpu() if hasattr(y, "cpu") else y))
+        for x, y in zip(la, lb))
+
+
+def store_close(got, want, what: str) -> None:
+    """Phase 4's bound on two stores' state dicts; stamps exactly."""
+    import numpy as np
+
+    from repro_torch.core import tree_math as tm
+
+    if not np.array_equal(got["stamps"], want["stamps"]):
+        fail(f"{what}: stamps {got['stamps']} != {want['stamps']}")
+    pairs = list(zip(tm.tleaves(got["buffers"]), tm.tleaves(want["buffers"])))
+    err = max(float(np.abs(a - b).max()) for a, b in pairs)
+    print(f"  {what}: store max abs diff {err:.3g}", flush=True)
+    for a, b in pairs:
+        if not np.allclose(a, b, rtol=1e-3, atol=1e-4):
+            fail(f"{what}: store differs (max abs diff {err})")
+
+
+def fedep_store_replay(seed: int) -> dict:
+    """Phase 10b: FedEP on fedlm-100m cut to one layer, fp32, with the host
+    store on the card, the device store on the card and the device store
+    on the CPU (phase 9b's settings at client lr 0.01; ``lr_witness``
+    reports 9b's 0.05, where the distance passes phase 4's bound). The
+    card runs, with deterministic algorithms, must agree bit for bit
+    (params, sites, stamps), the card and the CPU within phase 4's bound.
+    Returns the device-store card run's DP launches."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    argv = fedep_argv(REPLAY_ARGV, 4) + FEDEP_REPLAY + ["--seed", str(seed)]
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
+    runs, launches, times = {}, {}, {}
+    for name, extra in (("host store, card", ["--client-state-placement",
+                                              "host"]),
+                        ("device store, card", []),
+                        ("device store, CPU", ["--device", "cpu"])):
+        fedpa_dp.reset_launches()
+        t0 = time.perf_counter()
+        with deterministic():
+            runs[name] = train.main(argv + extra, cfg=cfg,
+                                    compute_dtype=torch.float32)
+        if "card" in name:
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches[name] = dict(fedpa_dp.launches)
+    host, dev, cpu = runs.values()
+    stores = [r["store"].state_dict() for r in runs.values()]
+    same = (equal_bitwise(host["state"], dev["state"])
+            and equal_bitwise(stores[0], stores[1]))
+    print(f"fedep store replay ({cfg.name} cut to {cfg.num_layers} layer, "
+          f"d={cfg.param_count():,}, fp32, {args.clients} of "
+          f"{args.num_clients} clients, {args.burn_in_rounds} burn-in + "
+          f"{args.rounds - args.burn_in_rounds} FedEP rounds): "
+          + "; ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; host-store and device-store card runs bitwise equal: "
+          f"{same}; DP launches {launches} (expected {expected} each on "
+          f"the card)", flush=True)
+    for name in ("host store, card", "device store, card"):
+        if any(n != expected for n in launches[name].values()):
+            fail(f"fedep replay {name}: DP launches {launches[name]}")
+    if not same:
+        fail("fedep replay: the host-store and device-store card runs "
+             "differ")
+    params_close(dev["state"].params, cpu["state"].params,
+                 "fedep one-layer, card vs CPU")
+    store_close(stores[1], stores[2], "fedep one-layer, card vs CPU")
+    want = drawn_per_client(args, args.burn_in_rounds)
+    if not (want.max() == 2 and (stores[1]["stamps"] == want).all()):
+        fail(f"fedep replay: no client's site was read back (draws {want},"
+             f" stamps {stores[1]['stamps']})")
+    return launches["device store, card"]
+
+
+@contextlib.contextmanager
+def round_snapshots(out: list):
+    """Inside the block, ``launch.train``'s checkpoint writer appends
+    ``(step, params, client-state dict or None)`` to ``out`` on the host
+    instead of writing files: with ``--ckpt-every 1`` a run leaves the
+    state after each of its rounds."""
+    from repro_torch.core import tree_math as tm
+    from repro_torch.launch import train
+
+    def keep(ckpt_dir, tree, step, metadata=None):
+        server, clients = ((tree["server"], tree["clients"])
+                           if isinstance(tree, dict) else (tree, None))
+        out.append((step, tm.tmap(lambda t: t.detach().cpu(), server.params),
+                    clients))
+
+    real, train.save_checkpoint = train.save_checkpoint, keep
+    try:
+        yield
+    finally:
+        train.save_checkpoint = real
+
+
+def lr_witness(seed: int) -> None:
+    """Phase 10b, part 2: 10b's one-layer runs at phase 9b's client lr
+    0.05, where FedEP's card-vs-CPU distance passes phase 4's bound, and
+    FedPA on the same cohorts and local steps (no sites), each on the card
+    and the CPU. Prints, after every round, the params' card-vs-CPU max
+    abs diff of both algorithms and that of FedEP's sites, written in
+    round 2 before any is read back: whether the growth is the local
+    steps' (shared with FedPA) or FedEP's own. A report: only finite
+    values and the stamps are checked."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import tree_math as tm
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    fedep = fedep_argv(REPLAY_ARGV, 4) + ["--rounds", "3"]
+    fedpa = list(REPLAY_ARGV) + ["--rounds", "3"]
+    fedpa[fedpa.index("--num-clients") + 1] = "4"
+    diffs, sites, loss = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for alg, argv in (("fedpa", fedpa), ("fedep", fedep)):
+            snaps, t0 = {}, time.perf_counter()
+            for dev in ("card", "CPU"):
+                snaps[dev] = []
+                extra = (["--ckpt-dir", tmp, "--ckpt-every", "1",
+                          "--seed", str(seed)]
+                         + (["--device", "cpu"] if dev == "CPU" else []))
+                with deterministic(), round_snapshots(snaps[dev]):
+                    res = train.main(argv + extra, cfg=cfg,
+                                     compute_dtype=torch.float32)
+                loss[alg, dev] = [round(r["client_loss_last"], 4)
+                                  for r in res["records"]]
+            diffs[alg] = [max((a - b).abs().max().item() for a, b in zip(
+                tm.tleaves(pc), tm.tleaves(pp)))
+                for (_, pc, _), (_, pp, _) in zip(*snaps.values())]
+            if alg == "fedep":
+                sites = [max(float(np.abs(a - b).max()) for a, b in zip(
+                    tm.tleaves(cc["buffers"]), tm.tleaves(cp["buffers"])))
+                    for (_, _, cc), (_, _, cp) in zip(*snaps.values())]
+                stamps = [(cc["stamps"].tolist(), cp["stamps"].tolist())
+                          for (_, _, cc), (_, _, cp) in zip(*snaps.values())]
+            print(f"  {alg} at client lr 0.05: {time.perf_counter() - t0:.1f}"
+                  f" s; client loss_last card {loss[alg, 'card']}, CPU "
+                  f"{loss[alg, 'CPU']}", flush=True)
+    print(f"lr witness ({cfg.name} cut to {cfg.num_layers} layer, fp32, 2 of "
+          f"4 clients, 1 burn-in + 2 sampling rounds, client lr 0.05): "
+          f"card vs CPU params max abs diff after rounds 1-3: FedPA "
+          f"{[f'{x:.3g}' for x in diffs['fedpa']]}, FedEP "
+          f"{[f'{x:.3g}' for x in diffs['fedep']]}; FedEP sites "
+          f"{[f'{x:.3g}' for x in sites]} (round 2's written before any is "
+          f"read back)", flush=True)
+    if not all(map(math.isfinite, diffs["fedpa"] + diffs["fedep"] + sites)):
+        fail(f"lr witness: a distance is not finite ({diffs}, {sites})")
+    if any(c != p for c, p in stamps):
+        fail(f"lr witness: the card's stamps differ from the CPU's {stamps}")
+
+
+def store_sync_check() -> None:
+    """Phase 10c: ``device_gather`` / ``device_scatter`` on the card, with
+    the ids, stamps and write mask already there, raise nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``; their drop counts and the
+    store after them equal the host store's for the same operations (a
+    CNN-sized site, 64 clients)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import client_state as cs
+    from repro_torch.core import tree_math as tm
+
+    template = {"num": np.zeros(DP_D, np.float32),
+                "den": np.zeros(DP_D, np.float32)}
+    host = cs.ClientStateStore(NUM_CLIENTS).ensure(template)
+    dev = cs.DeviceClientStateStore(NUM_CLIENTS, device="cuda").ensure(
+        template)
+    r = np.random.default_rng(0)
+    a, b = (r.choice(NUM_CLIENTS, 16, replace=False) for _ in range(2))
+    mask = (r.random(16) < 0.75).astype(np.float32)
+    upd = {k: r.normal(size=(16, DP_D)).astype(np.float32) for k in template}
+    # host: cohort a gathers, cohort b gathers, a writes (masked), b writes
+    _, sa = host.gather(a)
+    _, sb = host.gather(b)
+    host_drops = [host.scatter(a, upd, sa, write_mask=mask),
+                  host.scatter(b, upd, sb)]
+    ids_a, ids_b = dev.prepare_ids(a), dev.prepare_ids(b)
+    upd_d = tm.tmap(lambda x: torch.from_numpy(x).cuda(), upd)
+    mask_d = torch.from_numpy(mask).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, sa_d = cs.device_gather(dev.device_state(), ids_a)
+        _, sb_d = cs.device_gather(dev.device_state(), ids_b)
+        _, da = cs.device_scatter(dev.device_state(), ids_a, upd_d, sa_d,
+                                  write_mask=mask_d)
+        _, db = cs.device_scatter(dev.device_state(), ids_b, upd_d, sb_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    dev_drops = [int(da), int(db)]
+    same = equal_bitwise(host.state_dict(), dev.state_dict())
+    print(f"store sync check (64 clients x 2 x {DP_D:,} fp32; two "
+          f"overlapping cohorts of 16, the first masked to "
+          f"{int(mask.sum())} survivors): no host sync under sync-debug "
+          f"'error'; drops device {dev_drops}, host {host_drops}; stores "
+          f"bitwise equal: {same}", flush=True)
+    if dev_drops != host_drops or not same or not sum(host_drops):
+        fail(f"store sync check: drops {dev_drops} vs {host_drops}, "
+             f"stores equal {same}")
+
+
+def stateful_cnn_rounds(params, seed: int) -> dict:
+    """Phase 10d: SCAFFOLD (host and device store) and FedEP (parallel and
+    chunk 6) on the full-width CNN with phase 3's settings, each against
+    its CPU replay; the two SCAFFOLD runs bit for bit (cuDNN deterministic
+    for that pair, so the check sees the stores and not cuDNN's choice of
+    algorithm). Returns each run's DP launches."""
+    from repro_torch.kernels import fedpa_dp
+
+    by_run, scaffold = {}, {}
+    for name, over in STATE_RUNS:
+        stateful_alg = over["algorithm"]
+        pair = stateful_alg == "scaffold"
+        fedpa_dp.reset_launches()
+        with deterministic(pair):
+            state, records, ms = run_rounds("cuda", params, seed, over)
+        launches = dict(fedpa_dp.launches)
+        expected = (0 if stateful_alg == "scaffold"
+                    else expected_dp_launches(over))
+        print(f"round run {name}: round ms {[round(x, 2) for x in ms]} "
+              f"(burn-in rounds {over.get('burn_in_rounds', 1)}); DP "
+              f"launches {launches} (expected {expected} each); "
+              f"state_drops {[h['state_drops'] for h in records]}; "
+              f"loss_last {[round(h['loss_last'], 4) for h in records]}",
+              flush=True)
+        if any(n != expected for n in launches.values()):
+            fail(f"{name}: DP launches {launches} != {expected} each")
+        if any(h["state_drops"] for h in records):
+            fail(f"{name}: a client-state write was dropped")
+        by_run[name] = launches
+        if pair:
+            scaffold[name] = state
+        cpu_state, _, _ = run_rounds("cpu", params, seed, over)
+        params_close(state.params, cpu_state.params,
+                     f"{name} vs its CPU replay")
+    (a, b) = scaffold.values()
+    same = equal_bitwise(a.params, b.params) and equal_bitwise(
+        a.algo_state, b.algo_state)
+    print(f"  scaffold host store vs device store on the card: bitwise "
+          f"equal {same}", flush=True)
+    if not same:
+        fail("scaffold: the host-store and device-store runs differ")
+    return by_run
+
+
+def checkpoint_resume(seed: int) -> None:
+    """Phase 10e: the smoke fedlm-100m, FedEP on the device store, on the
+    card: two rounds with a checkpoint every round, then the same command
+    to four rounds resumes at round 2; against a straight four-round run
+    in the same process (phase 4's bound; bitwise equality printed)."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    argv = ["--smoke", "--algorithm", "fedep", "--client-state-placement",
+            "device", "--clients", "2", "--num-clients", "4",
+            "--local-steps", "8", "--burn-in-steps", "2",
+            "--steps-per-sample", "2", "--burn-in-rounds", "1", "--batch",
+            "2", "--seq-len", "32", "--seed", str(seed)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ck = argv + ["--ckpt-dir", tmp, "--ckpt-every", "1"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train.main(ck + ["--rounds", "2"])
+            resumed = train.main(ck + ["--rounds", "4"])
+            straight = train.main(argv + ["--rounds", "4"])
+        saved = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+    finally:
+        shutil.rmtree(tmp)
+    restored = "restored checkpoint at round 2" in out.getvalue()
+    same = (equal_bitwise(resumed["state"], straight["state"])
+            and equal_bitwise(resumed["store"].state_dict(),
+                              straight["store"].state_dict()))
+    print(f"checkpoint resume ({resumed['cfg'].name}, fedep, device store):"
+          f" checkpoints {saved}; 'restored checkpoint at round 2' printed:"
+          f" {restored}; resumed == straight bitwise: {same}", flush=True)
+    if not restored or len(saved) != 4:
+        fail(f"checkpoint resume: restored {restored}, files {saved}")
+    params_close(resumed["state"].params, straight["state"].params,
+                 "resumed vs straight params")
+    store_close(resumed["store"].state_dict(), straight["store"].state_dict(),
+                "resumed vs straight")
+
+
+def repeatability(params, seed: int) -> None:
+    """Phase 10f (ROADMAP.md queue 3): phase 3's rounds (batch DP) twice in
+    this process with ``torch.backends.cudnn.deterministic`` off and on,
+    and 10b's device-store card run twice with torch's default algorithms;
+    prints whether each pair's params are bitwise equal. A report: neither
+    answer fails the run."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    argv = fedep_argv(REPLAY_ARGV, 4) + FEDEP_REPLAY + ["--seed", str(seed)]
+    runs = [train.main(argv, cfg=cfg, compute_dtype=torch.float32)
+            for _ in range(2)]
+    same = (equal_bitwise(runs[0]["state"], runs[1]["state"])
+            and equal_bitwise(runs[0]["store"].state_dict(),
+                              runs[1]["store"].state_dict()))
+    print(f"repeatability: 10b's device-store card run twice with torch's "
+          f"default algorithms: params and store bitwise equal {same}",
+          flush=True)
+    prev = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            a, _ = run_main_path("cuda", params, seed, False)
+            b, _ = run_main_path("cuda", params, seed, False)
+            err = max((x - y).abs().max().item() for x, y in
+                      zip(a.params.values(), b.params.values()))
+            print(f"repeatability: phase 3's rounds twice with "
+                  f"cudnn.deterministic={det}: params bitwise equal "
+                  f"{equal_bitwise(a.params, b.params)} (max abs diff "
+                  f"{err:.3g})", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    (warnings only) inside the block, the previous settings after."""
+    import torch
+
+    prev = (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    if on:
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+
+
+def per_client_state(card: str, params, seed: int) -> dict:
+    """Phase 10 (10a-10f); returns the DP launches of its runs."""
+    import torch
+
+    by_run = {"fedlm-100m fedep train (device store)":
+              fedep_train_path(card, seed)}
+    torch.cuda.empty_cache()
+    by_run["fedlm-100m 1 layer fp32 fedep (vs CPU)"] = \
+        fedep_store_replay(seed)
+    lr_witness(seed)
+    store_sync_check()
+    by_run.update(stateful_cnn_rounds(params, seed))
+    checkpoint_resume(seed)
+    repeatability(params, seed)
+    return by_run
+
+
 def main() -> int:
-    """Run the nine phases; returns the exit code."""
+    """Run the ten phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1281,6 +1843,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_run["fedlm-100m 1 layer fp32 (vs CPU)"] = train_replay(args.seed)
     done(9)
+    torch.cuda.empty_cache()
+
+    # -- phase 10: per-client state -----------------------------------------
+    by_run.update(per_client_state(card, params, args.seed))
+    done(10)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

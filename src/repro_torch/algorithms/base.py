@@ -10,6 +10,14 @@ a per-client update instead; a raw CUDA kernel has no batching rule). The
 round program calls it on the whole cohort (``parallel``), on one client
 at a time (``sequential``, C = 1) or on one chunk at a time (``chunked``).
 
+*Stateful* algorithms (``stateful = True``: SCAFFOLD's control variates,
+FedEP's sites) take one more argument and fill one more field:
+``update(params, batches, client_states, *extras) -> ClientResult(payload,
+metrics, state_update)``. The reference's update is per client under
+``vmap``; the port's is per stack, so ``client_states`` is the stack's
+``(C, ...)`` slice of the per-client store (``core/client_state.py``) and
+``state_update`` the stack's ``(C, ...)`` new states.
+
 Aggregation lives in a linear fp32 accumulator space: ``reduce_stacked``
 sums a stacked cohort, ``accumulate`` folds one client, ``payload_accum``
 maps a payload into the space, and ``finalize`` casts once. Every payload
@@ -28,10 +36,13 @@ from repro_torch.optim import Optimizer
 
 class ClientResult(NamedTuple):
     """What a cohort sends back: ``payload`` (a tree with a leading client
-    axis) and ``metrics`` (``loss_first`` / ``loss_last``, each ``(C,)``)."""
+    axis), ``metrics`` (``loss_first`` / ``loss_last``, each ``(C,)``) and,
+    for a stateful algorithm, ``state_update``: the stack's new persistent
+    per-client states, ``(C, ...)`` (``None`` when stateless)."""
 
     payload: Any
     metrics: Dict[str, Any]
+    state_update: Any = None
 
 
 _REGISTRY: Dict[str, Type["FedAlgorithm"]] = {}
@@ -100,6 +111,9 @@ class FedAlgorithm:
     has_burn_regime: bool = False
     supports_step_budgets: bool = False
     supports_codec: bool = False
+    #: Whether clients carry persistent per-client state; a stateful update
+    #: takes the stack's state slice and returns ``state_update``.
+    stateful: bool = False
 
     def __init__(self, fed):
         """Bind the algorithm to a ``FedConfig`` (stored as ``self.fed``)."""
@@ -133,6 +147,33 @@ class FedAlgorithm:
         """Algorithm run during the first ``fed.burn_in_rounds`` rounds."""
         return self
 
+    @property
+    def burns_in(self) -> bool:
+        """Whether the first ``fed.burn_in_rounds`` rounds run a burn-in
+        regime of their own (:meth:`burn_algorithm`)."""
+        return self.has_burn_regime and self.fed.burn_in_rounds > 0
+
+    @property
+    def burn_stateful(self) -> bool:
+        """Whether the burn-in rounds carry per-client state. FedEP burns
+        in as stateless FedAvg; without a burn-in regime of their own they
+        run this algorithm."""
+        return (self.burn_algorithm() if self.burns_in else self).stateful
+
+    # -- persistent state ----------------------------------------------------
+    def init_client_state(self, params):
+        """One client's zero persistent state (consulted only when
+        ``stateful``); the store stacks it into its ``(N, ...)`` buffers."""
+        del params
+        return ()
+
+    def init_algo_state(self, params):
+        """Persistent server-side state (``ServerState.algo_state``), ``()``
+        by default; checkpointed with the server state and updated, where
+        an algorithm has one, by its ``server_update``."""
+        del params
+        return ()
+
     def broadcast(self, state, server_opt: Optimizer) -> tuple:
         """Server statistics shipped to every client with the params; they
         become trailing arguments of the client update, unstacked (the
@@ -147,7 +188,8 @@ class FedAlgorithm:
 
         ``params`` is the server's (unstacked) tree; ``batches`` carry
         ``(C, K, ...)``; ``grad_fn`` is batched over the client axis;
-        ``extras`` are :meth:`broadcast`'s.
+        ``extras`` are :meth:`broadcast`'s. A stateful update takes the
+        stack's ``(C, ...)`` state slice after ``batches``.
         """
         raise NotImplementedError
 

@@ -5,9 +5,10 @@ item 9).
 Everything runs on meta-device tensors, the port's stand-in for
 ``jax.eval_shape``: no allocation, exact for any model size. Uplink is
 the algorithm's per-client payload (``FedAlgorithm.abstract_payload``:
-``fedpa_precision`` ships two dense trees); downlink is the broadcast
-parameters plus the algorithm's extras (``abstract_broadcast_extras``:
-MIME's server momentum).
+``fedpa_precision`` and ``fedep`` ship two dense trees, ``scaffold`` its
+delta and an fp32 ``dc``); downlink is the broadcast parameters plus the
+algorithm's extras (``abstract_broadcast_extras``: MIME's server momentum,
+SCAFFOLD's fp32 server control variate).
 """
 from __future__ import annotations
 

@@ -26,7 +26,7 @@ STATE_PLACEMENTS = ("host", "device")
 
 #: Algorithms registered in the JAX package that this port does not have
 #: yet, with the ROADMAP.md queue-1 item that ports them.
-PENDING_ALGORITHMS = {"scaffold": 7, "fedep": 7, "fedlora": 9}
+PENDING_ALGORITHMS = {"fedlora": 9}
 
 
 #: Mixer kinds the JAX model code understands, and those ported here.
@@ -356,8 +356,6 @@ class FedConfig:
         pending = [
             (self.async_rounds, "async_rounds=True", 8),
             (self.prefetch_rounds > 0, "prefetch_rounds > 0", 8),
-            (self.client_state_placement != "host",
-             f"client_state_placement={self.client_state_placement!r}", 7),
         ]
         for bad, what, item in pending:
             if bad:

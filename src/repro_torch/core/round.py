@@ -6,7 +6,10 @@ regime and, with ``burn_in_rounds``, the FedAvg burn-in regime) and hands
 them to the window-1 ``RoundEngine``. Its cohorts come from the
 fault-injecting ``CohortSource`` (availability, dropout, step budgets),
 which samples client ids and stacks their numpy batches on the host; the
-whole round then runs on ``device`` in the configured placement.
+whole round then runs on ``device`` in the configured placement. A
+stateful algorithm (SCAFFOLD, FedEP) gets a per-client store
+(``core/client_state.py``) placed per ``fed.client_state_placement``:
+host numpy buffers, or tensors on ``device``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.algorithms import get_algorithm
 from repro_torch.compression.accounting import round_bytes
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tree_math as tm
+from repro_torch.core.client_state import make_client_store
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round_program import make_round_program
 from repro_torch.core.server import ServerState, init_server_state
@@ -77,20 +81,29 @@ class FedSim:
                                         self.fed.server_lr,
                                         self.fed.server_momentum)
         self._alg = get_algorithm(self.fed)
-        self._has_burn_regime = (self._alg.has_burn_regime
-                                 and self.fed.burn_in_rounds > 0)
+        self._has_burn_regime = self._alg.burns_in
+        self.client_store = (
+            make_client_store(self.fed.client_state_placement,
+                              self.num_clients, device=self.device)
+            if self._alg.stateful or self._alg.burn_stateful else None)
         self._engine: Optional[RoundEngine] = None
         self._round_bytes: Optional[dict] = None
         self._burn_round_bytes: Optional[dict] = None
 
     def init(self, params) -> ServerState:
-        """Fresh server state with ``params`` moved to the device."""
+        """Fresh server state with ``params`` moved to the device (and, for
+        a stateful algorithm, a zeroed client store: each ``run`` starts
+        from scratch)."""
         params = tm.tmap(lambda x: torch.as_tensor(x).to(self.device), params)
+        if self.client_store is not None:
+            self.client_store.ensure(
+                self._alg.init_client_state(params)).reset()
         self._round_bytes = round_bytes(self.fed, params, use_sampling=True)
         self._burn_round_bytes = (
             round_bytes(self.fed, params, use_sampling=False)
             if self._has_burn_regime else self._round_bytes)
-        return init_server_state(params, self.server_opt)
+        return init_server_state(params, self.server_opt,
+                                 algorithm=self._alg)
 
     def stack_cohort(self, client_ids, round_idx: int):
         """The cohort's batches with a leading client axis, stacked on the
@@ -136,5 +149,8 @@ class FedSim:
                                if self._has_burn_regime else None),
                 burn_in_rounds=self.fed.burn_in_rounds,
                 round_bytes=self._round_bytes,
-                burn_round_bytes=self._burn_round_bytes)
+                burn_round_bytes=self._burn_round_bytes,
+                client_store=self.client_store,
+                stateful=self._alg.stateful,
+                burn_stateful=self._alg.burn_stateful)
         return self._engine

@@ -28,6 +28,15 @@ all-dropped round is a zero aggregate with 0.0 losses), and the
 ``"_active"`` budget mask freezes a client's steps past its budget. q-FFL
 (``fed.qffl_q > 0``) tilts the weights by ``max(loss_first, 0) ** q`` and
 renormalises the aggregate.
+
+A stateful algorithm (SCAFFOLD, FedEP) threads the cohort's per-client
+state slice through every placement: whole at ``parallel``, one row per
+client at ``sequential``, and at ``chunked`` padded with copies of client
+0's state as the batches are, its updates sliced back to the cohort. The
+state's placement (``core/client_state.py``) decides the signatures: the
+host store's slice comes in and the new states go out; the device store's
+whole state comes in with the cohort's ids, and the fused round gathers
+and CAS-scatters on the device.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import torch
 
 from repro_torch.algorithms import resolve_algorithm
 from repro_torch.core import tree_math as tm
+from repro_torch.core.client_state import device_gather, device_scatter
 from repro_torch.core.server import ServerState, normalized_weights
 from repro_torch.optim import Optimizer, get_optimizer
 
@@ -86,6 +96,7 @@ class _CohortCtx(NamedTuple):
 
     alg: object
     client_update: Callable
+    stateful: bool
     fed: object
     place: str
     chunk_size: Optional[int]
@@ -138,53 +149,85 @@ def _cat_metrics(parts, n: int):
     return {k: torch.cat([m[k] for m in parts])[:n] for k in parts[0]}
 
 
-def _run_parallel(ctx, params, batches, weights, extras):
-    res = ctx.client_update(params, batches, *extras)
+def _cat_states(parts, n: int):
+    """Concatenate per-stack state updates along the client axis, first
+    ``n`` (None for a stateless algorithm)."""
+    if parts[0] is None:
+        return None
+    return tm.tmap(lambda *xs: torch.cat(xs)[:n], *parts)
+
+
+def _state_arg(ctx, cstates, lo: int, hi: int) -> tuple:
+    """The stack's state slice as the update's argument (none when
+    stateless)."""
+    return (_rows(cstates, lo, hi),) if ctx.stateful else ()
+
+
+def _run_parallel(ctx, params, batches, weights, extras, cstates):
+    res = ctx.client_update(params, batches,
+                            *((cstates,) if ctx.stateful else ()), *extras)
     w = _qffl_weights(ctx, weights, res.metrics)
-    return ctx.alg.reduce_stacked(res.payload, w), res.metrics
+    return (ctx.alg.reduce_stacked(res.payload, w), res.metrics,
+            res.state_update)
 
 
-def _run_sequential(ctx, params, batches, weights, extras):
+def _run_sequential(ctx, params, batches, weights, extras, cstates):
     acc = ctx.alg.init_accum(params)
-    parts = []
+    parts, states = [], []
     for c in range(weights.shape[0]):
-        res = ctx.client_update(params, _rows(batches, c, c + 1), *extras)
+        res = ctx.client_update(params, _rows(batches, c, c + 1),
+                                *_state_arg(ctx, cstates, c, c + 1), *extras)
         w = _qffl_weights(ctx, weights[c:c + 1], res.metrics)
         acc = ctx.alg.accumulate(acc, tm.tmap(lambda x: x[0], res.payload),
                                  w[0])
         parts.append(res.metrics)
-    return acc, _cat_metrics(parts, weights.shape[0])
+        states.append(res.state_update)
+    C = weights.shape[0]
+    return acc, _cat_metrics(parts, C), _cat_states(states, C)
 
 
-def _run_chunked(ctx, params, batches, weights, extras, chunk: int):
+def _run_chunked(ctx, params, batches, weights, extras, cstates,
+                 chunk: int):
     C = weights.shape[0]
     pad = -(-C // chunk) * chunk - C
+
+    def pad_lead(x):
+        return torch.cat([x, x[:1].expand(pad, *x.shape[1:])])
+
     if pad:
-        # zero-weight duplicates of client 0 square off the last chunk
-        batches = tm.tmap(
-            lambda x: torch.cat([x, x[:1].expand(pad, *x.shape[1:])]),
-            batches)
+        # zero-weight duplicates of client 0 square off the last chunk;
+        # their state updates are sliced off below and never written
+        batches = tm.tmap(pad_lead, batches)
         weights = torch.cat([weights, weights.new_zeros(pad)])
+        if ctx.stateful:
+            cstates = tm.tmap(pad_lead, cstates)
     acc = ctx.alg.init_accum(params)
-    parts = []
+    parts, states = [], []
     for lo in range(0, C + pad, chunk):
         res = ctx.client_update(params, _rows(batches, lo, lo + chunk),
+                                *_state_arg(ctx, cstates, lo, lo + chunk),
                                 *extras)
         part = ctx.alg.reduce_stacked(
             res.payload,
             _qffl_weights(ctx, weights[lo:lo + chunk], res.metrics))
         acc = tm.tmap(lambda a, p: a + p.to(a.dtype), acc, part)
         parts.append(res.metrics)
-    return acc, _cat_metrics(parts, C)
+        states.append(res.state_update)
+    return acc, _cat_metrics(parts, C), _cat_states(states, C)
 
 
+# torch.func.grad inside grad_fn ignores the outer no_grad: only the
+# local steps differentiate, nothing else records a graph
+@torch.no_grad()
 def _run_cohort(ctx: _CohortCtx, state: ServerState, client_batches,
-                client_weights, survivor_mask=None):
+                client_weights, client_states=None, survivor_mask=None):
     """One cohort pass through the resolved placement; returns
-    ``(agg, losses)``."""
+    ``(agg, losses, new_client_states)`` (the last None when
+    stateless)."""
     params = state.params
     device = tm.tleaves(params)[0].device
     batches = to_device(client_batches, device)
+    cstates = (to_device(client_states, device) if ctx.stateful else None)
     C = tm.tleaves(batches)[0].shape[0]
     extras = ctx.alg.broadcast(state, ctx.server_opt)
     if survivor_mask is None:
@@ -196,13 +239,15 @@ def _run_cohort(ctx: _CohortCtx, state: ServerState, client_batches,
         weights = normalized_weights(base * mask, C, device, masked=True)
 
     if ctx.place == "parallel":
-        agg, metrics = _run_parallel(ctx, params, batches, weights, extras)
+        agg, metrics, new_states = _run_parallel(ctx, params, batches,
+                                                 weights, extras, cstates)
     elif ctx.place == "sequential":
-        agg, metrics = _run_sequential(ctx, params, batches, weights, extras)
+        agg, metrics, new_states = _run_sequential(ctx, params, batches,
+                                                   weights, extras, cstates)
     else:
-        agg, metrics = _run_chunked(ctx, params, batches, weights, extras,
-                                    _resolve_chunk(ctx.fed, ctx.chunk_size,
-                                                   C))
+        agg, metrics, new_states = _run_chunked(
+            ctx, params, batches, weights, extras, cstates,
+            _resolve_chunk(ctx.fed, ctx.chunk_size, C))
 
     if ctx.fed.qffl_q:
         # the placements folded with the tilted weights w_k * lam_k;
@@ -224,7 +269,7 @@ def _run_cohort(ctx: _CohortCtx, state: ServerState, client_batches,
         n = torch.clamp(m.sum(), min=1.0)
         losses = {"loss_first": (metrics["loss_first"] * m).sum() / n,
                   "loss_last": (metrics["loss_last"] * m).sum() / n}
-    return agg, losses
+    return agg, losses, new_states
 
 
 def make_cohort_program(grad_fn: Callable, fed, *,
@@ -247,6 +292,24 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     ``state.params`` and the server-optimizer state (MIME's broadcast)
     are read. ``wrap_client(update) -> update'`` wraps the algorithm's
     client update (``core.sharded_round``'s compute-dtype boundary).
+
+    A stateful algorithm's signature follows
+    ``fed.client_state_placement``:
+
+    * ``"host"`` — ``cohort_fn(state, client_batches, client_weights,
+      client_states, survivor_mask) -> (agg, losses, new_client_states)``:
+      ``client_states`` is ``ClientStateStore.gather``'s ``(C, ...)`` slice
+      (host numpy, moved to the device here) and ``new_client_states`` the
+      stacked ``state_update`` to scatter back.
+    * ``"device"`` — ``cohort_fn(state, client_batches, client_weights,
+      store_state, client_ids, survivor_mask) -> (agg, losses,
+      new_client_states, stamps)``: the slice is gathered on the device
+      from ``DeviceClientStateStore.device_state()`` at the ids of
+      ``prepare_ids``; the updates and gather-time stamps feed
+      ``device_scatter``.
+
+    ``state.algo_state`` (SCAFFOLD's server control variate) reaches the
+    clients through the algorithm's ``broadcast``.
     """
     alg = resolve_algorithm(fed, use_sampling)
     eff = alg.fed
@@ -260,17 +323,43 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     client_update = alg.make_client_update(grad, client_opt)
     if wrap_client is not None:
         client_update = wrap_client(client_update)
-    ctx = _CohortCtx(alg=alg, client_update=client_update, fed=fed,
+    ctx = _CohortCtx(alg=alg, client_update=client_update,
+                     stateful=alg.stateful, fed=fed,
                      place=resolve_placement(fed, placement),
                      chunk_size=chunk_size, server_opt=server_opt)
 
-    # torch.func.grad inside grad_fn ignores the outer no_grad: only the
-    # local steps differentiate, nothing else records a graph
-    @torch.no_grad()
-    def cohort_fn(state: ServerState, client_batches, client_weights=None,
-                  survivor_mask=None):
-        return _run_cohort(ctx, state, client_batches, client_weights,
-                           survivor_mask)
+    if ctx.stateful and fed.client_state_placement == "device":
+        def cohort_fn(state: ServerState, client_batches,
+                      client_weights=None, store_state=None,
+                      client_ids=None, survivor_mask=None):
+            if store_state is None or client_ids is None:
+                raise ValueError(
+                    f"algorithm {alg.name!r} is stateful with the device "
+                    f"store: cohort_fn needs store_state "
+                    f"(DeviceClientStateStore.device_state()) and the "
+                    f"cohort's client_ids (prepare_ids)")
+            cstates, stamps = device_gather(store_state, client_ids)
+            agg, losses, new_states = _run_cohort(
+                ctx, state, client_batches, client_weights, cstates,
+                survivor_mask)
+            return agg, losses, new_states, stamps
+    elif ctx.stateful:
+        def cohort_fn(state: ServerState, client_batches,
+                      client_weights=None, client_states=None,
+                      survivor_mask=None):
+            if client_states is None:
+                raise ValueError(
+                    f"algorithm {alg.name!r} is stateful: cohort_fn needs "
+                    f"the gathered client_states slice "
+                    f"(ClientStateStore.gather)")
+            return _run_cohort(ctx, state, client_batches, client_weights,
+                               client_states, survivor_mask)
+    else:
+        def cohort_fn(state: ServerState, client_batches,
+                      client_weights=None, survivor_mask=None):
+            agg, losses, _ = _run_cohort(ctx, state, client_batches,
+                                         client_weights, None, survivor_mask)
+            return agg, losses
 
     return cohort_fn
 
@@ -304,6 +393,14 @@ def make_round_program(grad_fn: Callable, fed, *,
     survivor_mask=None) -> (new_state, {"loss_first", "loss_last"})``: the
     cohort stage then the server stage (see ``make_cohort_program``). The
     losses are unweighted cohort (or survivor) means, left on the device.
+
+    A stateful algorithm with the host store takes the gathered
+    ``client_states`` before ``survivor_mask`` and returns ``(new_state,
+    losses, new_client_states)``; with the device store it takes
+    ``(store_state, client_ids)`` instead and returns ``(new_state, losses,
+    new_store_state)``: gather, clients, CAS scatter (in place, with the
+    survivor mask as its write mask, so a dropped client's state does not
+    land) and server step, with no host sync.
     """
     cohort_fn = make_cohort_program(
         grad_fn, fed, placement=placement, chunk_size=chunk_size,
@@ -311,11 +408,32 @@ def make_round_program(grad_fn: Callable, fed, *,
         server_opt=server_opt, wrap_client=wrap_client)
     server_fn = make_server_program(fed, server_opt=server_opt,
                                     use_sampling=use_sampling)
+    stateful = resolve_algorithm(fed, use_sampling).stateful
 
-    def round_fn(state: ServerState, client_batches, client_weights=None,
-                 survivor_mask=None):
-        agg, metrics = cohort_fn(state, client_batches, client_weights,
-                                 survivor_mask)
-        return server_fn(state, agg), metrics
+    if stateful and fed.client_state_placement == "device":
+        def round_fn(state: ServerState, client_batches, client_weights=None,
+                     store_state=None, client_ids=None, survivor_mask=None):
+            agg, metrics, new_states, stamps = cohort_fn(
+                state, client_batches, client_weights, store_state,
+                client_ids, survivor_mask)
+            # nothing writes between this round's gather and its scatter,
+            # so the CAS drops nothing (the count is discarded)
+            new_store, _ = device_scatter(store_state, client_ids,
+                                          new_states, stamps,
+                                          write_mask=survivor_mask)
+            return server_fn(state, agg), metrics, new_store
+    elif stateful:
+        def round_fn(state: ServerState, client_batches, client_weights=None,
+                     client_states=None, survivor_mask=None):
+            agg, metrics, new_states = cohort_fn(
+                state, client_batches, client_weights, client_states,
+                survivor_mask)
+            return server_fn(state, agg), metrics, new_states
+    else:
+        def round_fn(state: ServerState, client_batches, client_weights=None,
+                     survivor_mask=None):
+            agg, metrics = cohort_fn(state, client_batches, client_weights,
+                                     survivor_mask)
+            return server_fn(state, agg), metrics
 
     return round_fn

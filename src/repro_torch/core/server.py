@@ -13,18 +13,24 @@ from repro_torch.optim import Optimizer
 
 
 class ServerState(NamedTuple):
-    """Everything the server carries across rounds (``round`` is a Python
-    int). The reference's ``algo_state`` comes with the stateful
-    algorithms (ROADMAP.md queue 1, item 7)."""
+    """Everything the server carries across rounds. ``round`` is a Python
+    int (checkpoints write it as an int32 scalar, as the reference's).
+    ``algo_state`` is the algorithm's persistent server-side statistic
+    (``FedAlgorithm.init_algo_state``): ``()`` for most algorithms,
+    SCAFFOLD's server control variate."""
 
     params: object
     opt_state: object
     round: int
+    algo_state: object = ()
 
 
-def init_server_state(params, server_opt: Optimizer) -> ServerState:
-    """Fresh server state."""
-    return ServerState(params, server_opt.init(params), 0)
+def init_server_state(params, server_opt: Optimizer,
+                      algorithm=None) -> ServerState:
+    """Fresh server state; ``algorithm`` (a ``FedAlgorithm``) seeds its
+    ``algo_state``, which is ``()`` when it is omitted."""
+    algo_state = () if algorithm is None else algorithm.init_algo_state(params)
+    return ServerState(params, server_opt.init(params), 0, algo_state)
 
 
 def check_weight_total(total: float, shape=None, context: str = "") -> None:
@@ -70,7 +76,8 @@ def weighted_sum(stacked_deltas, weights, cast: bool = True):
 
 def server_update(state: ServerState, mean_delta,
                   server_opt: Optimizer) -> ServerState:
-    """theta <- SERVEROPT(theta, Delta)."""
+    """theta <- SERVEROPT(theta, Delta); ``algo_state`` is carried through
+    (an algorithm that updates it does so in its ``server_update``)."""
     updates, opt_state = server_opt.update(mean_delta, state.opt_state,
                                            state.params)
     params = tm.tmap(lambda p, u: p + u.to(p.dtype), state.params, updates)

@@ -51,7 +51,10 @@ def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
     def wrap_client(client_update):
         def cast_client_update(master_params, batches, *extra):
             """One client on the master params cast to the compute dtype
-            (the reference's all-gather boundary, without the gather)."""
+            (the reference's all-gather boundary, without the gather).
+            ``extra`` — a stateful algorithm's client-state slice and the
+            broadcast extras (SCAFFOLD's ``c_i`` and ``c``, FedEP's sites)
+            — passes uncast: that state stays fp32."""
             return client_update(tm.tcast(master_params, compute_dtype),
                                  batches, *extra)
 
@@ -66,7 +69,10 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
                    remat: str = "none", use_sampling: bool = True,
                    chunk_size: Optional[int] = None) -> Callable:
     """Build ``round_fn(server_state, client_batches, client_weights=None,
-    survivor_mask=None) -> (state, metrics)``.
+    survivor_mask=None) -> (state, metrics)``; a stateful algorithm's
+    round takes and returns its client state as
+    ``round_program.make_round_program`` describes, per
+    ``fed.client_state_placement``.
 
     client_batches: ``{"tokens": (C, K, B_local, S+1) int}`` (numpy or
     tensors). ``use_sampling=False`` gives the burn-in-round variant

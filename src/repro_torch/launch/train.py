@@ -9,8 +9,18 @@ Runs federated rounds of the selected architecture on ``cuda`` unless
 reference's, plus ``--device``. Each round prints one JSON record with the
 reference's keys. The weights are random, drawn on the CPU from ``--seed``
 (so every device starts from the same ones) and moved to the device in
-fp32; the local steps compute in bf16. On the card FedPA's DP steps run
-through the CUDA kernels ``dp_reduce`` / ``dp_map``.
+fp32; the local steps compute in bf16. On the card the DP steps of FedPA,
+``fedpa_precision`` and FedEP run through the CUDA kernels ``dp_reduce`` /
+``dp_map``.
+
+The stateful algorithms (``--algorithm scaffold`` with ``--client-opt
+sgd``, ``--algorithm fedep``) keep per-client state in a store placed by
+``--client-state-placement``: host numpy buffers, or tensors on the
+device. ``--ckpt-dir`` checkpoints every ``--ckpt-every`` rounds and at
+the last one, in the reference's npz format (``{"server", "clients"}``
+for a stateful algorithm, the bare server state otherwise); a run whose
+directory holds a checkpoint resumes from it ("restored checkpoint at
+round N"). Each package reads the other's checkpoints.
 
 Differences from the reference:
 
@@ -27,15 +37,18 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import time
 
 import torch
 
 from repro_torch import configs
 from repro_torch.algorithms import algorithm_names, get_algorithm, phase_name
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.compression.accounting import round_bytes
 from repro_torch.configs.base import PENDING_ALGORITHMS, FedConfig, _not_ported
 from repro_torch.core import tree_math as tm
+from repro_torch.core.client_state import make_client_store
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round import resolve_device
 from repro_torch.core.round_program import to_device
@@ -104,7 +117,8 @@ def parse_args(argv=None):
     ap.add_argument("--rho", type=float, default=0.01)
     ap.add_argument("--server-opt", default="sgdm")
     ap.add_argument("--server-lr", type=float, default=0.5)
-    ap.add_argument("--client-opt", default="sgdm")
+    ap.add_argument("--client-opt", default="sgdm",
+                    help="client optimizer (scaffold requires 'sgd')")
     ap.add_argument("--client-lr", type=float, default=0.05)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -131,14 +145,16 @@ def parse_args(argv=None):
     ap.add_argument("--straggler-max-lateness", type=int, default=2)
     ap.add_argument("--min-local-steps", type=int, default=0)
     ap.add_argument("--client-state-placement", default="host",
-                    choices=("host", "device"))
+                    choices=("host", "device"),
+                    help="where stateful algorithms' per-client state "
+                         "lives: host numpy buffers (one sync per round at "
+                         "the scatter) or tensors on the device")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--shard-population", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported (ROADMAP.md queue 1, item 7)")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log", default=None, help="JSONL metrics path")
     ap.add_argument("--device", default=None,
@@ -152,11 +168,6 @@ def refuse_unported(args) -> None:
     pending = [
         (args.async_rounds, "--async-rounds", 8),
         (args.prefetch_rounds > 0, "--prefetch-rounds > 0", 8),
-        (args.client_state_placement != "host",
-         f"--client-state-placement {args.client_state_placement}", 7),
-        (args.ckpt_dir is not None, "--ckpt-dir (checkpoint/io.py)", 7),
-        (args.algorithm in ("scaffold", "fedep"),
-         f"--algorithm {args.algorithm}", 7),
         (args.coordinator is not None, "--coordinator", 10),
         ((args.num_processes or 1) > 1, "--num-processes > 1", 10),
         (args.process_id is not None, "--process-id", 10),
@@ -195,11 +206,33 @@ def make_eval_fn(args, cfg, data, s_text, q_chunk, device, compute_dtype):
     return eval_fn
 
 
-def run_rounds(args, cfg, fed, alg, state, source, eval_fn, emit, q_chunk,
-               compute_dtype):
+def restore_if_present(args, state, store, ckpt_tree):
+    """Resume from ``--ckpt-dir`` when it holds a checkpoint; returns
+    ``(state, start_round)`` and loads the client state into ``store`` in
+    place."""
+    start_round = 0
+    if args.ckpt_dir and os.path.isdir(args.ckpt_dir):
+        try:
+            restored, start_round, _ = restore_checkpoint(args.ckpt_dir,
+                                                          ckpt_tree(state))
+        except FileNotFoundError:
+            return state, 0
+        if store is None:
+            state = restored
+        else:
+            state = restored["server"]
+            store.load_state_dict(restored["clients"])
+        print(f"restored checkpoint at round {start_round}")
+    return state, start_round
+
+
+def run_rounds(args, cfg, fed, alg, state, store, start_round, source, eval_fn, emit, maybe_checkpoint,
+               q_chunk, compute_dtype):
     """Drive the window-1 ``RoundEngine`` over the burn-in and sampling
-    programs; returns ``(state, history)``."""
-    has_burn = alg.has_burn_regime and fed.burn_in_rounds > 0
+    programs from ``start_round`` to ``args.rounds``; returns ``(state,
+    history)``. Cohorts are drawn at the absolute round, so a resumed run
+    draws what an unbroken one would."""
+    has_burn = alg.burns_in
 
     def program(use_sampling):
         return make_fed_round(cfg, fed, placement="parallel",
@@ -210,18 +243,26 @@ def run_rounds(args, cfg, fed, alg, state, source, eval_fn, emit, q_chunk,
     engine = RoundEngine(
         round_fn=program(True),
         burn_round_fn=program(False) if has_burn else None,
-        burn_in_rounds=fed.burn_in_rounds,
+        burn_in_rounds=max(0, fed.burn_in_rounds - start_round),
         round_bytes=rb,
         burn_round_bytes=(round_bytes(fed, state.params, use_sampling=False)
                           if has_burn else rb),
+        client_store=store,
+        stateful=alg.stateful,
+        burn_stateful=alg.burn_stateful,
     )
+
+    def build_cohort(i):
+        # the engine counts from 0; the draw stays keyed to the absolute
+        # round
+        return source.cohort(start_round + i)._replace(round_idx=i)
+
     last_t = time.time()
 
     def on_round(rec, round_state):
         # one device sync per round, for live logging
         nonlocal last_t
-        del round_state
-        r = rec["round"]
+        r = start_round + rec["round"]
         out = {"round": r,
                "eval_loss": (float(rec["eval"]["eval_loss"])
                              if "eval" in rec else None),
@@ -233,9 +274,10 @@ def run_rounds(args, cfg, fed, alg, state, source, eval_fn, emit, q_chunk,
         for k in ("dropped", "straggled", "bytes_up", "bytes_down"):
             out[k] = rec[k]
         emit(out, time.time() - last_t)
+        maybe_checkpoint(round_state, r)
         last_t = time.time()
 
-    return engine.run(state, source.cohort, args.rounds,
+    return engine.run(state, build_cohort, args.rounds - start_round,
                       eval_fn=lambda p: {"eval_loss": eval_fn(p)},
                       on_round=on_round)
 
@@ -246,8 +288,9 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
     ``cfg`` replaces the config that ``--arch`` / ``--smoke`` name, and
     ``compute_dtype`` the bf16 compute of the local steps (a full-width
     model cut in depth, in fp32, for comparing devices). Returns ``cfg``,
-    the final ``state``, the engine's ``history``, the printed
-    ``records`` and each round's host ``seconds``.
+    the final ``state``, the per-client ``store`` (None when stateless),
+    the engine's ``history``, the printed ``records`` and each round's
+    host ``seconds``.
     """
     args = parse_args(argv)
     refuse_unported(args)
@@ -266,7 +309,28 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
         torch.Generator().manual_seed(args.seed), cfg, device="cpu"))
     server_opt = get_optimizer(fed.server_opt, fed.server_lr,
                                fed.server_momentum)
-    state = init_server_state(params, server_opt)
+    alg = get_algorithm(fed)
+    state = init_server_state(params, server_opt, algorithm=alg)
+    store = (make_client_store(fed.client_state_placement, args.num_clients,
+                               device=device)
+             .ensure(alg.init_client_state(params))
+             if alg.stateful or alg.burn_stateful else None)
+
+    def ckpt_tree(round_state):
+        """The checkpoint tree: the bare server state, or ``{"server",
+        "clients"}`` (the one place device client state reaches the
+        host)."""
+        if store is None:
+            return round_state
+        return {"server": round_state, "clients": store.state_dict()}
+
+    def maybe_checkpoint(round_state, r):
+        if args.ckpt_dir and ((r + 1) % args.ckpt_every == 0
+                              or r == args.rounds - 1):
+            save_checkpoint(args.ckpt_dir, ckpt_tree(round_state), r + 1,
+                            {"arch": cfg.name, "algorithm": fed.algorithm})
+
+    state, start_round = restore_if_present(args, state, store, ckpt_tree)
     q_chunk = min(64, s_text)
     source = CohortSource(fed, args.num_clients,
                           make_round_batches(args, fed, data, s_text),
@@ -285,10 +349,11 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
             records.append(rec)
             seconds.append(sec)
 
-        state, history = run_rounds(args, cfg, fed, get_algorithm(fed),
-                                    state, source, eval_fn, emit, q_chunk,
+        state, history = run_rounds(args, cfg, fed, alg, state, store,
+                                    start_round, source, eval_fn, emit,
+                                    maybe_checkpoint, q_chunk,
                                     compute_dtype)
-    return {"cfg": cfg, "state": state, "history": history,
+    return {"cfg": cfg, "state": state, "store": store, "history": history,
             "records": records, "seconds": seconds}
 
 

@@ -1,14 +1,17 @@
 """The port's whole synchronous round on the CPU: every stateless
-``__sync__`` engine golden in all three placements, fault-injected and
-q-FFL rounds against JAX ``FedSim``, the all-dropped cohort, and the
-quickstart against JAX ``FedSim``.
+``__sync__`` engine golden in all three placements, the 12 stateful ones
+(``scaffold``, ``fedep`` and their device-store twins, with the client
+store's buffers and stamps), fault-injected and q-FFL rounds against JAX
+``FedSim``, the all-dropped cohort, and the quickstart against JAX
+``FedSim``.
 
 Tolerances (fp32): params and losses to 1e-5 relative, history keys and
 ints exact, as ``tests/test_torch_round.py``: the port takes the DP's
 ``a_t`` by conjugacy and sums in another order (the golden replays agree
 to ~1e-6 relative and better). The quickstart's params after 3 rounds of
 300 local steps: 1e-4 relative (its losses are ~1e5, so one fp32 rounding
-of a gradient is ~1e-2 absolute; 900 steps compound it).
+of a gradient is ~1e-2 absolute; 900 steps compound it). The stateful
+goldens' store buffers: 1e-5 relative; their stamps exact.
 """
 import json
 
@@ -22,6 +25,7 @@ import engine_goldens_common as egc
 from test_torch_round import UNIFORM_KEYS, torch_lsq_problem
 from repro.configs.base import FedConfig as JaxFedConfig
 from repro.core import FedSim as JaxFedSim
+from repro_torch.checkpoint import leaves_with_paths
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.round import FedSim
 from repro_torch.core.round_program import make_cohort_program
@@ -29,10 +33,12 @@ from repro_torch.core.server import init_server_state
 from repro_torch.examples import quickstart
 from repro_torch.optim import get_optimizer
 
-#: The stateless specs of the golden matrix (the stateful ones and the
-#: async-only straggler spec wait for ROADMAP.md queue 1, items 7-9).
+#: The stateless specs of the golden matrix (fedlora and the async-only
+#: straggler spec wait for ROADMAP.md queue 1, items 9 and 8).
 STATELESS = ("fedavg", "fedavg_weighted", "fedavg_dropout", "fedpa",
              "fedpa_stream", "fedprox", "mime", "fedpa_precision")
+#: The stateful specs: the host store and the device store (``_dev``).
+STATEFUL = ("scaffold", "fedep", "scaffold_dev", "fedep_dev")
 #: Replayed at ``parallel`` by ``test_torch_round.py`` already.
 ROUND_FILE = ("fedavg", "fedavg_weighted", "fedpa", "fedpa_stream")
 
@@ -85,6 +91,30 @@ def test_replays_stateless_sync_goldens(name, placement, lsq_problem):
     np.testing.assert_allclose(state.params.numpy(), g_arrays["param::"],
                                rtol=1e-5)
     _assert_history(history, g_history)
+
+
+@pytest.mark.parametrize("name,placement", [
+    (n, p) for n in STATEFUL for p in egc.PLACEMENTS])
+def test_replays_stateful_sync_goldens(name, placement, lsq_problem):
+    """Params, the per-client store (``store::['buffers']...`` as the
+    goldens key it) and the history; stamps exact, and no CAS drop."""
+    sim = _sim(name, placement, lsq_problem)
+    state, history = sim.run(torch.zeros(egc.D), egc.ROUNDS,
+                             eval_fn=lambda p: {"eval_loss": (p * p).sum()},
+                             eval_every=2)
+    g_arrays, g_history = egc.load_case(name, "sync", placement)
+    got = {"param::": state.params.numpy()}
+    got.update({f"store::{path}": np.asarray(leaf) for path, leaf in
+                leaves_with_paths(sim.client_store.state_dict())})
+    assert set(got) == set(g_arrays)
+    for key, want in g_arrays.items():
+        if key == "store::['stamps']":
+            np.testing.assert_array_equal(got[key], want)
+        else:
+            np.testing.assert_allclose(got[key], want, rtol=1e-5,
+                                       err_msg=key)
+    _assert_history(history, g_history)
+    assert all(h["state_drops"] == 0 for h in history)
 
 
 #: Faults and q-FFL beyond the goldens: q-FFL on a dropout cohort, step

@@ -11,7 +11,10 @@ bit. One DP step on the card against the twins' step: 1e-4 relative plus
 1e-4 of the largest entry (the coefficients come from reduce sums in
 another order; entries that cancel keep an absolute error of the largest
 entry's size). A round on the card against the same round on the CPU:
-1e-4 relative, 1e-5 absolute (fp32 least squares, 12 local steps).
+1e-4 relative, 1e-5 absolute (fp32 least squares, 12 local steps); the
+stateful CNN rounds and their client stores, 1e-3 relative, 1e-4
+absolute (``chip_smoke.py`` phase 4's bound). The device store's CAS on
+the card equals the host store's exactly.
 """
 import numpy as np
 import pytest
@@ -419,3 +422,128 @@ def test_smoke_train_path_on_the_card_equals_the_cpu():
     for got, want in zip(tm.tleaves(card["state"].params),
                          tm.tleaves(cpu["state"].params)):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_device_store_cas_on_cuda_equals_the_host_store():
+    """The same gathers and CAS scatters (a stale stamp, a write mask) on
+    the host store and on the device store's CUDA tensors: the same
+    states, stamps and drop counts; ``device_gather`` / ``device_scatter``
+    with the ids, stamps and mask already on the card never sync with the
+    host (sync-debug mode ``"error"``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import client_state as cs
+
+    template = {"a": np.zeros((3, 2), np.float32),
+                "b": np.zeros(5, np.float32)}
+    host = cs.ClientStateStore(8).ensure(template)
+    dev = cs.DeviceClientStateStore(8, device="cuda").ensure(template)
+    drops = {}
+    for name, store in (("host", host), ("device", dev)):
+        rng = np.random.default_rng(0)
+        stale = store.gather([4])[1]
+        drops[name] = []
+        for ids, mask in ([1, 4, 6], None), ([4, 2, 7], [1, 0, 1]):
+            _, stamps = store.gather(ids)
+            upd = {k: rng.normal(size=(len(ids),) + v.shape).astype(
+                np.float32) for k, v in template.items()}
+            drops[name].append(store.scatter(ids, upd, stamps,
+                                             write_mask=mask))
+        ones = {k: np.ones((1,) + v.shape, np.float32)
+                for k, v in template.items()}
+        drops[name].append(store.scatter([4], ones, stale))
+    assert drops["host"] == drops["device"] == [0, 0, 1]
+    for a, b in zip(tm.tleaves(host.state_dict()),
+                    tm.tleaves(dev.state_dict())):
+        np.testing.assert_array_equal(a, b)
+
+    ids = dev.prepare_ids([3, 4, 7])
+    mask = torch.tensor([1.0, 0.0, 1.0], device="cuda")
+    stale = dev.device_state()["stamps"].index_select(0, ids) - 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows, stamps = cs.device_gather(dev.device_state(), ids)
+        upd = tm.tmap(lambda x: x + 1.0, rows)
+        _, drops = cs.device_scatter(dev.device_state(), ids, upd, stamps,
+                                     write_mask=mask)
+        _, stale_drops = cs.device_scatter(dev.device_state(), ids, upd,
+                                           stale)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(drops) == 0 and int(stale_drops) == 3
+    host_rows, _ = host.gather([3, 4, 7])
+    _, host_stamps = host.gather([3, 4, 7])
+    assert host.scatter([3, 4, 7], tm.tmap(lambda x: x + 1.0, host_rows),
+                        host_stamps, write_mask=[1, 0, 1]) == 0
+    for a, b in zip(tm.tleaves(host.state_dict()),
+                    tm.tleaves(dev.state_dict())):
+        np.testing.assert_array_equal(a, b)
+
+
+def _cnn_sim(device, algorithm, place):
+    """A stateful round of the full-width EMNIST CNN: 4 of 6 clients, 6
+    local steps (FedEP: 2 burn-in steps, windows of 2, l = 2, after one
+    burn-in round)."""
+    from repro_torch.configs.emnist_cnn import config
+    from repro_torch.models.cnn import cnn_grad_fn
+
+    cfg = config()
+    s = cfg.image_size
+
+    def batch_fn(cid, rnd, steps):
+        r = np.random.default_rng([cid, rnd])
+        return {"x": r.random((steps, 8, s, s, 1), np.float32),
+                "y": r.integers(0, cfg.num_classes, (steps, 8),
+                                dtype=np.int32)}
+
+    kw = dict(algorithm=algorithm, clients_per_round=4, local_steps=6,
+              client_opt="sgd", client_lr=0.01, server_opt="sgd",
+              server_lr=0.3, client_state_placement=place)
+    if algorithm == "fedep":
+        kw.update(burn_in_steps=2, steps_per_sample=2, shrinkage_rho=0.01,
+                  burn_in_rounds=1, fedep_damping=0.7)
+    return FedSim(FedConfig(**kw), cnn_grad_fn(cfg), batch_fn,
+                  num_clients=6, device=device), cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm,place,dp_launches", [
+    ("fedep", "device", 2), ("scaffold", "host", 0), ("scaffold", "device",
+                                                       0)])
+def test_stateful_cnn_rounds_on_the_card_equal_the_cpu(algorithm, place,
+                                                       dp_launches):
+    """Three rounds on the card and on the CPU (TF32 off): params and the
+    client store within 1e-3 relative, 1e-4 absolute (``chip_smoke.py``
+    phase 4's bound); FedEP makes (l - 1) = 1 DP step per FedEP round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models.cnn import init_cnn_params
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            sim, cfg = _cnn_sim(device, algorithm, place)
+            params = init_cnn_params(torch.Generator().manual_seed(0), cfg)
+            fedpa_dp.reset_launches()
+            state, _ = sim.run(params, 3)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert fedpa_dp.launches == {"dp_reduce": dp_launches,
+                                             "dp_map": dp_launches}
+            out[device] = (state, sim.client_store.state_dict())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (card, card_store), (cpu, cpu_store) = out["cuda"], out["cpu"]
+    for a, b in zip(tm.tleaves(card.params), tm.tleaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
+    np.testing.assert_array_equal(card_store["stamps"], cpu_store["stamps"])
+    for a, b in zip(tm.tleaves(card_store["buffers"]),
+                    tm.tleaves(cpu_store["buffers"])):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)

@@ -1,8 +1,9 @@
 """The port's LM training path against the JAX package on the same inputs:
 the training forward, the cross entropy, the loss and its grads, the
-plain-autograd step, and one FedAvg (burn-in) and one FedPA round of the
+plain-autograd step, one FedAvg (burn-in) and one FedPA round of the
 smoke fedlm-100m through ``make_fed_round`` at ``parallel`` and
-``chunked``.
+``chunked``, and one FedEP and one SCAFFOLD round from the same numpy
+client states (the host store's slice) and server control variate.
 
 Parameters are numpy arrays at the JAX init's shapes, converted with
 ``convert.lm_params_from_jax``, so both packages run the same weights.
@@ -16,7 +17,11 @@ places in the two frameworks. Round params 1e-5 relative plus 1e-6
 absolute after a FedAvg round and 1e-5 relative plus 1e-5 absolute after
 the FedPA round that follows it (the goldens' 1e-5): 8 local steps of
 sgdm through 2 layers, then the DP, whose ``a_t`` the port takes by
-conjugacy (ROADMAP.md queue 3).
+conjugacy (ROADMAP.md queue 3). The stateful rounds: params and FedEP's
+sites 1e-5 relative plus 1e-5 of the leaf's largest entry. SCAFFOLD's
+control variates are ``(theta_0 - theta_K) / (K lr)`` plus states of
+~1e-2: a difference of params divided by K lr, so their absolute part is
+that same 1e-5 of the params leaf's largest entry, divided by K lr.
 """
 import dataclasses
 import functools
@@ -30,6 +35,7 @@ import torch
 from test_torch_lm import _jax_params, _small
 from repro import configs as jax_configs
 from repro.configs.base import FedConfig as JaxFedConfig
+from repro.algorithms import get_algorithm as jax_get_algorithm
 from repro.core.server import init_server_state as jax_init_server_state
 from repro.core.sharded_round import make_fed_round as jax_make_fed_round
 from repro.models import layers as jax_layers
@@ -37,6 +43,7 @@ from repro.models import model as jax_model
 from repro.models import steps as jax_steps
 from repro.optim import get_optimizer as jax_get_optimizer
 from repro_torch import configs
+from repro_torch.algorithms import get_algorithm
 from repro_torch.configs.base import FedConfig
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.core import sharded_round
@@ -276,6 +283,97 @@ def test_make_fed_round_vs_jax(placement):
         for path, want in want_params:
             np.testing.assert_allclose(_port_leaf(state.params, path), want,
                                        rtol=1e-5, atol=atol, err_msg=path)
+
+
+#: The stateful rounds: FedEP (the FedPA round's settings, damping 0.7)
+#: and SCAFFOLD (plain SGD clients, 8 steps).
+STATEFUL_KW = {
+    "fedep": dict(ROUND_KW, algorithm="fedep", fedep_damping=0.7),
+    "scaffold": dict(ROUND_KW, algorithm="scaffold", client_opt="sgd"),
+}
+
+
+def _stateful_inputs(name):
+    """Numpy client states for the 2 clients (a stack of one client's
+    template) and, for SCAFFOLD, the server control variate: small
+    normals, FedEP's precisions positive."""
+    r = np.random.default_rng(21)
+    params = _fedlm_params()
+
+    def draw(shape, positive=False):
+        x = 0.01 * r.normal(size=shape)
+        return (np.abs(x) + 0.5 if positive else x).astype(np.float32)
+
+    def stack(positive=False):
+        return jax.tree_util.tree_map(
+            lambda p: draw((2,) + p.shape, positive), params)
+
+    if name == "fedep":
+        return {"num": stack(), "den": stack(positive=True)}, None
+    return stack(), jax.tree_util.tree_map(lambda p: draw(p.shape), params)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stateful_round(name):
+    jcfg = jax_configs.get_smoke(ARCH)
+    fed = JaxFedConfig(**STATEFUL_KW[name])
+    opt = jax_get_optimizer(fed.server_opt, fed.server_lr,
+                            fed.server_momentum)
+    cstates, c = _stateful_inputs(name)
+    state = jax_init_server_state(
+        jax.tree_util.tree_map(jnp.asarray, _fedlm_params()), opt,
+        algorithm=jax_get_algorithm(fed))
+    if c is not None:
+        state = state._replace(algo_state=jax.tree_util.tree_map(
+            jnp.asarray, c))
+    fn = jax.jit(jax_make_fed_round(jcfg, fed, placement="parallel",
+                                    compute_dtype=jnp.float32, q_chunk=8))
+    state, metrics, new_states = fn(state, {"tokens": ROUND_TOKENS[1]},
+                                    None, cstates)
+    return (_jax_leaves(state.params), _jax_leaves(state.algo_state),
+            _jax_leaves(new_states),
+            {k: float(v) for k, v in metrics.items()})
+
+
+@pytest.mark.parametrize("name", sorted(STATEFUL_KW))
+def test_stateful_fed_round_vs_jax(name):
+    """One round of the smoke fedlm-100m with the host store's slice: the
+    params, SCAFFOLD's server control variate and the clients' new states
+    against the JAX package's."""
+    tcfg = configs.get_smoke(ARCH)
+    fed = FedConfig(**STATEFUL_KW[name])
+    opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
+    cstates, c = _stateful_inputs(name)
+    state = init_server_state(lm_params_from_jax(_fedlm_params(), "cpu"),
+                              opt, algorithm=get_algorithm(fed))
+    if c is not None:
+        state = state._replace(algo_state=lm_params_from_jax(c, "cpu"))
+    fn = sharded_round.make_fed_round(tcfg, fed, placement="parallel",
+                                      compute_dtype=F32, q_chunk=8)
+    state, metrics, new_states = fn(state, {"tokens": ROUND_TOKENS[1]},
+                                    None, cstates)
+    want_params, want_c, want_states, want_metrics = \
+        _jax_stateful_round(name)
+    for k, v in want_metrics.items():
+        np.testing.assert_allclose(float(metrics[k]), v, rtol=1e-5)
+    theta = dict(_jax_leaves(_fedlm_params()))
+    delta_scale = fed.local_steps * fed.client_lr
+    for tree, want, of_delta in ((state.params, want_params, False),
+                                 (state.algo_state, want_c, True),
+                                 (new_states, want_states,
+                                  name == "scaffold")):
+        assert len(tm.tleaves(tree)) == len(want)
+        for path, w in want:
+            got = tree
+            for key in path.strip("[]").split("]["):
+                got = got[key.strip("'")]
+            if of_delta:
+                np.testing.assert_allclose(
+                    got.detach().numpy(), w, rtol=1e-5,
+                    atol=1e-5 * np.abs(theta[path]).max() / delta_scale,
+                    err_msg=path)
+            else:
+                _close_scaled(got.detach().numpy(), w, 1e-5, 1e-5)
 
 
 def test_sequential_placement_steps_on_compute_dtype_params():
