@@ -81,7 +81,7 @@
    beside the round's bound reckoned from the code, the peak memory,
    and the launches: each DP kernel must have been launched (rounds -
    burn-in rounds) x (l - 1) = 6 times, ``swa_decode`` never; a second,
-   profiled run of two FedPA rounds gives the device time per round, its
+   profiled run of one FedPA round gives the device time per round, its
    idle share and the kernels that take the most of it. Then the
    same path in fp32 compute on fedlm-100m cut to one layer (2 clients,
    batch 2 x 64 tokens, one burn-in and one FedPA round) on the card and
@@ -108,11 +108,34 @@
    4 against a straight 4-round run. (f) Whether phase 3's rounds, and
    (b)'s device-store card run, repeat bit for bit in one process, with
    ``cudnn.deterministic`` off and on (a report, no check).
+11. Async rounds (a window of cohorts in flight). (a) Async FedPA trains the
+   full-width fedlm-100m through ``launch.train.main`` with phase 9's
+   settings cut to 5 rounds, ``--async-rounds --max-staleness 2
+   --staleness-discount 0.9`` and the reference's prefetcher (2 rounds
+   ahead, a child process): staleness 0, 1, 2, 2, 2 on the records; each
+   DP kernel launched 4 x (l - 1) = 12 times, the synchronous count; the
+   prefetcher's child started by ``spawn`` while this process's CUDA
+   context is live; host ms per round beside the same run with cohorts
+   built inline, peak memory, and that inline run's cohort builds' host
+   ms and, profiled over rounds 1-4, its device idle share.
+   (b) Async FedEP on the device store, 4 of 16 clients, window 3: the
+   records' ``state_drops`` and the store's stamps equal a host replay
+   of the CAS from the draws (drops > 0), each write-back run under
+   ``torch.cuda.set_sync_debug_mode("error")`` with its drop count a
+   tensor. (c) The same on one layer, fp32, client lr 0.01, with the host
+   store and the device store on the card (equal drops, bitwise equal
+   under deterministic algorithms) and the device store on the CPU
+   (phase 4's bound). (d) The CNN cell with the goldens' straggler spec
+   (FedAvg, rate 0.5, lateness <= 2, window 3) and FedPA at window 3,
+   card and CPU: ``staleness`` / ``straggled`` equal the CPU's and the
+   draws, params within phase 4's bound, FedPA's DP launches 16 each; the
+   card run's cohort builds' host ms.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device or the port's sources are missing, and when any
-phase fails.
+phase fails. The work stays under ``if __name__ == "__main__"``: phase
+11's prefetcher child imports this file afresh (``spawn``).
 """
 from __future__ import annotations
 
@@ -166,13 +189,15 @@ TRAIN_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
               "4", "--num-clients", "64", "--local-steps", "12",
               "--burn-in-steps", "4", "--steps-per-sample", "2",
               "--burn-in-rounds", "1", "--rounds", "3", "--batch", "4",
-              "--seq-len", "128", "--server-lr", "0.3"]
+              "--seq-len", "128", "--server-lr", "0.3", "--prefetch-rounds",
+              "0"]
 # ... and its fp32 replay on one layer, card against CPU
 REPLAY_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
                "2", "--num-clients", "64", "--local-steps", "12",
                "--burn-in-steps", "4", "--steps-per-sample", "2",
                "--burn-in-rounds", "1", "--rounds", "2", "--batch", "2",
-               "--seq-len", "64", "--server-lr", "0.3"]
+               "--seq-len", "64", "--server-lr", "0.3", "--prefetch-rounds",
+               "0"]
 
 # phase 10: the population of the full-width FedEP run (cut from 64: the
 # device store holds 2 fp32 vectors of d per client) ...
@@ -195,6 +220,24 @@ STATE_RUNS = (
                                    client_state_placement="device",
                                    round_placement="chunked",
                                    round_chunk_size=6)),
+)
+
+# phase 11: async rounds. The reference's --async-rounds settings with a
+# window of 3, and its default prefetcher (2 rounds ahead, a child
+# process); the full-width runs cut to 5 rounds
+ASYNC_ARGV = ["--async-rounds", "--max-staleness", "2",
+              "--staleness-discount", "0.9"]
+PREFETCH_ARGV = ["--prefetch-rounds", "2", "--prefetch-backend", "process"]
+ASYNC_ROUNDS = 5
+# ... and the CNN runs (phase 3's settings): the goldens' straggler spec
+# (FedAvg, rate 0.5, lateness <= 2, window 3) and FedPA with their async2
+# window
+ASYNC_CNN_RUNS = (
+    ("fedavg stragglers", dict(algorithm="fedavg", straggler_rate=0.5,
+                               straggler_max_lateness=2, async_rounds=True,
+                               max_staleness=2)),
+    ("fedpa async2", dict(async_rounds=True, max_staleness=2,
+                          staleness_discount=0.9)),
 )
 
 # the serving path (gemma3-27b at full width): batch, prompt, generated
@@ -1132,7 +1175,7 @@ def train_path(card: str, seed: int) -> dict:
     return launches
 
 
-def profile_train(round_ms: float, seed: int, rounds: int = 2) -> None:
+def profile_train(round_ms: float, seed: int, rounds: int = 1) -> None:
     """Where a FedPA round's time goes: ``torch.profiler`` over a second run
     of the path with every round in the FedPA regime (no burn-in). Prints
     the device time and kernel count per round, their share of the
@@ -1607,7 +1650,8 @@ def checkpoint_resume(seed: int) -> None:
             "device", "--clients", "2", "--num-clients", "4",
             "--local-steps", "8", "--burn-in-steps", "2",
             "--steps-per-sample", "2", "--burn-in-rounds", "1", "--batch",
-            "2", "--seq-len", "32", "--seed", str(seed)]
+            "2", "--seq-len", "32", "--prefetch-rounds", "0", "--seed",
+            str(seed)]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         ck = argv + ["--ckpt-dir", tmp, "--ckpt-every", "1"]
@@ -1707,8 +1751,451 @@ def per_client_state(card: str, params, seed: int) -> dict:
     return by_run
 
 
+def cas_replay(args, burn_in_rounds: int, max_staleness: int):
+    """The engine's apply-order CAS replayed on the host from the draws of
+    ``launch.train``'s ``CohortSource``: each round's cohort snapshots its
+    clients' stamps when it is dispatched (up to ``max_staleness`` rounds
+    ahead of the one applied) and writes where a stamp has not moved.
+    Returns (final stamps, drops per round)."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.data.cohort_source import CohortSource
+    from repro_torch.launch import train
+
+    src = CohortSource(train.build_fed(args), args.num_clients,
+                       lambda ids, r: None, seed=args.seed)
+    stamps = np.zeros(args.num_clients, np.int64)
+    pending, drops, t_next = collections.deque(), [], 0
+    for _ in range(args.rounds):
+        while t_next < args.rounds and len(pending) <= max_staleness:
+            ids = np.asarray(src.draw(t_next)[0])
+            pending.append((ids, stamps[ids].copy()
+                            if t_next >= burn_in_rounds else None))
+            t_next += 1
+        ids, snap = pending.popleft()
+        if snap is None:
+            drops.append(0)
+            continue
+        ok = stamps[ids] == snap
+        stamps[ids[ok]] += 1
+        drops.append(int((~ok).sum()))
+    return stamps, drops
+
+
+@contextlib.contextmanager
+def watch_prefetchers(seen: list):
+    """Inside the block, every prefetcher the engine makes is appended to
+    ``seen`` as a dict: its class, its child's command line (a process
+    backend) and whether this process's CUDA context is live, read as it
+    starts, and the seconds from its start to the first cohort."""
+    import torch
+
+    from repro_torch.core import engine
+
+    real = engine.make_prefetcher
+
+    def make(*a, **kw):
+        t0 = time.perf_counter()
+        p = real(*a, **kw)
+        entry = {"class": type(p).__name__, "cmdline": None,
+                 "cuda_live": torch.cuda.is_initialized()}
+        if hasattr(p, "_proc"):
+            with open(f"/proc/{p._proc.pid}/cmdline", "rb") as f:
+                entry["cmdline"] = f.read().replace(b"\0", b" ").decode()
+        real_get = p.get
+
+        def get(r):
+            out = real_get(r)
+            entry.setdefault("first_cohort_s",
+                             round(time.perf_counter() - t0, 2))
+            return out
+
+        p.get = get
+        seen.append(entry)
+        return p
+
+    engine.make_prefetcher = make
+    try:
+        yield
+    finally:
+        engine.make_prefetcher = real
+
+
+@contextlib.contextmanager
+def time_builds(seconds: list):
+    """Inside the block, the host seconds of every cohort built in this
+    process (``CohortSource.cohort``: the draw and the batches, what a
+    prefetcher takes off the round loop) are appended to ``seconds``."""
+    from repro_torch.data.cohort_source import CohortSource
+
+    real = CohortSource.cohort
+
+    def cohort(self, round_idx):
+        t0 = time.perf_counter()
+        out = real(self, round_idx)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    CohortSource.cohort = cohort
+    try:
+        yield
+    finally:
+        CohortSource.cohort = real
+
+
+@contextlib.contextmanager
+def profile_after_round_0(found: list):
+    """Inside the block, ``launch.train``'s engine runs under
+    ``torch.profiler`` (CUDA activity), recording from the end of round 0
+    to the end of the run; the key averages of that window are appended to
+    ``found``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.launch import train
+
+    real = train.RoundEngine
+
+    class Stepped(real):
+        def run(self, state, build_cohort, num_rounds, **kw):
+            on_round = kw.pop("on_round")
+
+            def step(rec, round_state):
+                on_round(rec, round_state)
+                torch.cuda.synchronize()
+                prof.step()
+
+            with prof:
+                return super().run(state, build_cohort, num_rounds,
+                                   on_round=step, **kw)
+
+    prof = None
+
+    def make(*a, **kw):
+        nonlocal prof
+        engine = Stepped(*a, **kw)
+        prof = profile(activities=[ProfilerActivity.CUDA],
+                       schedule=schedule(wait=1, warmup=0,
+                                         active=ASYNC_ROUNDS - 1),
+                       on_trace_ready=lambda p: found.append(
+                           p.key_averages()))
+        return engine
+
+    train.RoundEngine = make
+    try:
+        yield
+    finally:
+        train.RoundEngine = real
+
+
+def async_train_path(card: str, seed: int) -> dict:
+    """Phase 11a: async FedPA on the full-width fedlm-100m through
+    ``launch.train.main`` with the reference's prefetcher (a spawned child,
+    2 rounds ahead); then the same run with cohorts built inline, profiled
+    over rounds 1-4 for its device idle share and timed for its cohort
+    builds. Returns the DP launches."""
+    import torch
+
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import train
+
+    argv = (TRAIN_ARGV + ["--rounds", str(ASYNC_ROUNDS), "--seed", str(seed)]
+            + ASYNC_ARGV)
+    args = train.parse_args(argv + PREFETCH_ARGV)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
+    seen = []
+    fedpa_dp.reset_launches()
+    swa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with watch_prefetchers(seen):
+        res = train.main(argv + PREFETCH_ARGV)
+    torch.cuda.synchronize()
+    launches = dict(fedpa_dp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    recs = res["records"]
+    ms = [sec * 1e3 for sec in res["seconds"]]
+    found, builds = [], []
+    t0 = time.perf_counter()
+    with profile_after_round_0(found), time_builds(builds):
+        inline = train.main(argv + ["--prefetch-rounds", "0"])
+    prof_s = time.perf_counter() - t0
+    inline_ms = [sec * 1e3 for sec in inline["seconds"]]
+    build_ms = [sec * 1e3 for sec in builds]
+    staleness = [r["staleness"] for r in recs]
+    if res["cfg"].param_count() != LM_D:
+        fail(f"async train: d={res['cfg'].param_count()}, expected {LM_D}")
+    for rec, t in zip(recs, ms):
+        print(f"  round {rec['round']} ({rec['phase']}, staleness "
+              f"{rec['staleness']}): host ms {t:.1f}; eval_loss "
+              f"{rec['eval_loss']:.4f}", flush=True)
+    print(f"async train {res['cfg'].name}: d={res['cfg'].param_count():,}; "
+          f"window {args.max_staleness + 1}, discount "
+          f"{args.staleness_discount}; staleness {staleness} (expected "
+          f"[0, 1, 2, 2, 2]); host ms per round {[round(x, 1) for x in ms]}"
+          f" (sum {sum(ms):.1f}) with the process prefetcher, "
+          f"{[round(x, 1) for x in inline_ms]} (sum {sum(inline_ms):.1f}) "
+          f"with cohorts built inline (profiled from round 1); peak memory "
+          f"allocated {peak / 2**30:.2f} GiB; DP launches {launches} "
+          f"(expected {expected} each, the synchronous count); swa_decode "
+          f"launches {swa.launches['swa_decode']}; prefetchers {seen}",
+          flush=True)
+    print(f"async train cohort builds (inline run): host ms "
+          f"{[round(x, 2) for x in build_ms]}, {sum(build_ms):.2f} of the "
+          f"run's {sum(inline_ms):.1f} host ms (share "
+          f"{sum(build_ms) / sum(inline_ms):.4f})", flush=True)
+    if staleness != [0, 1, 2, 2, 2]:
+        fail(f"async train: staleness {staleness}")
+    if any(n != expected for n in launches.values()):
+        fail(f"async train: DP launches {launches} != {expected} each")
+    if swa.launches["swa_decode"] != 0:
+        fail("swa_decode launched on the async training path")
+    losses = [r[k] for r in recs + inline["records"]
+              for k in ("eval_loss", "client_loss_first", "client_loss_last")]
+    if len(recs) != args.rounds or not all(map(math.isfinite, losses)):
+        fail(f"async train: records {recs}")
+    if (len(seen) != 1 or seen[0]["class"] != "ProcessCohortPrefetcher"
+            or "multiprocessing.spawn" not in (seen[0]["cmdline"] or "")
+            or not seen[0]["cuda_live"]):
+        fail(f"async train: the prefetcher was not a spawned child beside "
+             f"a live CUDA context: {seen}")
+    if len(builds) != args.rounds:
+        fail(f"async train: {len(builds)} cohort builds in the inline run")
+    # where the time goes: the inline run's device time over rounds 1-4
+    # (dispatch, server steps, evals) against the same rounds' host time
+    events = [e for e in (found[0] if found else [])
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    host_ms = sum(inline_ms[1:])
+    if dev_ms <= 0:
+        print("async train profile: the profiler saw no device time "
+              "(idle share not measured)")
+    else:
+        print(f"async train profile (the inline run, rounds 1-"
+              f"{args.rounds - 1}; the run took {prof_s:.1f} s): device "
+              f"time {dev_ms:.1f} ms in {sum(e.count for e in events):.0f} "
+              f"device ops against {host_ms:.1f} host ms: device idle "
+              f"share {1 - dev_ms / host_ms:.3f}", flush=True)
+    return launches
+
+
+def async_state_path(card: str, seed: int) -> dict:
+    """Phase 11b: async FedEP on the device store, full-width fedlm-100m,
+    4 of 16 clients, window 3: overlapping in-flight cohorts make the CAS
+    drop stale writes. The write-back runs under sync-debug "error" and
+    returns its drop count as a device tensor; the records' drops and the
+    store's stamps equal the host replay of the CAS from the draws.
+    Returns the DP launches."""
+    import torch
+
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch import train
+
+    argv = (fedep_argv(TRAIN_ARGV, FEDEP_CLIENTS)
+            + ["--rounds", str(ASYNC_ROUNDS), "--seed", str(seed)]
+            + ASYNC_ARGV)
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
+    want_stamps, want_drops = cas_replay(args, args.burn_in_rounds,
+                                         args.max_staleness)
+    kinds = []
+    real = RoundEngine._write_back_states
+
+    def write_back(self, fl):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            drops = real(self, fl)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if fl.new_states is not None:
+            kinds.append(type(drops).__name__)
+        return drops
+
+    fedpa_dp.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    RoundEngine._write_back_states = write_back
+    try:
+        res = train.main(argv)
+    finally:
+        RoundEngine._write_back_states = real
+    torch.cuda.synchronize()
+    launches = dict(fedpa_dp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    drops = [h["state_drops"] for h in res["history"]]
+    store = res["store"]
+    stamps = store.device_state()["stamps"].cpu().numpy()
+    store_bytes = sum(nbytes(b) for b in tm.tleaves(store.device_state()))
+    ms = [round(sec * 1e3, 1) for sec in res["seconds"]]
+    drawn = (args.rounds - args.burn_in_rounds) * args.clients
+    if res["cfg"].param_count() != LM_D:
+        fail(f"async fedep: d={res['cfg'].param_count()}, expected {LM_D}")
+    print(f"async fedep {res['cfg'].name}: {args.clients} of "
+          f"{args.num_clients} clients, window {args.max_staleness + 1}, "
+          f"device store; staleness "
+          f"{[r['staleness'] for r in res['records']]}; state_drops "
+          f"{drops} (host replay of the CAS {want_drops}); stamps sum "
+          f"{int(stamps.sum())} = {drawn} drawn - {sum(drops)} dropped; "
+          f"write-back drop counts {kinds} (no host sync under sync-debug "
+          f"'error'); host ms per round {ms}; peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; store {store_bytes / 1e9:.2f} GB; DP "
+          f"launches {launches} (expected {expected} each)", flush=True)
+    if drops != want_drops or not sum(drops):
+        fail(f"async fedep: state_drops {drops} != {want_drops}, or none")
+    if kinds != ["Tensor"] * (args.rounds - args.burn_in_rounds):
+        fail(f"async fedep: write-back drop counts {kinds}")
+    if int(stamps.sum()) != drawn - sum(drops):
+        fail(f"async fedep: stamps {stamps} != draws minus drops")
+    if any(n != expected for n in launches.values()):
+        fail(f"async fedep: DP launches {launches} != {expected} each")
+    losses = [r[k] for r in res["records"]
+              for k in ("eval_loss", "client_loss_first", "client_loss_last")]
+    if not all(map(math.isfinite, losses)):
+        fail(f"async fedep: records {res['records']}")
+    check_sites(store, want_stamps, "async fedep store")
+    return launches
+
+
+def async_store_replay(seed: int) -> dict:
+    """Phase 11c: async FedEP (window 3) on fedlm-100m cut to one layer,
+    fp32, client lr 0.01 (10b's settings), with the host store and the
+    device store on the card (deterministic algorithms) and the device
+    store on the CPU: equal drops, bitwise equal card stores, the card
+    within phase 4's bound of the CPU. Returns the DP launches of the
+    device-store card run."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    argv = (fedep_argv(REPLAY_ARGV, 4) + FEDEP_REPLAY + ASYNC_ARGV
+            + ["--seed", str(seed)])
+    args = train.parse_args(argv)
+    _, want_drops = cas_replay(args, args.burn_in_rounds, args.max_staleness)
+    runs, launches, times = {}, {}, {}
+    for name, extra in (("host store, card", ["--client-state-placement",
+                                              "host"]),
+                        ("device store, card", []),
+                        ("device store, CPU", ["--device", "cpu"])):
+        fedpa_dp.reset_launches()
+        t0 = time.perf_counter()
+        with deterministic():
+            runs[name] = train.main(argv + extra, cfg=cfg,
+                                    compute_dtype=torch.float32)
+        if "card" in name:
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        launches[name] = dict(fedpa_dp.launches)
+    host, dev, cpu = runs.values()
+    stores = [r["store"].state_dict() for r in runs.values()]
+    drops = {k: [h["state_drops"] for h in r["history"]]
+             for k, r in runs.items()}
+    same = (equal_bitwise(host["state"], dev["state"])
+            and equal_bitwise(stores[0], stores[1]))
+    print(f"async fedep replay ({cfg.name} cut to {cfg.num_layers} layer, "
+          f"fp32, {args.clients} of {args.num_clients} clients, window "
+          f"{args.max_staleness + 1}): "
+          + "; ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; state_drops {drops} (host replay {want_drops}); host-store "
+          f"and device-store card runs bitwise equal: {same}; DP launches "
+          f"{launches}", flush=True)
+    if any(d != want_drops for d in drops.values()) or not sum(want_drops):
+        fail(f"async fedep replay: drops {drops} != {want_drops}")
+    if not same:
+        fail("async fedep replay: the host-store and device-store card "
+             "runs differ")
+    params_close(dev["state"].params, cpu["state"].params,
+                 "async fedep one-layer, card vs CPU")
+    store_close(stores[1], stores[2], "async fedep one-layer, card vs CPU")
+    return launches["device store, card"]
+
+
+def async_cnn_rounds(params, seed: int) -> dict:
+    """Phase 11d: the CNN cell (phase 3's settings, 5 rounds) with the
+    goldens' straggler spec and FedPA at their async2 window, each on the
+    card and the CPU: ``straggled`` / ``staleness`` equal the CPU run's and
+    the draws, params within phase 4's bound, FedPA's DP launches the
+    synchronous count. Returns each run's DP launches."""
+    import torch
+
+    from repro_torch.kernels import fedpa_dp
+
+    by_run = {}
+    for name, over in ASYNC_CNN_RUNS:
+        runs = {}
+        builds = []
+        for device in ("cuda", "cpu"):
+            sim = make_sim(device, seed, False, **over)
+            fedpa_dp.reset_launches()
+            with time_builds(builds if device == "cuda" else []):
+                t0 = time.perf_counter()
+                state, hist = sim.run(params, ASYNC_ROUNDS)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            runs[device] = (state, hist, dict(fedpa_dp.launches),
+                            time.perf_counter() - t0, sim)
+        (state, hist, launches, secs, sim), cpu = runs["cuda"], runs["cpu"]
+        build_ms = [x * 1e3 for x in builds]
+        fed = sim.fed
+        lateness = [sim.source.draw(r)[1].extra_staleness
+                    for r in range(ASYNC_ROUNDS)]
+        window = [min(r, fed.max_staleness) for r in range(ASYNC_ROUNDS)]
+        keys = [(h["staleness"], h["straggled"]) for h in hist]
+        cpu_keys = [(h["staleness"], h["straggled"]) for h in cpu[1]]
+        ell = (fed.local_steps - fed.burn_in_steps) // fed.steps_per_sample
+        expected = ((ASYNC_ROUNDS - fed.burn_in_rounds) * (ell - 1)
+                    if fed.algorithm == "fedpa" else 0)
+        print(f"async cnn {name}: {secs:.2f} s for {ASYNC_ROUNDS} rounds on "
+              f"the card, {cpu[3]:.2f} s on the CPU; (staleness, straggled)"
+              f" {keys} (CPU {cpu_keys}, draws' lateness {lateness}); DP "
+              f"launches {launches} (expected {expected} each); cohort "
+              f"builds on the card's run host ms "
+              f"{[round(x, 2) for x in build_ms]} (share "
+              f"{sum(build_ms) / (secs * 1e3):.4f} of the run)", flush=True)
+        if len(builds) != ASYNC_ROUNDS:
+            fail(f"async cnn {name}: {len(builds)} cohort builds")
+        if keys != cpu_keys:
+            fail(f"async cnn {name}: the CPU run's records differ")
+        if keys != [(w + x, x) for w, x in zip(window, lateness)]:
+            fail(f"async cnn {name}: records {keys} against the draws "
+                 f"{lateness}")
+        if fed.straggler_rate and not sum(lateness):
+            fail(f"async cnn {name}: no cohort straggled")
+        if any(n != expected for n in launches.values()):
+            fail(f"async cnn {name}: DP launches {launches}")
+        losses = [h[k] for h in hist for k in ("loss_first", "loss_last")]
+        if not all(map(math.isfinite, losses)):
+            fail(f"async cnn {name}: losses {losses}")
+        params_close(state.params, cpu[0].params,
+                     f"async cnn {name}, card vs CPU")
+        by_run[f"cnn {name}"] = launches
+    return by_run
+
+
+def async_rounds(card: str, params, seed: int) -> dict:
+    """Phase 11 (11a-11d); returns the DP launches of its runs."""
+    import torch
+
+    by_run = {"fedlm-100m async fedpa": async_train_path(card, seed)}
+    torch.cuda.empty_cache()
+    by_run["fedlm-100m async fedep (device store)"] = async_state_path(
+        card, seed)
+    torch.cuda.empty_cache()
+    by_run["fedlm-100m 1 layer fp32 async fedep (vs CPU)"] = \
+        async_store_replay(seed)
+    by_run.update(async_cnn_rounds(params, seed))
+    return by_run
+
+
 def main() -> int:
-    """Run the ten phases; returns the exit code."""
+    """Run the eleven phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1848,6 +2335,11 @@ def main() -> int:
     # -- phase 10: per-client state -----------------------------------------
     by_run.update(per_client_state(card, params, args.seed))
     done(10)
+    torch.cuda.empty_cache()
+
+    # -- phase 11: async rounds ---------------------------------------------
+    by_run.update(async_rounds(card, params, args.seed))
+    done(11)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

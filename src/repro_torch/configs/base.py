@@ -254,7 +254,6 @@ class FedConfig:
             raise _not_ported(f"algorithm {self.algorithm!r}",
                               PENDING_ALGORITHMS[self.algorithm])
         get_algorithm(self).validate()
-        self._check_ported()
 
     def _validate_round(self):
         """Range-check the round shape and both optimizer stacks by name."""
@@ -350,16 +349,6 @@ class FedConfig:
                 "masking gradients, which is exact only under plain "
                 f"client_opt='sgd' (got {self.client_opt!r}: a stateful "
                 "optimizer would keep moving the params from its buffers)")
-
-    def _check_ported(self):
-        """Refuse valid knobs whose code paths this port does not have."""
-        pending = [
-            (self.async_rounds, "async_rounds=True", 8),
-            (self.prefetch_rounds > 0, "prefetch_rounds > 0", 8),
-        ]
-        for bad, what, item in pending:
-            if bad:
-                raise _not_ported(what, item)
 
     @property
     def num_samples(self) -> int:

@@ -36,20 +36,21 @@ class RoundRecorder:
         self._raw: List[dict] = []
 
     def record(self, *, round_idx: int, metrics: dict, is_burn: bool = False,
-               dropped: int = 0, state_drops=0,
-               eval_metrics: Optional[dict] = None) -> dict:
+               staleness: int = 0, dropped: int = 0, straggled: int = 0,
+               state_drops=0, eval_metrics: Optional[dict] = None) -> dict:
         """Append one round's raw record (values may still be on device)
-        and return it for live ``on_round`` consumers. ``dropped`` counts
-        the cohort's masked-out clients, ``state_drops`` the client-state
-        writes the store's CAS dropped (an int, or a device scalar). The
-        synchronous rounds of this port have no staleness or stragglers:
-        those fields are stamped 0."""
+        and return it for live ``on_round`` consumers. ``staleness`` is the
+        exponent of the round's discount (straggler lateness included),
+        ``dropped`` counts the cohort's masked-out clients, ``straggled``
+        its straggler lateness, ``state_drops`` the client-state writes the
+        store's CAS dropped (an int, or a device scalar)."""
         bts = (self.burn_round_bytes if is_burn
                else self.round_bytes) or self.round_bytes
-        rec = {"round": round_idx, "staleness": 0, "metrics": metrics,
+        rec = {"round": round_idx, "staleness": staleness,
+               "metrics": metrics,
                "bytes_up": None if bts is None else bts["bytes_up"],
                "bytes_down": None if bts is None else bts["bytes_down"],
-               "dropped": dropped, "straggled": 0,
+               "dropped": dropped, "straggled": straggled,
                "state_drops": state_drops}
         if eval_metrics is not None:
             rec["eval"] = eval_metrics

@@ -1,15 +1,25 @@
 """Single-process federated simulation of the port (from
 ``repro/core/round.py``).
 
-``FedSim`` resolves a ``FedConfig`` into round programs (the sampling
-regime and, with ``burn_in_rounds``, the FedAvg burn-in regime) and hands
-them to the window-1 ``RoundEngine``. Its cohorts come from the
-fault-injecting ``CohortSource`` (availability, dropout, step budgets),
-which samples client ids and stacks their numpy batches on the host; the
-whole round then runs on ``device`` in the configured placement. A
-stateful algorithm (SCAFFOLD, FedEP) gets a per-client store
-(``core/client_state.py``) placed per ``fed.client_state_placement``:
-host numpy buffers, or tensors on ``device``.
+``FedSim`` resolves a ``FedConfig`` into the ``make_cohort_program`` /
+``make_server_program`` stages, for the sampling regime and, with
+``burn_in_rounds``, the burn-in regime, and hands them to the one
+staleness-general ``RoundEngine``:
+
+  * synchronous (default): an in-flight window of 1;
+  * async (``fed.async_rounds=True``): up to ``fed.max_staleness`` cohorts
+    in flight beyond the one being applied, deltas down-weighted by
+    ``staleness_discount ** staleness`` (straggler lateness adds to the
+    exponent); ``max_staleness=0`` is the synchronous path.
+
+Cohorts come from the fault-injecting ``CohortSource`` (availability,
+dropout, stragglers, step budgets), which samples client ids and stacks
+their numpy batches on the host, inline or ``fed.prefetch_rounds`` ahead
+on a prefetcher (``data/prefetch.py``); the rounds run on ``device`` in
+the configured placement. A stateful algorithm (SCAFFOLD, FedEP) gets a
+per-client store (``core/client_state.py``) placed per
+``fed.client_state_placement``: host numpy buffers, or tensors on
+``device``.
 """
 from __future__ import annotations
 
@@ -25,7 +35,8 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core import tree_math as tm
 from repro_torch.core.client_state import make_client_store
 from repro_torch.core.engine import RoundEngine
-from repro_torch.core.round_program import make_round_program
+from repro_torch.core.round_program import (make_cohort_program,
+                                            make_server_program)
 from repro_torch.core.server import ServerState, init_server_state
 from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.prefetch import Cohort, stack_host
@@ -42,6 +53,23 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: repro_torch runs on the GPU unless the caller "
             "passes device='cpu'")
     return torch.device("cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class StackCohort:
+    """``CohortSource``'s batch builder for ``FedSim``: each client's
+    ``batch_fn(client_id, round_idx, local_steps)`` stacked on the host. A
+    plain object, so it pickles (to a spawned prefetch child) exactly when
+    ``batch_fn`` does."""
+
+    batch_fn: Callable
+    local_steps: int
+
+    def __call__(self, client_ids, round_idx: int):
+        """The cohort's batches with a leading client axis."""
+        return stack_host([self.batch_fn(int(cid), round_idx,
+                                         self.local_steps)
+                           for cid in client_ids])
 
 
 @dataclasses.dataclass
@@ -72,6 +100,7 @@ class FedSim:
         """Resolve the device, the cohort source, the optimizers, the
         algorithm."""
         self.device = resolve_device(self.device)
+        self.stack_cohort = StackCohort(self.batch_fn, self.fed.local_steps)
         self.source = CohortSource(self.fed, self.num_clients,
                                    self.stack_cohort, self.client_weights,
                                    self.seed)
@@ -105,14 +134,6 @@ class FedSim:
         return init_server_state(params, self.server_opt,
                                  algorithm=self._alg)
 
-    def stack_cohort(self, client_ids, round_idx: int):
-        """The cohort's batches with a leading client axis, stacked on the
-        host."""
-        return stack_host([
-            self.batch_fn(int(cid), round_idx, self.fed.local_steps)
-            for cid in client_ids
-        ])
-
     def cohort(self, round_idx: int) -> Cohort:
         """Sample and materialize one round's inputs, with its fault
         annotations (``CohortSource.cohort``)."""
@@ -126,10 +147,12 @@ class FedSim:
 
     def run(self, params, num_rounds: int,
             eval_fn: Optional[Callable] = None, eval_every: int = 1):
-        """Drive ``num_rounds`` rounds from fresh state; returns
-        ``(final_state, history)``."""
+        """Drive ``num_rounds`` rounds from fresh state (sync or async per
+        ``fed.async_rounds``); returns ``(final_state, history)``. The
+        cohorts are built by ``self.source.cohort``, which pickles when
+        ``batch_fn`` does (``prefetch_backend="process"``)."""
         state = self.init(params)
-        return self.engine.run(state, self.cohort, num_rounds,
+        return self.engine.run(state, self.source.cohort, num_rounds,
                                eval_fn=eval_fn, eval_every=eval_every)
 
     @property
@@ -137,20 +160,38 @@ class FedSim:
         """Built once, after ``init`` has seen a params template for the
         byte accounting."""
         if self._engine is None:
-            def program(use_sampling: bool):
-                return make_round_program(
-                    self.grad_fn, self.fed, placement=self.placement,
-                    chunk_size=self.chunk_size, use_sampling=use_sampling,
-                    server_opt=self.server_opt)
-
-            self._engine = RoundEngine(
-                round_fn=program(use_sampling=True),
-                burn_round_fn=(program(use_sampling=False)
-                               if self._has_burn_regime else None),
-                burn_in_rounds=self.fed.burn_in_rounds,
-                round_bytes=self._round_bytes,
-                burn_round_bytes=self._burn_round_bytes,
-                client_store=self.client_store,
-                stateful=self._alg.stateful,
-                burn_stateful=self._alg.burn_stateful)
+            self._engine = self._build_engine()
         return self._engine
+
+    def _build_engine(self) -> RoundEngine:
+        def split(use_sampling: bool):
+            # a burn regime may aggregate in another payload space
+            # (fedpa_precision burns in as fedavg): its own server stage
+            return (make_cohort_program(self.grad_fn, self.fed,
+                                        placement=self.placement,
+                                        chunk_size=self.chunk_size,
+                                        use_sampling=use_sampling,
+                                        server_opt=self.server_opt),
+                    make_server_program(self.fed, server_opt=self.server_opt,
+                                        use_sampling=use_sampling))
+
+        cohort_fn, server_fn = split(use_sampling=True)
+        burn_cohort_fn = burn_server_fn = None
+        if self._has_burn_regime:
+            burn_cohort_fn, burn_server_fn = split(use_sampling=False)
+        fed = self.fed
+        return RoundEngine(
+            cohort_fn=cohort_fn,
+            server_fn=server_fn,
+            burn_cohort_fn=burn_cohort_fn,
+            burn_server_fn=burn_server_fn,
+            burn_in_rounds=fed.burn_in_rounds,
+            max_staleness=fed.max_staleness if fed.async_rounds else 0,
+            staleness_discount=fed.staleness_discount,
+            prefetch_rounds=fed.prefetch_rounds,
+            prefetch_backend=fed.prefetch_backend,
+            round_bytes=self._round_bytes,
+            burn_round_bytes=self._burn_round_bytes,
+            client_store=self.client_store,
+            stateful=self._alg.stateful,
+            burn_stateful=self._alg.burn_stateful)

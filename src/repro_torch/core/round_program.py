@@ -35,8 +35,8 @@ client at ``sequential``, and at ``chunked`` padded with copies of client
 0's state as the batches are, its updates sliced back to the cohort. The
 state's placement (``core/client_state.py``) decides the signatures: the
 host store's slice comes in and the new states go out; the device store's
-whole state comes in with the cohort's ids, and the fused round gathers
-and CAS-scatters on the device.
+whole state comes in with the cohort's ids, and the cohort gathers on the
+device (the round, or the engine at apply time, CAS-scatters there).
 """
 from __future__ import annotations
 

@@ -18,21 +18,21 @@ left out. What stays of the sequential placement's client wrapper is its
 cast of the master params to ``compute_dtype`` before the client update:
 its clients step on params in the compute dtype, as the reference's do.
 The program structure and the client math live in
-``round_program.make_round_program``; this module contributes the LM
-``grad_fn`` and that wrapper.
-
-The reference's split (async) pair ``make_fed_round_split`` is not
-ported: it needs the engine's split backend (ROADMAP.md queue 1, item 8).
+``round_program``; this module contributes the LM ``grad_fn`` and that
+wrapper, for the whole round (``make_fed_round``, one cohort then one
+server step) and for the engine's two stages (``make_fed_round_split``).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core import tree_math as tm
-from repro_torch.core.round_program import make_round_program
+from repro_torch.core.round_program import (make_cohort_program,
+                                            make_round_program,
+                                            make_server_program)
 from repro_torch.models.steps import lm_grad_fn
 
 
@@ -85,6 +85,21 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
                                   q_chunk, remat, use_sampling, chunk_size)
     return make_round_program(grad_fn, fed, **kw)
+
+
+def make_fed_round_split(cfg: ModelConfig, fed: FedConfig, *,
+                         placement: str = "parallel",
+                         compute_dtype=torch.bfloat16, q_chunk: int = 1024,
+                         remat: str = "none", use_sampling: bool = True,
+                         chunk_size: Optional[int] = None
+                         ) -> Tuple[Callable, Callable]:
+    """Same wiring as ``make_fed_round``, split into the engine's two
+    stages: ``(cohort_fn, server_fn)`` (``round_program``'s
+    ``make_cohort_program`` / ``make_server_program``)."""
+    grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
+                                  q_chunk, remat, use_sampling, chunk_size)
+    return (make_cohort_program(grad_fn, fed, **kw),
+            make_server_program(fed, use_sampling=use_sampling))
 
 
 def default_placement(cfg: ModelConfig,

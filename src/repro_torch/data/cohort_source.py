@@ -19,13 +19,17 @@ The cross-device regime made unreliable, on the host side of the round:
   the round program's gradient mask, keyed off the ``"_active"`` (C, K)
   leaf this source injects into dict batch trees.
 
-Stragglers are async-only (``FedConfig`` refuses them without
-``async_rounds``, which the port does not have yet), so their draw comes
-with the async engine (ROADMAP.md queue 1, item 8). Every draw is the
-reference's numpy call on the same stream, a pure function of
-``(seed, round_idx)``: ids, availability, survivors, budgets and
-``dropped`` equal the JAX package's exactly. With every fault knob at its
-default the draw is ``ClientSampler``'s and ``survivors`` is None.
+* **Stragglers** (``fed.straggler_rate``, async-only: ``FedConfig``
+  refuses them without ``async_rounds``) — a cohort misses its deadline
+  with probability ``straggler_rate`` and arrives ``1 ..
+  straggler_max_lateness`` rounds late; the engine adds that lateness to
+  the staleness exponent of its discount (``Cohort.extra_staleness``).
+
+Every draw is the reference's numpy call on the same stream, a pure
+function of ``(seed, round_idx)``: ids, availability, survivors, budgets,
+lateness and ``dropped`` equal the JAX package's exactly. With every
+fault knob at its default the draw is ``ClientSampler``'s and
+``survivors`` is None.
 
 Stream layout under one run seed (``np.random.SeedSequence`` spawn keys):
 ``(round,)`` the cohort draw, ``(round, k)`` the per-round fault streams,
@@ -41,9 +45,9 @@ from repro_torch.core.server import check_weight_total
 from repro_torch.data.prefetch import Cohort
 from repro_torch.data.sampling import ClientSampler
 
-#: Per-round fault streams: spawn key ``(round_idx, k)`` (``k = 2``, the
-#: straggler stream, is the async engine's).
+#: Per-round fault streams: spawn key ``(round_idx, k)``.
 _STREAM_DROPOUT = 1
+_STREAM_STRAGGLER = 2
 _STREAM_BUDGETS = 3
 #: Run-static streams: spawn key ``(0, 0, k)``.
 _STATIC_PHASES = 1
@@ -60,8 +64,8 @@ class RoundFaults(NamedTuple):
 
     ``survivors`` is the (C,) float 0/1 mask (None when this run has no
     mask faults); ``budgets`` the per-client local-step budgets (None =
-    homogeneous); ``extra_staleness`` the straggler lateness (0: the port
-    is synchronous); ``dropped`` the count of masked-out cohort slots.
+    homogeneous); ``extra_staleness`` the straggler lateness in rounds (0 =
+    on time); ``dropped`` the count of masked-out cohort slots.
     """
 
     survivors: Optional[np.ndarray]
@@ -144,12 +148,20 @@ class CohortSource:
         survivors = (1.0 - dead).astype(np.float32) if self.mask_faults \
             else None
 
+        extra_staleness = 0
+        if fed.straggler_rate > 0:
+            srng = _rng(self.seed, round_idx, _STREAM_STRAGGLER)
+            if srng.random() < fed.straggler_rate:
+                extra_staleness = int(
+                    srng.integers(1, fed.straggler_max_lateness + 1))
+
         budgets = None
         if fed.min_local_steps:
             budgets = _rng(self.seed, round_idx, _STREAM_BUDGETS).integers(
                 fed.min_local_steps, fed.local_steps + 1, size=M)
 
-        return ids, RoundFaults(survivors, budgets, 0, int(dead.sum()))
+        return ids, RoundFaults(survivors, budgets, extra_staleness,
+                                int(dead.sum()))
 
     def cohort(self, round_idx: int) -> Cohort:
         """Materialize round ``round_idx``: stack the batches, inject the

@@ -22,10 +22,16 @@ for a stateful algorithm, the bare server state otherwise); a run whose
 directory holds a checkpoint resumes from it ("restored checkpoint at
 round N"). Each package reads the other's checkpoints.
 
+``--async-rounds`` widens the engine's in-flight window to
+``--max-staleness + 1`` cohorts, each delta discounted by
+``--staleness-discount ** staleness``; ``--straggler-rate`` adds late
+cohorts (async only). Cohorts are built ``--prefetch-rounds`` ahead
+(default 2) by a spawned child process (``--prefetch-backend process``,
+the default) or a thread; prefetching changes no number, only when
+cohorts are built.
+
 Differences from the reference:
 
-* ``--prefetch-rounds`` defaults to 0: the prefetchers are not ported.
-  Prefetching changes no number, only when cohorts are built.
 * No remat: torch's checkpointing does not compose with the round's
   ``torch.func`` transforms (``models.steps.lm_grad_fn``), so every
   repeat's activations are kept.
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -53,7 +60,7 @@ from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round import resolve_device
 from repro_torch.core.round_program import to_device
 from repro_torch.core.server import init_server_state
-from repro_torch.core.sharded_round import make_fed_round
+from repro_torch.core.sharded_round import make_fed_round_split
 from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.lm_synthetic import SyntheticLMData
 from repro_torch.models.model import init_params
@@ -128,14 +135,21 @@ def parse_args(argv=None):
     ap.add_argument("--quant-bits", type=int, default=8, choices=(8, 16))
     ap.add_argument("--no-error-feedback", action="store_true")
     ap.add_argument("--async-rounds", action="store_true",
-                    help="not ported (ROADMAP.md queue 1, item 8)")
-    ap.add_argument("--max-staleness", type=int, default=1)
-    ap.add_argument("--staleness-discount", type=float, default=0.9)
-    ap.add_argument("--prefetch-rounds", type=int, default=0,
-                    help="cohort batches built ahead; only 0 (inline) is "
-                         "ported (the reference's default is 2)")
+                    help="overlap cohort t+1's client compute with round "
+                         "t's server update (max-staleness + 1 cohorts in "
+                         "flight)")
+    ap.add_argument("--max-staleness", type=int, default=1,
+                    help="cohorts in flight beyond the one being applied")
+    ap.add_argument("--staleness-discount", type=float, default=0.9,
+                    help="a staleness-s delta is scaled by discount**s")
+    ap.add_argument("--prefetch-rounds", type=int, default=2,
+                    help="cohorts built ahead of the round loop (0 = "
+                         "inline)")
     ap.add_argument("--prefetch-backend", default="process",
-                    choices=("process", "thread"))
+                    choices=("process", "thread"),
+                    help="cohort prefetcher: a spawned child writing a "
+                         "shared-memory arena, or a thread "
+                         "(data/prefetch.py)")
     ap.add_argument("--availability", default="always",
                     choices=("always", "diurnal"))
     ap.add_argument("--availability-period", type=int, default=24)
@@ -166,8 +180,6 @@ def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md queue-1 item
     for the first flag whose path this port does not have."""
     pending = [
-        (args.async_rounds, "--async-rounds", 8),
-        (args.prefetch_rounds > 0, "--prefetch-rounds > 0", 8),
         (args.coordinator is not None, "--coordinator", 10),
         ((args.num_processes or 1) > 1, "--num-processes > 1", 10),
         (args.process_id is not None, "--process-id", 10),
@@ -181,15 +193,40 @@ def refuse_unported(args) -> None:
             raise _not_ported(what, item)
 
 
-def make_round_batches(args, fed, data, s_text):
-    """The cohort batch function ``(ids, round) -> {"tokens": (C, K, B, S+1)}``
-    for ``CohortSource`` (numpy; the round moves it to the device)."""
-    def round_batches(ids, r):
-        return {"tokens": data.round_batches(ids, fed.local_steps,
-                                             args.batch, s_text,
-                                             round_idx=r)}
+@dataclasses.dataclass(frozen=True)
+class RoundBatches:
+    """The cohort batch function ``(ids, round) -> {"tokens": (C, K, B,
+    S+1)}`` for ``CohortSource`` (numpy; the round moves it to the
+    device). A module-level class, so the process prefetcher's spawned
+    child can unpickle it."""
 
-    return round_batches
+    data: SyntheticLMData
+    local_steps: int
+    batch: int
+    seq_len: int
+
+    def __call__(self, ids, round_idx: int):
+        """One cohort's token batches."""
+        return {"tokens": self.data.round_batches(
+            ids, self.local_steps, self.batch, self.seq_len,
+            round_idx=round_idx)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedCohorts:
+    """``build_cohort(i)`` for a run that starts at ``start_round``: the
+    engine counts from 0, the draw stays keyed to the absolute round, so a
+    resumed run draws what an unbroken one would. Picklable, for the
+    process prefetcher."""
+
+    source: CohortSource
+    start_round: int
+
+    def __call__(self, i: int):
+        """The cohort of absolute round ``start_round + i``, numbered
+        ``i``."""
+        return self.source.cohort(self.start_round + i)._replace(
+            round_idx=i)
 
 
 def make_eval_fn(args, cfg, data, s_text, q_chunk, device, compute_dtype):
@@ -226,24 +263,34 @@ def restore_if_present(args, state, store, ckpt_tree):
     return state, start_round
 
 
-def run_rounds(args, cfg, fed, alg, state, store, start_round, source, eval_fn, emit, maybe_checkpoint,
-               q_chunk, compute_dtype):
-    """Drive the window-1 ``RoundEngine`` over the burn-in and sampling
-    programs from ``start_round`` to ``args.rounds``; returns ``(state,
-    history)``. Cohorts are drawn at the absolute round, so a resumed run
-    draws what an unbroken one would."""
+def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
+               eval_fn, emit, maybe_checkpoint, q_chunk, compute_dtype):
+    """Drive the ``RoundEngine`` over the burn-in and sampling programs
+    from ``start_round`` to ``args.rounds``; returns ``(state, history)``.
+    Synchronous runs keep an in-flight window of one; ``--async-rounds``
+    widens it to ``max_staleness + 1``."""
     has_burn = alg.burns_in
+    kw = dict(placement="parallel", compute_dtype=compute_dtype,
+              q_chunk=q_chunk)
 
-    def program(use_sampling):
-        return make_fed_round(cfg, fed, placement="parallel",
-                              compute_dtype=compute_dtype, q_chunk=q_chunk,
-                              use_sampling=use_sampling)
+    def stages(use_sampling):
+        return make_fed_round_split(cfg, fed, use_sampling=use_sampling,
+                                    **kw)
 
+    cohort_fn, server_fn = stages(True)
+    burn_cohort_fn, burn_server_fn = (stages(False) if has_burn
+                                      else (None, None))
     rb = round_bytes(fed, state.params)
     engine = RoundEngine(
-        round_fn=program(True),
-        burn_round_fn=program(False) if has_burn else None,
+        cohort_fn=cohort_fn,
+        server_fn=server_fn,
+        burn_cohort_fn=burn_cohort_fn,
+        burn_server_fn=burn_server_fn,
         burn_in_rounds=max(0, fed.burn_in_rounds - start_round),
+        max_staleness=fed.max_staleness if fed.async_rounds else 0,
+        staleness_discount=fed.staleness_discount,
+        prefetch_rounds=fed.prefetch_rounds,
+        prefetch_backend=fed.prefetch_backend,
         round_bytes=rb,
         burn_round_bytes=(round_bytes(fed, state.params, use_sampling=False)
                           if has_burn else rb),
@@ -251,11 +298,6 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source, eval_fn, 
         stateful=alg.stateful,
         burn_stateful=alg.burn_stateful,
     )
-
-    def build_cohort(i):
-        # the engine counts from 0; the draw stays keyed to the absolute
-        # round
-        return source.cohort(start_round + i)._replace(round_idx=i)
 
     last_t = time.time()
 
@@ -277,7 +319,8 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source, eval_fn, 
         maybe_checkpoint(round_state, r)
         last_t = time.time()
 
-    return engine.run(state, build_cohort, args.rounds - start_round,
+    return engine.run(state, ShiftedCohorts(source, start_round),
+                      args.rounds - start_round,
                       eval_fn=lambda p: {"eval_loss": eval_fn(p)},
                       on_round=on_round)
 
@@ -333,7 +376,8 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
     state, start_round = restore_if_present(args, state, store, ckpt_tree)
     q_chunk = min(64, s_text)
     source = CohortSource(fed, args.num_clients,
-                          make_round_batches(args, fed, data, s_text),
+                          RoundBatches(data, fed.local_steps, args.batch,
+                                       s_text),
                           seed=args.seed)
     eval_fn = make_eval_fn(args, cfg, data, s_text, q_chunk, device,
                            compute_dtype)

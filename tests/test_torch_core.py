@@ -268,15 +268,15 @@ def test_bad_codec_specs_raise_value_error_in_both(kw):
 
 
 #: Knobs valid in the reference -> the ROADMAP.md queue-1 item the port
-#: still waits for, or None where the port runs them (the placements,
-#: mime, scaffold, the device client store, cohort faults, q-FFL and step
-#: budgets).
+#: still waits for, or None where the port runs them (async rounds and
+#: prefetching, the placements, mime, scaffold, the device client store,
+#: cohort faults, q-FFL and step budgets).
 KNOBS = [
-    (dict(async_rounds=True), 8), (dict(round_placement="chunked"), None),
+    (dict(async_rounds=True), None), (dict(round_placement="chunked"), None),
     (dict(algorithm="scaffold", client_opt="sgd"), None),
     (dict(algorithm="mime"), None),
     (dict(algorithm="fedlora", payload_codec="lowrank"), 9),
-    (dict(prefetch_rounds=2), 8), (dict(dropout_rate=0.1), None),
+    (dict(prefetch_rounds=2), None), (dict(dropout_rate=0.1), None),
     (dict(availability="diurnal"), None), (dict(qffl_q=1.0), None),
     (dict(client_state_placement="device"), None),
     (dict(client_opt="sgd", min_local_steps=2), None),

@@ -33,8 +33,9 @@ from repro_torch.core.server import init_server_state
 from repro_torch.examples import quickstart
 from repro_torch.optim import get_optimizer
 
-#: The stateless specs of the golden matrix (fedlora and the async-only
-#: straggler spec wait for ROADMAP.md queue 1, items 9 and 8).
+#: The stateless specs of the golden matrix (fedlora waits for ROADMAP.md
+#: queue 1, item 9; the async-only straggler spec is in
+#: ``test_torch_async.py``).
 STATELESS = ("fedavg", "fedavg_weighted", "fedavg_dropout", "fedpa",
              "fedpa_stream", "fedprox", "mime", "fedpa_precision")
 #: The stateful specs: the host store and the device store (``_dev``).

@@ -402,7 +402,8 @@ def test_smoke_train_path_on_the_card_equals_the_cpu():
 
     argv = ["--smoke", "--rounds", "3", "--clients", "2", "--local-steps",
             "8", "--burn-in-steps", "2", "--steps-per-sample", "2",
-            "--burn-in-rounds", "1", "--batch", "2", "--seq-len", "32"]
+            "--burn-in-rounds", "1", "--batch", "2", "--seq-len", "32",
+            "--prefetch-rounds", "0"]
     fedpa_dp.reset_launches()
     swa_decode.reset_launches()
     tf32 = torch.backends.cuda.matmul.allow_tf32

@@ -1,19 +1,39 @@
 """The port's training entry point (``repro_torch.launch.train``) and its
 example on the CPU at smoke size: the records carry exactly the JAX
 entry point's keys, the phase flips from the burn-in to FedPA, the losses are
-finite, the per-client state flags run and ``--ckpt-dir`` resumes, and each
-flag whose path is not ported is refused with the ROADMAP.md item that
-ports it, while the JAX package's ``parse_args`` accepts it.
+finite, the per-client state flags run and ``--ckpt-dir`` resumes,
+``--async-rounds`` runs give the JAX entry point's records, prefetching
+changes no number, and each flag whose path is not ported is refused with
+the ROADMAP.md item that ports it, while the JAX package's ``parse_args``
+accepts it.
+
+Every run here builds its cohorts inline or on the thread prefetcher
+(``--prefetch-backend thread``): no test process starts a child
+(``tests/test_torch_prefetch.py`` runs the process backend in a
+subprocess). Records of two runs on the CPU are compared with a
+tolerance, not bit for bit: the port's LM path on the CPU is not bitwise
+repeatable (threaded reductions). Against the JAX entry point, both in
+fp32 compute from the same numpy weights: losses to 1e-4 relative (eight
+local sgdm steps through two layers and the DP, summed in another order;
+``tests/test_torch_lm_train.py`` holds one round's params to 1e-5).
 """
+import functools
 import json
 import math
+import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 import pytest
 import torch
 
+from test_torch_lm_train import _fedlm_params
+from repro.core import sharded_round as jax_sharded_round
 from repro.launch import train as jax_train
+from repro.models import steps as jax_steps
+from repro_torch.convert import lm_params_from_jax
 from repro_torch.core import tree_math as tm
 from repro_torch.examples import train_lm_federated
 from repro_torch.launch import train
@@ -26,7 +46,17 @@ JAX_RECORD_KEYS = {"round", "eval_loss", "client_loss_last",
 
 SMOKE = ["--smoke", "--device", "cpu", "--clients", "2", "--local-steps",
          "6", "--burn-in-steps", "2", "--steps-per-sample", "2",
-         "--burn-in-rounds", "1", "--batch", "2", "--seq-len", "24"]
+         "--burn-in-rounds", "1", "--batch", "2", "--seq-len", "24",
+         "--prefetch-backend", "thread"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _x32():
+    """Other test modules turn on jax x64 at import; compare in fp32."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", prev)
 
 
 def test_train_main_records(tmp_path, capsys):
@@ -55,7 +85,8 @@ def test_train_main_records(tmp_path, capsys):
 
 def test_example_runs_the_smoke_config_on_the_cpu():
     res = train_lm_federated.main(["--device", "cpu", "--rounds", "1",
-                                   "--batch", "1", "--seq-len", "16"])
+                                   "--batch", "1", "--seq-len", "16",
+                                   "--prefetch-backend", "thread"])
     assert res["cfg"].name == "fedlm-100m-smoke"
     assert [r["phase"] for r in res["records"]] == ["fedavg (burn-in)"]
 
@@ -110,7 +141,6 @@ def test_stateful_flags_run_and_resume(flags, phase, tmp_path, capsys):
 #: Flags valid in the reference whose paths the port lacks -> the
 #: ROADMAP.md queue-1 item that ports them.
 REFUSED = [
-    (["--async-rounds"], 8), (["--prefetch-rounds", "2"], 8),
     (["--coordinator", "localhost:1234"], 10),
     (["--num-processes", "2"], 10), (["--process-id", "0"], 10),
     (["--shard-population"], 10),
@@ -130,8 +160,78 @@ def test_unported_flags_are_refused(flags, item):
 
 
 def test_prefetch_default_and_device_guard(monkeypatch):
-    assert train.parse_args([]).prefetch_rounds == 0
+    assert train.parse_args([]).prefetch_rounds == 2
     assert jax_train.parse_args([]).prefetch_rounds == 2
+    assert train.parse_args([]).prefetch_backend == \
+        jax_train.parse_args([]).prefetch_backend == "process"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--smoke", "--rounds", "1"])
+
+
+def _close_records(got, want, keys=("eval_loss", "client_loss_first",
+                                    "client_loss_last"), rel=1e-4):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for k in set(JAX_RECORD_KEYS) - set(keys) - {"sec"}:
+            assert a[k] == b[k], k
+        for k in keys:
+            assert a[k] == pytest.approx(b[k], rel=rel), k
+
+
+def _jax_train_records(argv, monkeypatch, capsys):
+    """The JAX entry point's printed records for ``argv`` (its main reads
+    ``sys.argv``), in fp32 compute from ``_fedlm_params``."""
+    params = _fedlm_params()
+    f32 = dict(compute_dtype=jnp.float32)
+    monkeypatch.setattr(jax_train, "init_params", lambda key, cfg:
+                        jax.tree_util.tree_map(jnp.asarray, params))
+    for name in ("make_fed_round", "make_fed_round_split"):
+        monkeypatch.setattr(jax_train, name, functools.partial(
+            getattr(jax_sharded_round, name), **f32))
+    monkeypatch.setattr(jax_train, "lm_loss",
+                        functools.partial(jax_steps.lm_loss, **f32))
+    monkeypatch.setattr(sys, "argv", ["train"] + argv)
+    capsys.readouterr()
+    jax_train.main()
+    lines = capsys.readouterr().out.splitlines()
+    return [json.loads(line) for line in lines[1:]]
+
+
+#: Async runs against the JAX entry point: FedPA with a window of 3, and
+#: FedEP on the device store with a window of 2 and stragglers.
+ASYNC = [
+    ["--async-rounds", "--max-staleness", "2", "--rounds", "4"],
+    ["--async-rounds", "--algorithm", "fedep", "--client-state-placement",
+     "device", "--num-clients", "3", "--straggler-rate", "0.5",
+     "--rounds", "4"],
+]
+
+
+@pytest.mark.parametrize("flags", ASYNC, ids=lambda v: " ".join(v))
+def test_async_records_equal_jax_train(flags, monkeypatch, capsys):
+    # the JAX entry point has no --device
+    argv = [a for a in SMOKE if a not in ("--device", "cpu")] + flags
+    want = _jax_train_records(argv + ["--prefetch-rounds", "0"],
+                              monkeypatch, capsys)
+    monkeypatch.setattr(train, "init_params", lambda gen, cfg, device:
+                        lm_params_from_jax(_fedlm_params(), device))
+    res = train.main(SMOKE + flags, compute_dtype=torch.float32)
+    got = res["records"]
+    _close_records(got, want)
+    assert [r["staleness"] for r in got][:3] == [0, 1, 2] or \
+        "--straggler-rate" in flags
+    if "--straggler-rate" in flags:
+        assert sum(r["straggled"] for r in got) > 0
+
+
+def test_thread_prefetch_changes_no_number():
+    """``--prefetch-rounds 2 --prefetch-backend thread`` against inline
+    cohorts, sync and async."""
+    for flags in ([], ["--async-rounds"]):
+        base = SMOKE + flags + ["--rounds", "3"]
+        inline = train.main(base + ["--prefetch-rounds", "0"])
+        ahead = train.main(base + ["--prefetch-rounds", "2"])
+        _close_records(ahead["records"], inline["records"], rel=1e-5)
+        assert [r["staleness"] for r in ahead["records"]] == (
+            [0, 1, 1] if flags else [0, 0, 0])
