@@ -130,6 +130,26 @@
    card and CPU: ``staleness`` / ``straggled`` equal the CPU's and the
    draws, params within phase 4's bound, FedPA's DP launches 16 each; the
    card run's cohort builds' host ms.
+12. FedLoRA and the payload codecs. (a) At fedlm-100m's leaf shapes, a
+   stack of 4 clients' random deltas and precisions at rank 4: the wire
+   bytes per client of ``lowrank``, ``lowrank+int8`` and ``int8`` equal
+   ``round_bytes`` and the JAX package's numbers; the bases on the card
+   equal the CPU's bit for bit; the low-rank factors card vs CPU within
+   1e-5 relative; each int8 ``q`` the rounding of the card's own input
+   and within one of the CPU's (the flips counted); encode, decode and
+   dequantize raise nothing under ``set_sync_debug_mode("error")`` once
+   the bases are cached; one round's codec work in host ms and by CUDA
+   events. (b) FedLoRA ``lowrank+int8`` on the device store trains the
+   full-width fedlm-100m through ``launch.train.main`` (phase 9's
+   settings, population 16): DP launches 6 each, ``swa_decode`` none,
+   every record's bytes exact (the burn-in round dense), the residuals of
+   drawn clients non-zero and of the others zero, stamps equal to the
+   draws; round host ms, peak memory, the store's bytes. (c) Its
+   one-layer fp32 cut (client lr 0.01, 3 rounds) on the card and the
+   CPU: ``lowrank`` within phase 4's bound (params and residuals),
+   ``lowrank+int8`` as a report (largest differences, int8 flips between
+   the runs), and ``lowrank`` at window 3 (staleness equal, within the
+   bound).
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -239,6 +259,16 @@ ASYNC_CNN_RUNS = (
     ("fedpa async2", dict(async_rounds=True, max_staleness=2,
                           staleness_discount=0.9)),
 )
+
+# phase 12: FedLoRA. The codec of the full-width run (rank 4), its
+# population (cut from 64: the device store holds one fp32 residual of d
+# per client) and the per-client wire bytes of fedlm-100m as the JAX
+# package's ``round_bytes`` gives them
+FEDLORA_CODEC = ["--payload-codec", "lowrank+int8", "--lora-rank", "4"]
+FEDLORA_CLIENTS = 16
+FEDLM_UP = {"fedpa_precision": 805_472_256, "lowrank": 3_612_160,
+            "lowrank+int8": 903_144, "int8": 201_368_168}
+FEDLM_DOWN, FEDLM_DENSE = 402_736_132, 402_736_128
 
 # the serving path (gemma3-27b at full width): batch, prompt, generated
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 64
@@ -2194,8 +2224,309 @@ def async_rounds(card: str, params, seed: int) -> dict:
     return by_run
 
 
+def fedlora_argv(argv, num_clients: int, codec: str) -> list:
+    """``argv`` (a ``launch.train`` command) switched to FedLoRA with
+    ``codec`` at rank 4, on the device store with a population of
+    ``num_clients``."""
+    out = list(argv)
+    out[out.index("--algorithm") + 1] = "fedlora"
+    out[out.index("--num-clients") + 1] = str(num_clients)
+    return out + ["--payload-codec", codec, "--lora-rank", "4",
+                  "--client-state-placement", "device"]
+
+
+def quant_flips(q_card, x_card, q_cpu, scale_card) -> int:
+    """int8 ``q`` from the card: the CPU quantizer applied to the card's own
+    input gives the same ``q`` except where ``x / scale`` lies within 1e-5
+    of a half quantum; against the CPU's run on the CPU's input, ``q`` is
+    off by at most one (a flip: the two inputs straddle a half quantum).
+    Returns the flips."""
+    import torch
+
+    q_card, x_card = q_card.cpu(), x_card.cpu()
+    s = scale_card.cpu().reshape(-1, *([1] * (x_card.dim() - 1)))
+    t = x_card / s
+    mine = torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+    near = ((t - torch.round(t)).abs() - 0.5).abs() <= 1e-5
+    if ((mine != q_card) & ~near).any():
+        fail("int8 q on the card is not its own input's rounding")
+    diff = (q_card.long() - q_cpu.long()).abs()
+    if diff.max() > 1:
+        fail(f"int8 q on the card differs from the CPU's by {diff.max()}")
+    return int(diff.sum())
+
+
+def codec_check(card: str, seed: int) -> None:
+    """Phase 12a: the codecs on the card at fedlm-100m's leaf shapes, a
+    stack of 4 clients' random deltas and precisions, rank 4."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.compression import build_codec, round_bytes, tree_nbytes
+    from repro_torch.compression.lowrank import host_basis
+    from repro_torch.compression.quant import is_qleaf
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import tree_math as tm
+    from repro_torch.models.model import init_params
+
+    cfg = configs.get_config("fedlm-100m")
+    C, rnd = 4, 1
+    kw = dict(clients_per_round=C, local_steps=12, burn_in_steps=4,
+              steps_per_sample=2, burn_in_rounds=1, lora_rank=4)
+    meta = init_params(None, cfg, device="meta")
+    feds = {name: FedConfig(algorithm="fedlora", payload_codec=name, **kw)
+            for name in ("lowrank", "lowrank+int8", "int8")}
+    feds["fedpa_precision"] = FedConfig(algorithm="fedpa_precision", **kw)
+    for name, fed in feds.items():
+        rb = round_bytes(fed, meta)
+        burn = round_bytes(fed, meta, use_sampling=False)
+        down = FEDLM_DOWN if name != "fedpa_precision" else FEDLM_DENSE
+        if (rb["bytes_up_per_client"], rb["bytes_down_per_client"],
+                burn["bytes_up_per_client"], burn["bytes_down_per_client"]) \
+                != (FEDLM_UP[name], down, FEDLM_DENSE, FEDLM_DENSE):
+            fail(f"round_bytes {name}: {rb}, burn {burn}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    like = init_params(gen, cfg, device="cuda")
+    delta = tm.tmap(lambda p: 1e-2 * torch.randn(
+        (C, *p.shape), generator=gen, device="cuda"), like)
+    prec = tm.tmap(lambda p: torch.rand(
+        (C, *p.shape), generator=gen, device="cuda") + 0.5, like)
+    wire_bytes = {}
+    for name in ("lowrank", "lowrank+int8", "int8"):
+        codec = build_codec(feds[name])
+        wire = codec.encode(delta, rnd, like)
+        pwire = codec.encode_aux(codec.project_precision(prec, rnd, like),
+                                 rnd, like)
+        wire_bytes[name] = (tree_nbytes(wire) + tree_nbytes(pwire)) // C
+        del wire, pwire
+    if any(wire_bytes[k] != FEDLM_UP[k] for k in wire_bytes):
+        fail(f"encoded bytes per client {wire_bytes} != {FEDLM_UP}")
+    codec = build_codec(feds["lowrank+int8"])
+    cpu_codec = build_codec(feds["lowrank+int8"])
+    wire = codec.encode(delta, rnd, like)
+    bases = codec.stages[0]._cache[rnd]
+    same = all(torch.equal(b.cpu(), host_basis(last_dim, 4, rnd, leaf))
+               for (leaf, last_dim, _), (b, _) in bases.items())
+    eligible = sum(p.dim() >= 2 and p.shape[-1] > 4 for p in tm.tleaves(like))
+    if len(bases) != eligible or not same:
+        fail(f"codec: {len(bases)} bases on the card for {eligible} "
+             f"sketched leaves, equal to the CPU's: {same}")
+    factors = codec.stages[0].encode(delta, rnd, like)
+    like_cpu, delta_cpu = (tm.tmap(lambda t: t.cpu(), x)
+                           for x in (like, delta))
+    factors_cpu = cpu_codec.stages[0].encode(delta_cpu, rnd, like_cpu)
+    wire_cpu = cpu_codec.stages[1].encode(factors_cpu, rnd, like_cpu)
+    rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+              for a, b in zip(tm.tleaves(factors), tm.tleaves(factors_cpu)))
+    flips, n_q = 0, 0
+    for w, x, wc in zip(pytree.tree_leaves(wire, is_leaf=is_qleaf),
+                        tm.tleaves(factors),
+                        pytree.tree_leaves(wire_cpu, is_leaf=is_qleaf)):
+        flips += quant_flips(w["q"], x, wc["q"], w["scale"])
+        n_q += w["q"].numel()
+        if w["scale"].shape != (C,):
+            fail(f"int8 scale of shape {tuple(w['scale'].shape)}")
+    if rel > 1e-5:
+        fail(f"low-rank factors card vs CPU: {rel:.3g} relative")
+    del factors, factors_cpu, wire_cpu, delta_cpu
+    mean = tm.tmap(lambda t: t[0], codec.to_accum(wire))
+
+    def one_round():
+        w = codec.encode(delta, rnd, like)
+        p = codec.encode_aux(codec.project_precision(prec, rnd, like), rnd,
+                             like)
+        codec.decode(w, rnd, like)
+        codec.to_accum(p)
+        codec.decode_accum(mean, rnd, like)
+
+    one_round()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        one_round()
+        host = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ev = time_ms(one_round, iters=5, warmup=1)
+    print(f"codec lowrank+int8 rank 4 on fedlm-100m's leaves ({C} clients, "
+          f"d={sum(p.numel() for p in tm.tleaves(like)):,}): wire bytes per "
+          f"client {wire_bytes} (round_bytes: equal); bases on the card "
+          f"{len(bases)}, equal to the CPU's bit for bit; factors card vs "
+          f"CPU {rel:.3g} relative; int8 q flips against the CPU "
+          f"{flips} of {n_q}; one round's encode + precision + decode + "
+          f"server decode: host ms {host:.2f} (enqueue, no sync under "
+          f"sync-debug 'error'), ms by CUDA events {ev:.2f}", flush=True)
+
+
+def fedlora_train_path(card: str, seed: int) -> dict:
+    """Phase 12b: FedLoRA (lowrank+int8, rank 4) on the device store trains
+    the full-width fedlm-100m through ``launch.train.main`` (phase 9's
+    settings, population 16); returns the DP kernels' launches."""
+    import torch
+
+    from repro_torch.core import tree_math as tm
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import train
+
+    argv = fedlora_argv(TRAIN_ARGV, FEDLORA_CLIENTS, "lowrank+int8") \
+        + ["--seed", str(seed)]
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
+    fedpa_dp.reset_launches()
+    swa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(fedpa_dp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, recs, store = res["cfg"], res["records"], res["store"]
+    d = cfg.param_count()
+    total, mm, local, dp = train_round_bound_ms(cfg, args, hbm_rate(card))
+    store_bytes = sum(nbytes(b) for b in tm.tleaves(store.device_state()))
+    C = args.clients
+    for rec, sec in zip(recs, res["seconds"]):
+        print(f"  round {rec['round']} ({rec['phase']}): host ms "
+              f"{sec * 1e3:.1f}; eval_loss {rec['eval_loss']:.4f}; bytes up "
+              f"{rec['bytes_up']:,} down {rec['bytes_down']:,}", flush=True)
+    warm = [sec * 1e3 for rec, sec in zip(recs, res["seconds"])
+            if rec["phase"] == "fedlora"]
+    print(f"train fedlora {cfg.name}: d={d:,}; {C} of {args.num_clients} "
+          f"clients (population cut from 64), lowrank+int8 rank 4, "
+          f"{args.local_steps} steps x {args.batch}x{args.seq_len} tokens, "
+          f"l={ell}, residuals on the device store: FedLoRA round host ms "
+          f"{[round(x, 1) for x in warm]} (the first includes warm-up) "
+          f"against FedPA's bound of {total:.1f} ms; peak memory allocated "
+          f"{peak / 2**30:.2f} GiB; store {store_bytes / 1e9:.2f} GB "
+          f"({args.num_clients} x {4 * d / 1e6:.1f} MB); DP launches "
+          f"{launches} (expected {expected} each); swa_decode launches "
+          f"{swa.launches['swa_decode']} (expected 0)", flush=True)
+    if d != LM_D:
+        fail(f"fedlm-100m has d={d}, expected {LM_D}")
+    if any(n != expected for n in launches.values()):
+        fail(f"train fedlora: DP launches {launches} != {expected} each")
+    if swa.launches["swa_decode"] != 0:
+        fail("swa_decode launched on the FedLoRA training path")
+    for rec in recs:
+        want = ((C * FEDLM_DENSE, C * FEDLM_DENSE) if rec["phase"] !=
+                "fedlora" else (C * FEDLM_UP["lowrank+int8"],
+                                C * FEDLM_DOWN))
+        if (rec["bytes_up"], rec["bytes_down"]) != want:
+            fail(f"train fedlora: record bytes {rec}, expected {want}")
+    losses = [r[k] for r in recs for k in ("eval_loss", "client_loss_first",
+                                           "client_loss_last")]
+    if len(recs) != args.rounds or not all(map(math.isfinite, losses)):
+        fail(f"train fedlora: records {recs}")
+    want = drawn_per_client(args, args.burn_in_rounds)
+    check_sites(store, want, "fedlora residuals")
+    return launches
+
+
+def fedlora_replay(seed: int) -> dict:
+    """Phase 12c: FedLoRA on fedlm-100m cut to one layer, fp32, client lr
+    0.01, card and CPU: ``lowrank`` (params and residuals within phase 4's
+    bound), ``lowrank+int8`` (a report: largest differences and the int8
+    flips between the runs), and ``lowrank`` at window 3 (staleness equal,
+    params and residuals within the bound). Returns the ``lowrank`` card
+    run's DP launches."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.compression.quant import QuantCodec, is_qleaf
+    from repro_torch.core import tree_math as tm
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    encode = QuantCodec.encode
+    launches = None
+    for name, codec, extra in (("lowrank", "lowrank", []),
+                               ("lowrank+int8", "lowrank+int8", []),
+                               ("lowrank window 3", "lowrank", ASYNC_ARGV)):
+        argv = fedlora_argv(REPLAY_ARGV, 4, codec) + FEDEP_REPLAY + extra \
+            + ["--seed", str(seed)]
+        runs, qs, times = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            seen = qs[device] = []
+
+            def recording(self, tree, round_idx, like=None, seen=seen):
+                out = encode(self, tree, round_idx, like)
+                seen.extend(w["q"].cpu() for w in pytree.tree_leaves(
+                    out, is_leaf=is_qleaf) if not w["q"].is_meta)
+                return out
+
+            fedpa_dp.reset_launches()
+            QuantCodec.encode = recording
+            t0 = time.perf_counter()
+            try:
+                runs[device] = train.main(argv + ["--device", device],
+                                          cfg=cfg,
+                                          compute_dtype=torch.float32)
+            finally:
+                QuantCodec.encode = encode
+            if device == "cuda":
+                torch.cuda.synchronize()
+                if name == "lowrank":
+                    launches = dict(fedpa_dp.launches)
+            times[device] = time.perf_counter() - t0
+        card, cpu = runs["cuda"], runs["cpu"]
+        flips = sum(int((a != b).sum()) for a, b in zip(qs["cuda"],
+                                                        qs["cpu"]))
+        stale = [[r["staleness"] for r in x["records"]] for x in (card, cpu)]
+        print(f"fedlora one-layer {name} ({cfg.name} cut to 1 layer, d="
+              f"{cfg.param_count():,}, fp32, {len(card['records'])} rounds): "
+              f"card {times['cuda']:.1f} s, CPU {times['cpu']:.1f} s; "
+              f"staleness card {stale[0]}, CPU {stale[1]}; eval_loss card "
+              f"{[r['eval_loss'] for r in card['records']]}, CPU "
+              f"{[r['eval_loss'] for r in cpu['records']]}; int8 q flips "
+              f"card vs CPU {flips} of {sum(q.numel() for q in qs['cpu'])}",
+              flush=True)
+        if stale[0] != stale[1] or [r["bytes_up"] for r in card["records"]] \
+                != [r["bytes_up"] for r in cpu["records"]]:
+            fail(f"fedlora one-layer {name}: records differ")
+        if len(qs["cuda"]) != len(qs["cpu"]):
+            fail(f"fedlora one-layer {name}: encodes differ in number")
+        stores = [r["store"].state_dict() for r in (card, cpu)]
+        if name == "lowrank+int8":
+            err = max((a.cpu() - b).abs().max().item() for a, b in zip(
+                tm.tleaves(card["state"].params),
+                tm.tleaves(cpu["state"].params)))
+            serr = max(float(abs(a - b).max()) for a, b in zip(
+                tm.tleaves(stores[0]["buffers"]),
+                tm.tleaves(stores[1]["buffers"])))
+            losses = [r[k] for x in (card, cpu) for r in x["records"]
+                      for k in ("eval_loss", "client_loss_last")]
+            print(f"  {name}: params max abs diff {err:.3g}, residuals "
+                  f"max abs diff {serr:.3g} (a report)", flush=True)
+            if not all(map(math.isfinite, losses)):
+                fail(f"fedlora one-layer {name}: a loss is not finite")
+            continue
+        params_close(card["state"].params, cpu["state"].params,
+                     f"fedlora one-layer {name}, card vs CPU")
+        store_close(stores[0], stores[1],
+                    f"fedlora one-layer {name}, card vs CPU")
+    return launches
+
+
+def fedlora_rounds(card: str, seed: int) -> dict:
+    """Phase 12 (12a-12c); returns the DP launches of its runs."""
+    import torch
+
+    codec_check(card, seed)
+    torch.cuda.empty_cache()
+    by_run = {"fedlm-100m fedlora train (lowrank+int8)":
+              fedlora_train_path(card, seed)}
+    torch.cuda.empty_cache()
+    by_run["fedlm-100m 1 layer fp32 fedlora (vs CPU)"] = fedlora_replay(seed)
+    return by_run
+
+
 def main() -> int:
-    """Run the eleven phases; returns the exit code."""
+    """Run the twelve phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2340,6 +2671,11 @@ def main() -> int:
     # -- phase 11: async rounds ---------------------------------------------
     by_run.update(async_rounds(card, params, args.seed))
     done(11)
+    torch.cuda.empty_cache()
+
+    # -- phase 12: FedLoRA and the codecs -----------------------------------
+    by_run.update(fedlora_rounds(card, args.seed))
+    done(12)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -1,14 +1,15 @@
 """Exact per-round communicated bytes from abstract payloads (port of
-``repro/compression/accounting.py``; codecs wait for ROADMAP.md queue 1,
-item 9).
+``repro/compression/accounting.py``).
 
 Everything runs on meta-device tensors, the port's stand-in for
 ``jax.eval_shape``: no allocation, exact for any model size. Uplink is
 the algorithm's per-client payload (``FedAlgorithm.abstract_payload``:
 ``fedpa_precision`` and ``fedep`` ship two dense trees, ``scaffold`` its
-delta and an fp32 ``dc``); downlink is the broadcast parameters plus the
-algorithm's extras (``abstract_broadcast_extras``: MIME's server momentum,
-SCAFFOLD's fp32 server control variate).
+delta and an fp32 ``dc``, ``fedlora`` its encoded delta and projected
+precision, quantizer scales included); downlink is the broadcast
+parameters plus the algorithm's extras (``abstract_broadcast_extras``:
+MIME's server momentum, SCAFFOLD's fp32 server control variate,
+``fedlora``'s i32 round index).
 """
 from __future__ import annotations
 
@@ -16,12 +17,12 @@ from typing import Dict
 
 import torch
 
-from repro_torch.algorithms import resolve_algorithm
 from repro_torch.core import tree_math as tm
 
 
 def tree_nbytes(tree) -> int:
-    """Total bytes of a tree of tensors (meta-device tensors included)."""
+    """Total bytes of a tree of tensors (meta-device tensors included;
+    a quantized leaf's ``{"q", "scale"}`` counts both)."""
     return sum(x.numel() * x.element_size() for x in tm.tleaves(tree))
 
 
@@ -29,6 +30,9 @@ def round_bytes(fed, params, use_sampling: bool = True) -> Dict[str, int]:
     """Exact per-round wire bytes of ``fed`` on ``params``-shaped models,
     per client and per round (x ``clients_per_round``);
     ``use_sampling=False`` accounts the burn-in regime's algorithm."""
+    # algorithms import the codecs, which this package exports
+    from repro_torch.algorithms import resolve_algorithm  # noqa: PLC0415
+
     alg = resolve_algorithm(fed, use_sampling)
     abstract = tm.tmap(lambda p: torch.empty(p.shape, dtype=p.dtype,
                                              device="meta"), params)

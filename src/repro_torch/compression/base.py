@@ -1,24 +1,123 @@
-"""Payload-codec specs (port of ``repro/compression/base.py``: ``parse_codec``
-and ``codec_names``), without the codecs themselves.
+"""Pluggable payload codecs (port of ``repro/compression/base.py``): compress
+client payloads before aggregation.
 
-A spec composes stages left to right with ``"+"`` (``"lowrank+int8"``).
-Every linear stage must come before every nonlinear one: the linear
-prefix defines the space the round accumulates in. The stages and their
-``linear`` flags are the reference's registry: ``none`` and ``lowrank``
-are linear, ``int8`` is not. Only ``"none"`` runs in this port; the codec
-math waits for ROADMAP.md queue 1, item 9.
+A :class:`PayloadCodec` maps a parameter-shaped tree (a client delta, or a
+statistic such as a diagonal precision) to a compact wire form and back.
+Codecs compose left to right with ``"+"`` (``"lowrank+int8"`` projects the
+matrices onto rank-r factors, then quantizes the factors), and every
+**linear** stage must come before every nonlinear one: the linear prefix
+defines the *accumulator space* (encoded payloads sum there, so the
+sequential and chunked folds stay cheap), while the nonlinear suffix
+(quantization) is undone per client before the sum.
+
+The port's client update works on a stack of clients, ``(C, ...)``, where
+the reference's runs per client under ``vmap``. So every method that sees
+client payloads takes ``like``, the unstacked parameter template: a leaf
+with one more axis than its template carries a leading client axis, and
+what the reference reads from a client's leaf (the low-rank eligibility
+and basis, the quantizer's scale) comes from the per-client shape. With
+``like=None`` the tree is one client's, unstacked, and its own template.
+Leaves are numbered in JAX's flatten order of the template's key paths
+(``jax_leaf_index``), since the sketch of a leaf is keyed by that number.
+
+The registry mirrors ``algorithms``: codecs register by name, and
+``FedConfig.payload_codec`` is parsed against it at config time.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple, Type
 
-#: Registered stage name -> whether its encode is linear in its input.
-CODEC_LINEAR = {"int8": False, "lowrank": True, "none": True}
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import tree_math as tm
+
+
+def jax_leaf_index(tree) -> List[int]:
+    """For each leaf of ``tree`` in the port's flatten order, its index in
+    JAX's: JAX sorts dict keys at every level, ``torch.utils._pytree``
+    keeps insertion order."""
+    paths = []
+    for path, _ in pytree.tree_flatten_with_path(tree)[0]:
+        keys = []
+        for k in path:
+            if isinstance(k, pytree.MappingKey):
+                keys.append(k.key)
+            elif isinstance(k, pytree.SequenceKey):
+                keys.append(k.idx)
+            else:
+                raise TypeError(f"cannot order tree key {k!r} as JAX does")
+        paths.append(tuple(keys))
+    index = [0] * len(paths)
+    for j, i in enumerate(sorted(range(len(paths)), key=paths.__getitem__)):
+        index[i] = j
+    return index
+
+
+class PayloadCodec:
+    """One compression stage; stateless but for caches, parameterized by the
+    FedConfig.
+
+    Subclasses set ``name`` (registry key) and ``linear``. Linear stages
+    satisfy ``encode(a*x + b*y) == a*encode(x) + b*encode(y)`` so the round
+    accumulator can live in their image; nonlinear stages are undone per
+    client before accumulation.
+    """
+
+    name: str = "?"
+    #: True when encode is linear in the input tree (accumulation-safe)
+    linear: bool = False
+
+    def __init__(self, fed):
+        """Bind the stage to a ``FedConfig``."""
+        self.fed = fed
+
+    def encode(self, tree, round_idx, like=None):
+        """Parameter-shaped (or upstream-encoded) tree -> wire form."""
+        raise NotImplementedError
+
+    def decode(self, tree, round_idx, like):
+        """Inverse of :meth:`encode`; ``like`` is the unstacked template with
+        the pre-encode leaf shapes (nonlinear codecs may ignore it)."""
+        raise NotImplementedError
+
+    def accum_like(self, tree):
+        """A pre-encode-shaped fp32 zeros tree -> encoded-shaped fp32 zeros
+        (linear stages only; no sketch is built)."""
+        raise NotImplementedError
+
+    def project_precision(self, prec, round_idx, like=None):
+        """Push a diagonal precision through the stage's projection;
+        identity for stages that keep leaf shapes."""
+        del round_idx, like
+        return prec
+
+
+_REGISTRY: Dict[str, Type[PayloadCodec]] = {}
+
+
+def register_codec(name: str, *, override: bool = False):
+    """Class decorator: register a codec under ``name`` (sets ``cls.name``).
+
+    Re-registering an existing name raises unless ``override=True``: a
+    silent swap would change what every spec using it decodes to.
+    """
+
+    def wrap(cls: Type[PayloadCodec]) -> Type[PayloadCodec]:
+        if not override and name in _REGISTRY and _REGISTRY[name] is not cls:
+            raise ValueError(
+                f"codec {name!r} is already registered to "
+                f"{_REGISTRY[name]!r}; pass override=True to replace it")
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+
+    return wrap
 
 
 def codec_names() -> Tuple[str, ...]:
     """Sorted names of every registered codec stage."""
-    return tuple(sorted(CODEC_LINEAR))
+    return tuple(sorted(_REGISTRY))
 
 
 def parse_codec(spec: str) -> Tuple[str, ...]:
@@ -31,7 +130,7 @@ def parse_codec(spec: str) -> Tuple[str, ...]:
         raise ValueError(f"payload_codec must be a non-empty str, got {spec!r}")
     stages = tuple(s.strip() for s in spec.split("+"))
     for s in stages:
-        if s not in CODEC_LINEAR:
+        if s not in _REGISTRY:
             raise ValueError(
                 f"unknown payload codec {s!r} in spec {spec!r}; "
                 f"registered codecs: {codec_names()}")
@@ -41,10 +140,101 @@ def parse_codec(spec: str) -> Tuple[str, ...]:
         raise ValueError(f"duplicate codec stage in spec {spec!r}")
     seen_nonlinear = False
     for s in stages:
-        if CODEC_LINEAR[s] and seen_nonlinear:
+        if _REGISTRY[s].linear and seen_nonlinear:
             raise ValueError(
                 f"linear codec {s!r} after a nonlinear stage in {spec!r}: "
                 "linear stages must form a prefix (they define the "
                 "accumulator space)")
-        seen_nonlinear = seen_nonlinear or not CODEC_LINEAR[s]
+        seen_nonlinear = seen_nonlinear or not _REGISTRY[s].linear
     return stages
+
+
+class CodecChain:
+    """An ordered codec pipeline split into linear prefix + nonlinear suffix.
+
+    ``encode`` / ``decode`` run the whole pipeline (the client wire form);
+    ``to_accum`` undoes only the nonlinear suffix (per client, before the
+    sum); ``decode_accum`` undoes only the linear prefix (on the server,
+    once per round, on the summed accumulator).
+    """
+
+    def __init__(self, fed):
+        """Build the stages of ``fed.payload_codec``, in order."""
+        names = parse_codec(fed.payload_codec)
+        self.stages = tuple(_REGISTRY[n](fed) for n in names)
+        self.prefix = tuple(s for s in self.stages if s.linear)
+        self.suffix = tuple(s for s in self.stages if not s.linear)
+
+    @property
+    def is_identity(self) -> bool:
+        """True when the chain is a no-op (the ``none`` codec)."""
+        return all(s.name == "none" for s in self.stages)
+
+    def encode(self, tree, round_idx, like=None):
+        """Whole pipeline: parameter-shaped tree -> wire form."""
+        for s in self.stages:
+            tree = s.encode(tree, round_idx, like)
+        return tree
+
+    def decode(self, tree, round_idx, like):
+        """Whole inverse pipeline; ``like`` is the unstacked template."""
+        for s in reversed(self.stages):
+            tree = s.decode(tree, round_idx, like)
+        return tree
+
+    def to_accum(self, tree):
+        """Undo the nonlinear suffix only: wire form -> accumulator space."""
+        for s in reversed(self.suffix):
+            tree = s.decode(tree, None, None)
+        return tree
+
+    def encode_aux(self, tree, round_idx, like=None):
+        """Apply the nonlinear suffix only (for already-projected stats)."""
+        for s in self.suffix:
+            tree = s.encode(tree, round_idx, like)
+        return tree
+
+    def decode_accum(self, tree, round_idx, like):
+        """Undo the linear prefix: accumulator space -> parameter space."""
+        for s in reversed(self.prefix):
+            tree = s.decode(tree, round_idx, like)
+        return tree
+
+    def project_precision(self, prec, round_idx, like=None):
+        """Parameter-shaped diagonal precision -> accumulator space."""
+        for s in self.prefix:
+            prec = s.project_precision(prec, round_idx, like)
+        return prec
+
+    def accum_zeros(self, params):
+        """Fresh fp32 zeros of the accumulator (linear-prefix image) space."""
+        z = tm.tzeros_like(params, torch.float32)
+        for s in self.prefix:
+            z = s.accum_like(z)
+        return z
+
+
+def build_codec(fed) -> CodecChain:
+    """The :class:`CodecChain` selected by ``fed.payload_codec``."""
+    return CodecChain(fed)
+
+
+@register_codec("none")
+class IdentityCodec(PayloadCodec):
+    """The identity chain: dense payloads, no compression."""
+
+    linear = True
+
+    def encode(self, tree, round_idx, like=None):
+        """Identity."""
+        del round_idx, like
+        return tree
+
+    def decode(self, tree, round_idx, like):
+        """Identity."""
+        del round_idx, like
+        return tree
+
+    def accum_like(self, tree):
+        """Identity (the tree is already fp32 zeros)."""
+        return tree

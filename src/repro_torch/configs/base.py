@@ -24,11 +24,6 @@ from repro_torch.optim import get_optimizer
 #: Client-state placements the JAX engine knows (``core.client_state.STORES``).
 STATE_PLACEMENTS = ("host", "device")
 
-#: Algorithms registered in the JAX package that this port does not have
-#: yet, with the ROADMAP.md queue-1 item that ports them.
-PENDING_ALGORITHMS = {"fedlora": 9}
-
-
 #: Mixer kinds the JAX model code understands, and those ported here.
 MIXERS = ("attn", "swa", "mlstm", "slstm", "rglru")
 PORTED_MIXERS = ("attn", "swa")
@@ -226,8 +221,8 @@ class FedConfig:
     client_state_placement: str = "host"
 
     def __post_init__(self):
-        """Validate as the JAX package does (``ValueError``), then refuse
-        what is not ported (``NotImplementedError``)."""
+        """Validate as the JAX package does (``ValueError``): every
+        registered algorithm and codec of the reference is ported."""
         if self.round_placement not in ("parallel", "sequential", "chunked"):
             raise ValueError(
                 f"unknown round_placement {self.round_placement!r}")
@@ -250,9 +245,6 @@ class FedConfig:
         self._validate_round()
         self._validate_faults()
         self._validate_payload()
-        if self.algorithm in PENDING_ALGORITHMS:
-            raise _not_ported(f"algorithm {self.algorithm!r}",
-                              PENDING_ALGORITHMS[self.algorithm])
         get_algorithm(self).validate()
 
     def _validate_round(self):
@@ -300,8 +292,8 @@ class FedConfig:
 
     def _validate_payload(self):
         """``delta_dtype`` must name a torch floating dtype; the codec spec
-        is parsed as the reference parses it and the codec knobs are
-        range-checked (only ``"none"`` runs in this port)."""
+        is parsed against the codec registry and the codec knobs are
+        range-checked, as the reference does."""
         dt = getattr(torch, str(self.delta_dtype), None)
         if not isinstance(dt, torch.dtype):
             raise ValueError(

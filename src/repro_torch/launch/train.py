@@ -10,17 +10,24 @@ reference's, plus ``--device``. Each round prints one JSON record with the
 reference's keys. The weights are random, drawn on the CPU from ``--seed``
 (so every device starts from the same ones) and moved to the device in
 fp32; the local steps compute in bf16. On the card the DP steps of FedPA,
-``fedpa_precision`` and FedEP run through the CUDA kernels ``dp_reduce`` /
-``dp_map``.
+``fedpa_precision``, FedEP and FedLoRA run through the CUDA kernels
+``dp_reduce`` / ``dp_map``.
+
+``--algorithm fedlora`` ships its payloads through ``--payload-codec``
+(``lowrank`` rank-``--lora-rank`` factors, ``int8`` quantization of
+``--quant-bits``, or both) and keeps an error-feedback residual per client
+unless ``--no-error-feedback``; each record's ``bytes_up`` /
+``bytes_down`` are the round's wire bytes (``compression.round_bytes``).
 
 The stateful algorithms (``--algorithm scaffold`` with ``--client-opt
-sgd``, ``--algorithm fedep``) keep per-client state in a store placed by
-``--client-state-placement``: host numpy buffers, or tensors on the
-device. ``--ckpt-dir`` checkpoints every ``--ckpt-every`` rounds and at
-the last one, in the reference's npz format (``{"server", "clients"}``
-for a stateful algorithm, the bare server state otherwise); a run whose
-directory holds a checkpoint resumes from it ("restored checkpoint at
-round N"). Each package reads the other's checkpoints.
+sgd``, ``--algorithm fedep``, ``--algorithm fedlora``) keep per-client
+state in a store placed by ``--client-state-placement``: host numpy
+buffers, or tensors on the device. ``--ckpt-dir`` checkpoints every
+``--ckpt-every`` rounds and at the last one, in the reference's npz format
+(``{"server", "clients"}`` for a stateful algorithm, the bare server state
+otherwise); a run whose directory holds a checkpoint resumes from it
+("restored checkpoint at round N"). Each package reads the other's
+checkpoints.
 
 ``--async-rounds`` widens the engine's in-flight window to
 ``--max-staleness + 1`` cohorts, each delta discounted by
@@ -53,7 +60,7 @@ from repro_torch import configs
 from repro_torch.algorithms import algorithm_names, get_algorithm, phase_name
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.compression.accounting import round_bytes
-from repro_torch.configs.base import PENDING_ALGORITHMS, FedConfig, _not_ported
+from repro_torch.configs.base import FedConfig, _not_ported
 from repro_torch.core import tree_math as tm
 from repro_torch.core.client_state import make_client_store
 from repro_torch.core.engine import RoundEngine
@@ -111,7 +118,7 @@ def parse_args(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config (CPU-friendly)")
     ap.add_argument("--algorithm", default="fedpa",
-                    choices=sorted((*algorithm_names(), *PENDING_ALGORITHMS)),
+                    choices=algorithm_names(),
                     help="registered federated algorithm")
     ap.add_argument("--rounds", type=int, default=50)
     ap.add_argument("--clients", type=int, default=4)
@@ -130,10 +137,18 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--payload-codec", default="none",
-                    help="client payload codec chain; only 'none' is ported")
-    ap.add_argument("--lora-rank", type=int, default=4)
-    ap.add_argument("--quant-bits", type=int, default=8, choices=(8, 16))
-    ap.add_argument("--no-error-feedback", action="store_true")
+                    help="client payload codec chain (repro_torch."
+                         "compression): none | lowrank | int8 | "
+                         "lowrank+int8; non-'none' requires --algorithm "
+                         "fedlora")
+    ap.add_argument("--lora-rank", type=int, default=4,
+                    help="rank of the 'lowrank' codec's per-(round, leaf) "
+                         "sketch")
+    ap.add_argument("--quant-bits", type=int, default=8, choices=(8, 16),
+                    help="bit width of the 'int8' codec's quantizer")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="disable fedlora's per-client compression-error "
+                         "residual (no client-state store)")
     ap.add_argument("--async-rounds", action="store_true",
                     help="overlap cohort t+1's client compute with round "
                          "t's server update (max-staleness + 1 cohorts in "
@@ -184,9 +199,6 @@ def refuse_unported(args) -> None:
         ((args.num_processes or 1) > 1, "--num-processes > 1", 10),
         (args.process_id is not None, "--process-id", 10),
         (args.shard_population, "--shard-population", 10),
-        (args.payload_codec != "none",
-         f"--payload-codec {args.payload_codec}", 9),
-        (args.algorithm == "fedlora", "--algorithm fedlora", 9),
     ]
     for bad, what, item in pending:
         if bad:

@@ -1,6 +1,7 @@
 """The port's staleness-general engine on the CPU: the 39 ``__async2__``
-engine goldens (every spec but fedlora, ``fedavg_straggler`` included) in
-all three placements, ``async_rounds=True, max_staleness=0`` against the
+engine goldens (every spec but fedlora, whose are in
+``test_torch_fedlora.py``; ``fedavg_straggler`` included) in all three
+placements, ``async_rounds=True, max_staleness=0`` against the
 ``__sync__`` goldens, the straggler draws against JAX ``CohortSource``'s,
 an async FedPA run with stragglers and dropout against JAX ``FedSim``,
 and the engine's behaviour as ``tests/test_async_engine.py`` pins it for
@@ -46,7 +47,7 @@ from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round import FedSim
 from repro_torch.data.cohort_source import CohortSource
 
-#: Every spec of the golden matrix but fedlora (ROADMAP.md queue 1, item 9).
+#: Every spec of the golden matrix but fedlora (``test_torch_fedlora.py``).
 PORTED = tuple(n for n in egc.SPECS if n != "fedlora")
 #: The specs that also have ``__sync__`` goldens.
 SYNC_SPECS = tuple(n for n in PORTED if n not in egc.ASYNC_ONLY)
@@ -152,12 +153,6 @@ def test_float64_run_lands_within_store_tolerance(name, lsq_problem):
     g_arrays, _ = egc.load_case(name, "async2", "parallel")
     _assert_arrays(f64, g_arrays)
     _assert_arrays(f64, f32)
-
-
-@pytest.mark.parametrize("placement", egc.PLACEMENTS)
-def test_fedlora_async2_goldens_wait_for_item_9(placement):
-    pytest.skip("fedlora and its codecs are not ported yet (ROADMAP.md "
-                "queue 1, item 9)")
 
 
 @pytest.mark.parametrize("placement", egc.PLACEMENTS)

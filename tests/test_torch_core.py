@@ -7,6 +7,7 @@ relative; IASG samples and CNN outputs 1e-5 (matmul and convolution sums
 run in another order); the DP 2e-4, as ``tests/test_kernels.py`` holds the
 flat DP against the scan DP.
 """
+import dataclasses
 import importlib
 
 import jax
@@ -243,6 +244,14 @@ CONFIG_CASES = [
     dict(round_placement="chunked", round_chunk_size=-1),
     dict(availability="diurnal", availability_duty=0.0),
     dict(dropout_rate=1.5), dict(qffl_q=-1.0),
+    egc.SPECS["fedlora"][0],
+    dict(algorithm="fedlora", payload_codec="lowrank+int8", quant_bits=16),
+    dict(algorithm="fedlora", payload_codec="int8", error_feedback=False),
+    dict(algorithm="fedlora", payload_codec="lowrank", lora_rank=0),
+    dict(algorithm="fedlora", payload_codec="int8", quant_bits=7),
+    dict(algorithm="fedlora", error_feedback=1),
+    dict(algorithm="fedlora", streaming_dp=True),
+    dict(algorithm="fedlora", local_steps=7),
 ]
 
 
@@ -261,7 +270,7 @@ def test_fedconfig_accepts_and_rejects_like_jax(kw):
 
 @pytest.mark.parametrize("kw", BAD_CODECS, ids=lambda kw: repr(kw)[:60])
 def test_bad_codec_specs_raise_value_error_in_both(kw):
-    """The spec is parsed before the port refuses ``fedlora``."""
+    """Both packages name the codec spec in the error."""
     for cls in (FedConfig, JaxFedConfig):
         with pytest.raises(ValueError, match="codec"):
             cls(**kw)
@@ -270,12 +279,12 @@ def test_bad_codec_specs_raise_value_error_in_both(kw):
 #: Knobs valid in the reference -> the ROADMAP.md queue-1 item the port
 #: still waits for, or None where the port runs them (async rounds and
 #: prefetching, the placements, mime, scaffold, the device client store,
-#: cohort faults, q-FFL and step budgets).
+#: cohort faults, q-FFL, step budgets, fedlora and its codecs).
 KNOBS = [
     (dict(async_rounds=True), None), (dict(round_placement="chunked"), None),
     (dict(algorithm="scaffold", client_opt="sgd"), None),
     (dict(algorithm="mime"), None),
-    (dict(algorithm="fedlora", payload_codec="lowrank"), 9),
+    (dict(algorithm="fedlora", payload_codec="lowrank"), None),
     (dict(prefetch_rounds=2), None), (dict(dropout_rate=0.1), None),
     (dict(availability="diurnal"), None), (dict(qffl_q=1.0), None),
     (dict(client_state_placement="device"), None),
@@ -287,11 +296,11 @@ KNOBS = [
                          ids=lambda kw: repr(kw)[:60])
 def test_fedconfig_refuses_unported_knobs(kw):
     """The port refuses what it cannot run, naming the item that ports it,
-    and builds the rest."""
-    JaxFedConfig(**kw)                       # valid in the reference
+    and builds the rest with the reference's field values."""
+    want = dataclasses.asdict(JaxFedConfig(**kw))   # valid in the reference
     item = dict((repr(k), i) for k, i in KNOBS)[repr(kw)]
     if item is None:
-        FedConfig(**kw)
+        assert dataclasses.asdict(FedConfig(**kw)) == want
         return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, item {item}"):

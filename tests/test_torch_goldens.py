@@ -33,9 +33,9 @@ from repro_torch.core.server import init_server_state
 from repro_torch.examples import quickstart
 from repro_torch.optim import get_optimizer
 
-#: The stateless specs of the golden matrix (fedlora waits for ROADMAP.md
-#: queue 1, item 9; the async-only straggler spec is in
-#: ``test_torch_async.py``).
+#: The stateless specs of the golden matrix (the async-only straggler spec
+#: is in ``test_torch_async.py``, fedlora's goldens in
+#: ``test_torch_fedlora.py``).
 STATELESS = ("fedavg", "fedavg_weighted", "fedavg_dropout", "fedpa",
              "fedpa_stream", "fedprox", "mime", "fedpa_precision")
 #: The stateful specs: the host store and the device store (``_dev``).

@@ -14,12 +14,18 @@ entry's size). A round on the card against the same round on the CPU:
 1e-4 relative, 1e-5 absolute (fp32 least squares, 12 local steps); the
 stateful CNN rounds and their client stores, 1e-3 relative, 1e-4
 absolute (``chip_smoke.py`` phase 4's bound). The device store's CAS on
-the card equals the host store's exactly.
+the card equals the host store's exactly. The codecs: the low-rank basis
+on the card equals the CPU's bit for bit (it is built on the host), the
+sketch's matmuls 1e-5 relative, int8 ``q`` equal but where ``x / scale``
+lies within 1e-5 of a half quantum (at most one flip), the scales per
+client; FedLoRA's ``lowrank`` rounds on the card as the stateful rounds
+above.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.compression import build_codec
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tree_math as tm
 from repro_torch.core.round import FedSim
@@ -548,3 +554,135 @@ def test_stateful_cnn_rounds_on_the_card_equal_the_cpu(algorithm, place,
     for a, b in zip(tm.tleaves(card_store["buffers"]),
                     tm.tleaves(cpu_store["buffers"])):
         np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
+
+
+def _codec_stack(device, C=4):
+    """A stack of C clients' trees at fedlm-100m's sketched widths, client
+    c scaled by 10^c, and its unstacked template."""
+    g = torch.Generator().manual_seed(7)
+    shapes = {"wq": (768, 768), "w_up": (768, 2048), "w_down": (2048, 768),
+              "k_scale": (64,), "embed": (512, 768)}
+    scale = 10.0 ** torch.arange(C, dtype=torch.float32)
+    tree = {k: (torch.randn(C, *s, generator=g)
+                * scale.reshape(-1, *([1] * len(s)))).to(device)
+            for k, s in shapes.items()}
+    return tree, {k: v[0] for k, v in tree.items()}
+
+
+def _flips(q_card, x_card, q_cpu, scale_card) -> int:
+    """int8 ``q`` from the card: the rounding of the card's own ``x /
+    scale`` but within 1e-5 of a half quantum, and within one of the CPU's
+    ``q`` (a flip, where the card's and the CPU's factors straddle a half
+    quantum). Returns the flips."""
+    q_card, x_card, s = q_card.cpu(), x_card.cpu(), scale_card.cpu()
+    t = x_card / s.reshape(s.shape + (1,) * (x_card.dim() - s.dim()))
+    near = ((t - torch.round(t)).abs() - 0.5).abs() <= 1e-5
+    mine = torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+    assert not ((mine != q_card) & ~near).any()
+    diff = (q_card.long() - q_cpu.long()).abs()
+    assert diff.max() <= 1
+    return int(diff.sum())
+
+
+@pytest.mark.gpu
+def test_codec_on_the_card_equals_the_cpu_and_never_syncs(record_property):
+    """lowrank+int8 at rank 4 on a stack of 4 clients: the card's bases
+    equal the CPU's bit for bit; the factors, the decode and the projected
+    precision 1e-5 relative; q the rounding of the card's own factors,
+    within one of the CPU's (flips recorded); with the round's bases
+    cached, encode, decode and dequantize raise nothing under
+    ``set_sync_debug_mode("error")``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fed = FedConfig(algorithm="fedlora", payload_codec="lowrank+int8",
+                    lora_rank=4)
+    codec = {d: build_codec(fed) for d in ("cuda", "cpu")}
+    (x, like), (xc, likec) = _codec_stack("cuda"), _codec_stack("cpu")
+    prec = tm.tmap(lambda a: a.abs() + 0.5, x)
+    wire = codec["cuda"].encode(x, 3, like)
+    want = codec["cpu"].encode(xc, 3, likec)
+    lr = codec["cuda"].stages[0].encode(x, 3, like)
+    lr_cpu = codec["cpu"].stages[0].encode(xc, 3, likec)
+    flips = 0
+    for k in x:
+        torch.testing.assert_close(lr[k].cpu(), lr_cpu[k], rtol=1e-5,
+                                   atol=1e-5 * float(lr_cpu[k].abs().max()))
+        torch.testing.assert_close(wire[k]["scale"].cpu(),
+                                   want[k]["scale"], rtol=1e-5, atol=0)
+        assert wire[k]["scale"].shape == (4,)
+        flips += _flips(wire[k]["q"], lr[k], want[k]["q"], wire[k]["scale"])
+    record_property("flips", flips)
+    for key, (basis, _) in codec["cuda"].stages[0]._cache[3].items():
+        leaf, last_dim, _ = key
+        assert torch.equal(basis.cpu(), codec["cpu"].stages[0]._basis(
+            last_dim, 3, leaf, "cpu"))
+    want_cuda = tm.tmap(lambda a: a.cuda(), want)
+    dec = codec["cuda"].decode(want_cuda, 3, like)
+    dec_cpu = codec["cpu"].decode(want, 3, likec)
+    for k in x:
+        torch.testing.assert_close(dec[k].cpu(), dec_cpu[k], rtol=1e-5,
+                                   atol=1e-5 * float(dec_cpu[k].abs().max()))
+    p = codec["cuda"].project_precision(prec, 3, like)
+    p_cpu = codec["cpu"].project_precision(tm.tmap(lambda a: a.abs() + 0.5,
+                                                   xc), 3, likec)
+    for k in x:
+        torch.testing.assert_close(p[k].cpu(), p_cpu[k], rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wire = codec["cuda"].encode(x, 3, like)
+        codec["cuda"].decode(wire, 3, like)
+        codec["cuda"].to_accum(want_cuda)
+        codec["cuda"].encode_aux(codec["cuda"].project_precision(
+            prec, 3, like), 3, like)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.gpu
+def test_fedlora_rounds_on_the_card_equal_the_cpu():
+    """FedLoRA (lowrank at rank 2, error feedback, one burn-in round) on
+    federated least squares with a (6, 8) weight, 4 rounds on the card and
+    on the CPU: params and residuals 1e-4 relative, 1e-5 absolute; 3
+    FedLoRA rounds x (l - 1) = 3 DP launches of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, data = make_federated_lsq(4, 50, 6, heterogeneity=2.0, seed=0)
+
+    def batch_fn(cid, r, steps):
+        X, y = data[cid]
+        b = lsq_batches(X, y, 10, steps, seed=r * 131 + cid)
+        return {"x": b["x"], "y": np.repeat(b["y"][..., None], 8, -1)}
+
+    def loss(p, batch):
+        r = batch["x"] @ p["w"] - batch["y"]
+        return 0.5 * (r * r).mean()
+
+    gv = torch.func.grad_and_value(loss)
+    fed = FedConfig(algorithm="fedlora", payload_codec="lowrank",
+                    lora_rank=2, clients_per_round=4, local_steps=6,
+                    burn_in_steps=2, steps_per_sample=2, shrinkage_rho=0.5,
+                    burn_in_rounds=1, server_opt="sgd", server_lr=0.1,
+                    client_opt="sgd", client_lr=0.01)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            sim = FedSim(fed, lambda p, b: tuple(reversed(gv(p, b))),
+                         batch_fn, num_clients=4, device=device)
+            fedpa_dp.reset_launches()
+            state, _ = sim.run({"w": torch.zeros(6, 8)}, 4)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert fedpa_dp.launches == {"dp_reduce": 3, "dp_map": 3}
+            out[device] = (state, sim.client_store.state_dict())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (card, card_store), (cpu, cpu_store) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(card.params["w"].cpu(), cpu.params["w"],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(card_store["stamps"], cpu_store["stamps"])
+    np.testing.assert_allclose(card_store["buffers"]["w"],
+                               cpu_store["buffers"]["w"], rtol=1e-4,
+                               atol=1e-5)

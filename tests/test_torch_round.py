@@ -166,7 +166,9 @@ def test_port_imports_neither_jax_nor_repro():
             "core/shrinkage.py", "core/posterior.py", "core/client.py",
             "optim/schedules.py", "algorithms/fedprox.py",
             "algorithms/mime.py", "algorithms/fedpa_precision.py",
-            "examples/quickstart.py"} <= names
+            "examples/quickstart.py", "algorithms/fedlora.py",
+            "compression/threefry.py", "compression/lowrank.py",
+            "compression/quant.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -2,10 +2,11 @@
 example on the CPU at smoke size: the records carry exactly the JAX
 entry point's keys, the phase flips from the burn-in to FedPA, the losses are
 finite, the per-client state flags run and ``--ckpt-dir`` resumes,
-``--async-rounds`` runs give the JAX entry point's records, prefetching
-changes no number, and each flag whose path is not ported is refused with
-the ROADMAP.md item that ports it, while the JAX package's ``parse_args``
-accepts it.
+``--async-rounds`` runs give the JAX entry point's records (FedLoRA's
+``lowrank`` sketch among them), prefetching changes no number, the codec
+flags parse as the JAX entry point parses them, and each flag whose path
+is not ported is refused with the ROADMAP.md item that ports it, while
+the JAX package's ``parse_args`` accepts it.
 
 Every run here builds its cohorts inline or on the thread prefetcher
 (``--prefetch-backend thread``): no test process starts a child
@@ -17,6 +18,7 @@ fp32 compute from the same numpy weights: losses to 1e-4 relative (eight
 local sgdm steps through two layers and the DP, summed in another order;
 ``tests/test_torch_lm_train.py`` holds one round's params to 1e-5).
 """
+import dataclasses
 import functools
 import json
 import math
@@ -99,6 +101,8 @@ STATEFUL = [
     (["--algorithm", "scaffold", "--client-opt", "sgd"], "scaffold"),
     (["--algorithm", "fedep", "--client-state-placement", "device"],
      "fedep"),
+    (["--algorithm", "fedlora", "--payload-codec", "lowrank+int8"],
+     "fedlora"),
 ]
 
 
@@ -144,8 +148,6 @@ REFUSED = [
     (["--coordinator", "localhost:1234"], 10),
     (["--num-processes", "2"], 10), (["--process-id", "0"], 10),
     (["--shard-population"], 10),
-    (["--payload-codec", "int8"], 9),
-    (["--algorithm", "fedlora", "--payload-codec", "lowrank"], 9),
 ]
 
 
@@ -157,6 +159,35 @@ def test_unported_flags_are_refused(flags, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, item {item}"):
         train.main(SMOKE + ["--rounds", "1"] + flags)
+
+
+#: The codec flags, which the port runs since ROADMAP.md queue 1, item 9.
+CODEC_FLAGS = [
+    ["--payload-codec", "int8"],
+    ["--algorithm", "fedlora", "--payload-codec", "lowrank"],
+    ["--algorithm", "fedlora", "--payload-codec", "lowrank+int8",
+     "--lora-rank", "2", "--quant-bits", "16", "--no-error-feedback"],
+]
+
+
+@pytest.mark.parametrize("flags", CODEC_FLAGS, ids=lambda v: " ".join(v))
+def test_codec_flags_parse_like_jax(flags):
+    """The flags parse to the JAX entry point's values (the port adds only
+    ``--device``), and the configs they build agree: fedlora's constructs,
+    a codec on FedPA raises ValueError in both packages."""
+    got = vars(train.parse_args(flags))
+    want = vars(jax_train.parse_args(flags))
+    assert got.pop("device") is None and got == want
+    args = train.parse_args(flags)
+    if args.algorithm == "fedlora":
+        assert dataclasses.asdict(train.build_fed(args)) == \
+            dataclasses.asdict(jax_train.build_fed(jax_train.parse_args(
+                flags)))
+        return
+    for build, parse in ((train.build_fed, train.parse_args),
+                         (jax_train.build_fed, jax_train.parse_args)):
+        with pytest.raises(ValueError, match="payload_codec"):
+            build(parse(flags))
 
 
 def test_prefetch_default_and_device_guard(monkeypatch):
@@ -198,13 +229,18 @@ def _jax_train_records(argv, monkeypatch, capsys):
     return [json.loads(line) for line in lines[1:]]
 
 
-#: Async runs against the JAX entry point: FedPA with a window of 3, and
-#: FedEP on the device store with a window of 2 and stragglers.
+#: Async runs against the JAX entry point: FedPA with a window of 3,
+#: FedEP on the device store with a window of 2 and stragglers, and
+#: FedLoRA's ``lowrank`` sketch (continuous; ``lowrank+int8`` could flip a
+#: quantization step) with a window of 3 on the LM tree, whose leaves the
+#: two packages flatten in different orders.
 ASYNC = [
     ["--async-rounds", "--max-staleness", "2", "--rounds", "4"],
     ["--async-rounds", "--algorithm", "fedep", "--client-state-placement",
      "device", "--num-clients", "3", "--straggler-rate", "0.5",
      "--rounds", "4"],
+    ["--async-rounds", "--max-staleness", "2", "--algorithm", "fedlora",
+     "--payload-codec", "lowrank", "--lora-rank", "2", "--rounds", "4"],
 ]
 
 
