@@ -127,7 +127,7 @@
    under deterministic algorithms) and the device store on the CPU
    (phase 4's bound). (d) The CNN cell with the goldens' straggler spec
    (FedAvg, rate 0.5, lateness <= 2, window 3) and FedPA at window 3,
-   card and CPU: ``staleness`` / ``straggled`` equal the CPU's and the
+   card (cuDNN's deterministic algorithms) and CPU: ``staleness`` / ``straggled`` equal the CPU's and the
    draws, params within phase 4's bound, FedPA's DP launches 16 each; the
    card run's cohort builds' host ms.
 12. FedLoRA and the payload codecs. (a) At fedlm-100m's leaf shapes, a
@@ -150,6 +150,33 @@
    ``lowrank+int8`` as a report (largest differences, int8 flips between
    the runs), and ``lowrank`` at window 3 (staleness equal, within the
    bound).
+13. Serving the rest of the LM stack on the card, bf16, each model freed
+   before the next. (a) ``launch/serve.py``'s ``main`` on the full
+   48-layer qwen3-moe-30b-a3b (128 experts, top-8, one-hot routing),
+   batch 4, prompt 1024, 32 tokens; (b) on the full 38-layer
+   recurrentgemma-9b (26 RG-LRU, 12 local attention layers at window
+   2048), batch 4, prompt 3072 (the ring wraps in prefill), 32 tokens;
+   (c) at batch 4, prompt 512, 16 tokens: internvl2-26b (256 vision
+   frontend tokens), minitron-4b, musicgen-medium (64 audio frontend
+   tokens), xlstm-125m, granite-34b cut from 88 to 40 repeats and
+   llama4-scout-17b-a16e cut from 12 to 2 repeats (both too large for
+   one card at full depth). Each prints prefill ms, warm decode ms per
+   step beside the decode bound (every weight and the decode state read
+   once per step over the HBM rate), tokens/s and the peak memory;
+   ``swa_decode`` must have been launched (tokens - 1) x attention layers
+   times (48 x 31, 12 x 31, 0 for xlstm-125m), and the decode replayed
+   through the plain route from a copy of the prefill state must keep
+   its logits within phase 7's bound, with greedy tokens equal wherever
+   the kernel route's top two logits are further apart than twice the
+   difference. (a) and (b) also profile their prefill and one decode step
+   (device time, idle share, top kernels). (d) One-layer fp32 cuts at full
+   width, card against the CPU from the same weights, prefill then 4
+   decode steps within phase 4's bound: the MoE under ``onehot`` and
+   ``sort`` routing, RG-LRU, mLSTM + sLSTM (two 256-token chunks) and
+   musicgen's frontend; and the MoE layer at capacity factor 0.25 under
+   both routings, whose kept (token, expert) pairs must be equal.
+   (e) Phase 5's checks at the new archs' decode shapes (in
+   ``SWA_CASES``).
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -272,6 +299,24 @@ FEDLM_DOWN, FEDLM_DENSE = 402_736_132, 402_736_128
 
 # the serving path (gemma3-27b at full width): batch, prompt, generated
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 64
+# phase 13: the other architectures served at full width, bf16: (arch,
+# prompt, generated tokens, repeats cut to or None); the first two
+# profiled
+SERVE_ARCHS = (
+    ("qwen3-moe-30b-a3b", 1024, 32, None),
+    ("recurrentgemma-9b", 3072, 32, None),
+    ("internvl2-26b", 512, 16, None),
+    ("minitron-4b", 512, 16, None),
+    ("musicgen-medium", 512, 16, None),
+    ("xlstm-125m", 512, 16, None),
+    ("granite-34b", 512, 16, 40),
+    ("llama4-scout-17b-a16e", 512, 16, 2),
+)
+PROFILED = ("qwen3-moe-30b-a3b", "recurrentgemma-9b")
+# ... and the one-layer fp32 cuts, card vs CPU: (name, arch, config
+# changes, batch, prompt); the prompt of a frontend arch includes its
+# frontend tokens
+CUT_STEPS = 4
 # the fp32 wiring check: prompt and decode steps
 WIRE_PROMPT, WIRE_STEPS = 1100, 8
 L2_BYTES = 50 * 2**20      # H100 L2; timed inputs rotate through 3x this
@@ -678,8 +723,19 @@ SWA_CASES = [
     ("widest", 2, 32, 2, 256, 700, 300, 699, "linear"),
     ("masked-head", 4, 32, 16, 128, 1344, 0, 1343, "masked-head"),
     ("all-masked", 4, 32, 16, 128, 1344, 0, 1343, "empty"),
+    # phase 13's decode shapes: the cache of a 512-token prompt plus 16
+    # tokens, of qwen3-moe's 1024 + 32, recurrentgemma's ring of 2048
+    # (prompt 3072 + 32) and llama4-scout's chunked-local ring of 8192
+    ("qwen3-moe", 4, 32, 4, 128, 1056, 0, 1054, "linear"),
+    ("granite", 4, 48, 1, 128, 528, 0, 526, "linear"),
+    ("minitron", 4, 24, 8, 128, 528, 0, 526, "linear"),
+    ("internvl2", 4, 48, 8, 128, 528, 0, 526, "linear"),
+    ("musicgen", 4, 24, 24, 64, 528, 0, 526, "linear"),
+    ("recurrentgemma", 4, 16, 1, 256, 2048, 2048, 3102, "ring"),
+    ("llama4", 4, 40, 8, 128, 8192, 8192, 9000, "ring"),
 ]
-SERVING = ("local", "global", "qwen3")
+SERVING = ("local", "global", "qwen3", "qwen3-moe", "granite", "minitron",
+           "internvl2", "musicgen", "recurrentgemma", "llama4")
 
 
 def device_ms_in_turns(kernel, library, iters: int = 20):
@@ -1101,6 +1157,334 @@ def serve_path(seed: int) -> int:
     if not err <= bound:
         fail(f"serve: kernel vs plain logits differ by {err} > {bound}")
     return launches
+
+
+def state_bytes(state) -> int:
+    """Bytes held by a decode state's caches."""
+    return sum(nbytes(*c) for caches in (state.pattern, state.tail)
+               for c in caches.values())
+
+
+def moe_prefill_flops(cfg, tokens: int) -> float:
+    """FLOPs of the one-hot route's dispatch and combine einsums over a
+    prompt of ``tokens`` tokens: 2 T E C d each, per chunk and MoE layer."""
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    chunk = min(m.chunk_tokens, tokens)
+    n_moe = sum(s.ffn == "moe" for s in cfg.layers())
+    C = moe.capacity(m, chunk)
+    return n_moe * -(-tokens // chunk) * 2 * (2 * chunk * m.num_experts * C
+                                             * cfg.d_model)
+
+
+def profile_prefill(res, cfg, prefill_ms: float) -> None:
+    """Where a prefill's time goes: ``torch.profiler`` over one more
+    prefill of the same prompt; device time against the unprofiled
+    prefill ``prefill_ms``, and the kernels that take the most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.steps import prefill_step
+
+    S = res["prompts"].shape[1]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill_step(res["params"], res["prompts"], cfg,
+                     res["prefill_state"].pos + 1, frontend=res["frontend"],
+                     compute_dtype=torch.bfloat16, q_chunk=min(32, S))
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if dev_ms <= 0:
+        print("prefill profile: the profiler saw no device time (not "
+              "measured)")
+        return
+    print(f"prefill profile: {sum(e.count for e in events)} kernels, device "
+          f"time {dev_ms:.1f} ms, {dev_ms / prefill_ms:.3f} of the "
+          f"unprofiled prefill ({prefill_ms:.1f} ms); device idle share "
+          f"{max(0.0, 1 - dev_ms / prefill_ms):.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} "
+              f"calls  {e.key[:90]}")
+
+
+def serve_arch(card: str, arch: str, prompt: int, gen: int, repeats,
+               seed: int) -> int:
+    """Phase 13a-c: ``launch/serve.py``'s ``main`` on ``arch`` at full
+    width (its repeats cut to ``repeats`` if given), then the plain-route
+    replay; returns the kernel's launches on the serve."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch import serve
+
+    cfg = configs.get_config(arch)
+    cut = ""
+    if repeats is not None:
+        cut = f" (repeats cut from {cfg.repeats} to {repeats})"
+        cfg = configs.replace(cfg, repeats=repeats)
+    argv = ["--arch", arch, "--full", "--batch", str(SERVE_B),
+            "--prompt-len", str(prompt), "--gen", str(gen), "--seed",
+            str(seed)]
+    fedpa_dp.reset_launches()
+    swa.reset_launches()
+    res = serve.main(argv, cfg=cfg, keep_prefill_state=True)
+    launches = swa.launches["swa_decode"]
+    dec, steps = res["decode"], gen - 1
+    n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
+    rate = hbm_rate(card)
+    weights = 2 * cfg.param_count()
+    state = state_bytes(res["prefill_state"])
+    bound_ms = (weights + state) / rate * 1e3
+    front = (f", {cfg.frontend_tokens} {cfg.frontend} frontend tokens"
+             if cfg.frontend else "")
+    print(f"serve {cfg.name}{cut}: {cfg.num_layers} layers ({n_attn} "
+          f"attention), d_model {cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}, vocab {cfg.vocab_size}, params "
+          f"{cfg.param_count():,} bf16 ({weights / 2**30:.2f} GiB); batch "
+          f"{SERVE_B}, prompt {prompt}{front}, {steps} decode steps: "
+          f"prefill {res['prefill_ms']:.1f} ms, decode "
+          f"{res['decode_ms']:.3f} ms per step (warm; bound "
+          f"{bound_ms:.3f} ms: weights and {state / 2**30:.3f} GiB of decode "
+          f"state over {rate / 1e12:.2f} TB/s), {res['tokens_per_s']:.1f} "
+          f"tokens/s, peak memory {res['peak_bytes'] / 2**30:.2f} GiB; "
+          f"swa_decode launches {launches} (expected {steps * n_attn})",
+          flush=True)
+    if launches != steps * n_attn:
+        fail(f"{arch}: swa_decode launched {launches} times, expected "
+             f"{steps * n_attn}")
+    if any(fedpa_dp.launches.values()):
+        fail(f"{arch}: DP kernels launched while serving")
+    if cfg.moe.enabled and cfg.moe.routing == "onehot":
+        T = SERVE_B * prompt
+        flops = moe_prefill_flops(cfg, T)
+        peak_ms = flops / BF16_PEAK * 1e3
+        print(f"  one-hot MoE: dispatch and combine einsums "
+              f"{flops / 1e12:.1f} TFLOP over the prompt ({peak_ms:.1f} ms "
+              f"at the bf16 peak); every decode step multiplies all "
+              f"{cfg.moe.num_experts} experts' weights", flush=True)
+    if arch in PROFILED:
+        profile_prefill(res, cfg, res["prefill_ms"])
+        profile_decode(res, cfg, res["decode_ms"], steps=1)
+
+    kern_logits, same, flips = dec["logits"], None, []
+    if cfg.moe.enabled:
+        # the routing is discontinuous: a router choice that falls the
+        # other way moves the logits by far more than the attention's
+        # rounding, so the plain replay is forced onto the experts a
+        # recorded kernel replay chose (as its tokens are forced), and
+        # the choices it would have made otherwise are counted
+        from repro_torch.models.model import clone_state
+
+        chosen = []
+        swa.reset_launches()
+        with routed(record=chosen):
+            kern = serve.decode(res["params"], res["tok"],
+                                clone_state(res["prefill_state"]), cfg,
+                                steps, use_kernel=True, forced=dec["tokens"])
+        if swa.launches["swa_decode"] != steps * n_attn:
+            fail(f"{arch}: the recorded kernel replay launched "
+                 f"{swa.launches['swa_decode']} times")
+        same = all(torch.equal(a, b) for a, b in zip(kern["logits"],
+                                                     kern_logits))
+        kern_logits = kern["logits"]
+        swa.reset_launches()
+        with routed(force=chosen, flips=flips):
+            plain = serve.decode(res["params"], res["tok"],
+                                 res["prefill_state"], cfg, steps,
+                                 use_kernel=False, forced=dec["tokens"])
+    else:
+        swa.reset_launches()
+        plain = serve.decode(res["params"], res["tok"], res["prefill_state"],
+                             cfg, steps, use_kernel=False,
+                             forced=dec["tokens"])
+    if swa.launches["swa_decode"] != 0:
+        fail(f"{arch}: plain route launched swa_decode")
+    V = cfg.vocab_size
+    kern = torch.stack([a[:, :V] for a in kern_logits])       # (steps, B, V)
+    err = max((a - b[:, :V]).abs().max().item()
+              for a, b in zip(kern, plain["logits"]))
+    top = kern.abs().max().item()
+    bound = (cfg.num_layers + 1) * 2.0 ** -8 * top
+    two = kern.topk(2, dim=-1).values
+    margin = two[..., 0] - two[..., 1]
+    differ = plain["tokens"][:, 1:].T != dec["tokens"][:, 1:].T
+    clear = differ & (margin > 2 * err)
+    moe_note = ""
+    if cfg.moe.enabled:
+        moe_note = (f"; experts forced to the kernel replay's choices, the "
+                    f"plain route's own top-{cfg.moe.top_k} differing at "
+                    f"{int(torch.stack(flips).sum())} of "
+                    f"{sum(f.numel() for f in flips)} (step, layer, "
+                    f"request) choices; the recorded kernel replay equals "
+                    f"the serve bit for bit: {same}")
+    print(f"  replay through the plain route (0 launches): max logit diff "
+          f"{err:.4g} (bound {bound:.4g} = ({cfg.num_layers} + 1) x 2^-8 x "
+          f"max |logit| {top:.4g}); greedy tokens differ at "
+          f"{int(differ.sum())} of {differ.numel()} (step, request) pairs, "
+          f"{int(clear.sum())} of them with a top-two margin above twice "
+          f"the diff{moe_note}", flush=True)
+    if not err <= bound:
+        fail(f"{arch}: kernel vs plain logits differ by {err} > {bound}")
+    if clear.any():
+        fail(f"{arch}: greedy tokens differ where the margin is clear")
+    return launches
+
+
+@contextlib.contextmanager
+def routed(record=None, force=None, flips=None):
+    """While the block runs, append the router's top-k expert indices of
+    every MoE call to ``record`` (device tensors, in call order), or
+    replace them, call by call, with those of ``force`` (their gates read
+    from the router's own probabilities), appending to ``flips`` where
+    the router's own choice differed."""
+    import torch
+
+    from repro_torch.models import moe
+
+    real = moe._top_k
+    forced = iter(force) if force is not None else None
+
+    def top_k(probs, k):
+        vals, idx = real(probs, k)
+        if record is not None:
+            record.append(idx)
+        if forced is not None:
+            want = next(forced)
+            flips.append((idx.sort(-1).values != want.sort(-1).values)
+                         .any(-1))
+            idx, vals = want, torch.gather(probs, -1, want)
+        return vals, idx
+
+    moe._top_k = top_k
+    try:
+        yield
+    finally:
+        moe._top_k = real
+
+
+def cut_runs(seed: int) -> None:
+    """Phase 13d: one-layer fp32 cuts at full width, card against CPU."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import tree_math as tm
+    from repro_torch.launch import serve
+    from repro_torch.models import model, moe
+
+    LS = configs.LayerSpec
+    moe_cfg = configs.replace(configs.get_config("qwen3-moe-30b-a3b"),
+                              repeats=1)
+    cuts = (
+        ("moe onehot", moe_cfg, 2, 64),
+        ("moe sort", configs.replace(moe_cfg, moe=configs.replace(
+            moe_cfg.moe, routing="sort")), 2, 64),
+        ("rglru", configs.replace(configs.get_config("recurrentgemma-9b"),
+                                  pattern=(LS(mixer="rglru"),), repeats=1,
+                                  tail=()), 2, 64),
+        ("mlstm+slstm", configs.replace(configs.get_config("xlstm-125m"),
+                                        repeats=1), 2, 512),
+        ("frontend", configs.replace(configs.get_config("musicgen-medium"),
+                                     repeats=1), 2, 96),
+    )
+    f32 = torch.float32
+    params = None
+    for name, cfg, B, prompt in cuts:
+        t0 = time.perf_counter()
+        if params is None or not name.startswith("moe sort"):
+            params = model.init_params(
+                torch.Generator().manual_seed(seed), cfg, f32, device="cpu")
+        F = cfg.frontend_tokens if cfg.frontend else 0
+        tokens = torch.from_numpy(serve.make_prompts(cfg, B, prompt - F,
+                                                     seed))
+        front = serve.make_frontend(cfg, B, seed)
+        forced = torch.from_numpy(serve.make_prompts(cfg, B, CUT_STEPS + 1,
+                                                     seed + 1))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = tm.tmap(lambda t: t.to(dev), params)
+            logits, state = model.prefill(
+                p, tokens.to(dev), cfg, prompt + CUT_STEPS,
+                frontend=None if front is None else
+                torch.from_numpy(front).to(dev), compute_dtype=f32,
+                q_chunk=32, cache_dtype=f32)
+            got = [logits.cpu()]
+            for i in range(CUT_STEPS):
+                logits, state = model.decode_step(
+                    p, forced[:, i].to(dev), state, cfg, compute_dtype=f32,
+                    use_kernel=True)
+                got.append(logits.cpu())
+            out[dev] = got
+            del p, state
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(out["cuda"], out["cpu"]))
+        print(f"fp32 one-layer {name} ({cfg.name}, {cfg.layers()[0].mixer}/"
+              f"{cfg.layers()[0].ffn}, batch {B}, prompt {prompt}, "
+              f"{CUT_STEPS} decode steps), card vs CPU: max logit diff "
+              f"{err:.3g} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        for a, b in zip(out["cuda"], out["cpu"]):
+            if not torch.allclose(a, b, rtol=1e-3, atol=1e-4):
+                fail(f"one-layer {name}: card vs CPU logits differ ({err})")
+        if name == "moe sort":
+            overflow_check(cfg, params["pattern"]["pos_0"], seed)
+        torch.cuda.empty_cache()
+
+
+def overflow_check(cfg, layer, seed: int) -> None:
+    """Phase 13d, part 2: the full-width MoE layer at capacity factor 0.25
+    on 256 tokens under both routings, card against CPU: the kept
+    (token, expert) pairs equal, outputs within phase 4's bound."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    x = torch.randn(256, cfg.d_model,
+                    generator=torch.Generator().manual_seed(seed + 2))
+    p_cpu = {k: v[0] for k, v in layer["ffn"]["moe"].items()}
+    p_card = {k: v.cuda() for k, v in p_cpu.items()}
+    for routing in ("onehot", "sort"):
+        m = configs.replace(cfg.moe, routing=routing, capacity_factor=0.25)
+        route = moe._route_chunk_sort if routing == "sort" \
+            else moe._route_chunk
+        kept = [moe.kept_assignments(x.to(dev), p, m).cpu()
+                for dev, p in (("cuda", p_card), ("cpu", p_cpu))]
+        ys = [route(x.to(dev), p, m)[0].cpu()
+              for dev, p in (("cuda", p_card), ("cpu", p_cpu))]
+        C = moe.capacity(m, 256)
+        err = (ys[0] - ys[1]).abs().max().item()
+        print(f"  moe overflow {routing} (capacity {C} of 256 x "
+              f"{m.top_k} / {m.num_experts}): kept pairs "
+              f"{int(kept[0].sum())} of {256 * m.top_k}, card == CPU "
+              f"{torch.equal(kept[0], kept[1])}; max abs diff {err:.3g}",
+              flush=True)
+        if not torch.equal(kept[0], kept[1]):
+            fail(f"moe overflow {routing}: the kept pairs differ")
+        if not int(kept[0].sum()) < 256 * m.top_k:
+            fail(f"moe overflow {routing}: nothing was dropped")
+        if not torch.allclose(ys[0], ys[1], rtol=1e-3, atol=1e-4):
+            fail(f"moe overflow {routing}: card vs CPU differ ({err})")
+
+
+def serve_rest(card: str, seed: int) -> dict:
+    """Phase 13: every other architecture served on the card, then the
+    one-layer cuts; returns each serve's ``swa_decode`` launches."""
+    import gc
+
+    import torch
+
+    by_arch = {}
+    for arch, prompt, gen, repeats in SERVE_ARCHS:
+        by_arch[f"{arch} serve"] = serve_arch(card, arch, prompt, gen,
+                                              repeats, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    cut_runs(seed)
+    return by_arch
 
 
 def train_round_bound_ms(cfg, args, rate: float, fedep: bool = False):
@@ -2152,7 +2536,12 @@ def async_cnn_rounds(params, seed: int) -> dict:
     goldens' straggler spec and FedPA at their async2 window, each on the
     card and the CPU: ``straggled`` / ``staleness`` equal the CPU run's and
     the draws, params within phase 4's bound, FedPA's DP launches the
-    synchronous count. Returns each run's DP launches."""
+    synchronous count. Returns each run's DP launches.
+
+    The card runs with cuDNN's deterministic algorithms: with the default
+    ones the stragglers run's card params vary from run to run, and in
+    about one run of three (on an H100) land 1.72e-4 from the CPU's
+    instead of ~4e-5."""
     import torch
 
     from repro_torch.kernels import fedpa_dp
@@ -2164,7 +2553,8 @@ def async_cnn_rounds(params, seed: int) -> dict:
         for device in ("cuda", "cpu"):
             sim = make_sim(device, seed, False, **over)
             fedpa_dp.reset_launches()
-            with time_builds(builds if device == "cuda" else []):
+            with time_builds(builds if device == "cuda" else []), \
+                    deterministic(device == "cuda"):
                 t0 = time.perf_counter()
                 state, hist = sim.run(params, ASYNC_ROUNDS)
                 if device == "cuda":
@@ -2526,7 +2916,7 @@ def fedlora_rounds(card: str, seed: int) -> dict:
 
 
 def main() -> int:
-    """Run the twelve phases; returns the exit code."""
+    """Run the thirteen phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2676,6 +3066,12 @@ def main() -> int:
     # -- phase 12: FedLoRA and the codecs -----------------------------------
     by_run.update(fedlora_rounds(card, args.seed))
     done(12)
+    torch.cuda.empty_cache()
+
+    # -- phase 13: serving the rest of the LM stack --------------------------
+    swa_by_run = {"gemma3-27b serve (phase 7)": launches["swa_decode"]}
+    swa_by_run.update(serve_rest(card, args.seed))
+    done(13)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
@@ -2686,9 +3082,9 @@ def main() -> int:
                                                "library_device_ms",
                                                "host_ms", "by_stack")
                        if key in r},
-                    **({"launches_by_path": {run: n[name] for run, n in
-                                             by_run.items()}}
-                       if name in ("dp_reduce", "dp_map") else {}))
+                    launches_by_path=(swa_by_run if name == "swa_decode"
+                                      else {run: n[name] for run, n in
+                                            by_run.items()}))
                for name, r in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

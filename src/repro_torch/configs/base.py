@@ -2,11 +2,11 @@
 the LM's ``LayerSpec``, ``MoEConfig`` and ``ModelConfig``.
 
 Same field names, defaults and eager validation as the JAX package, so the
-two accept and reject the same keyword arguments. Knobs and architectures
-whose code paths are not ported yet raise ``NotImplementedError`` at
-construction, naming the ``ROADMAP.md`` item (queue 1) that will port them;
-they are never silently ignored. ``ShapeConfig`` and ``MeshConfig`` are not
-ported.
+two accept and reject the same keyword arguments; every mixer, FFN and
+frontend of the JAX package builds. Paths that are not ported yet raise
+``NotImplementedError`` where they are asked for, naming the ``ROADMAP.md``
+item (queue 1) that will port them (``_not_ported``); they are never
+silently ignored. ``ShapeConfig`` and ``MeshConfig`` are not ported.
 """
 from __future__ import annotations
 
@@ -24,13 +24,12 @@ from repro_torch.optim import get_optimizer
 #: Client-state placements the JAX engine knows (``core.client_state.STORES``).
 STATE_PLACEMENTS = ("host", "device")
 
-#: Mixer kinds the JAX model code understands, and those ported here.
+#: Mixer kinds the pattern decoder understands.
 MIXERS = ("attn", "swa", "mlstm", "slstm", "rglru")
-PORTED_MIXERS = ("attn", "swa")
-#: FFN kinds, and those ported here.
+#: FFN kinds.
 FFNS = ("dense", "moe", "none")
-PORTED_FFNS = ("dense", "none")
-#: ROADMAP.md queue-1 item that ports the rest of the LM stack.
+#: ROADMAP.md queue-1 item that ports the rest of the LM stack (its
+#: training: the new mixers, the MoE and the frontends under vmap(grad)).
 LM_ITEM = 11
 
 
@@ -60,8 +59,8 @@ class LayerSpec:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts FFN configuration (fields of the JAX package; the
-    MoE FFN itself is not ported)."""
+    """Mixture-of-experts FFN configuration (GShard-style one-hot dispatch,
+    or sort-based routing with ``routing="sort"``)."""
 
     num_experts: int = 0
     top_k: int = 1
@@ -86,8 +85,7 @@ def _round_up(x: int, m: int) -> int:
 class ModelConfig:
     """Architecture description for the pattern decoder: ``pattern`` of
     layers repeated ``repeats`` times, then ``tail``. Fields as in the JAX
-    package; the port builds attention mixers (``attn``, ``swa``) with
-    dense or no FFNs, and raises ``NotImplementedError`` for the rest."""
+    package."""
 
     name: str
     arch_type: str                 # dense | moe | ssm | hybrid | audio | vlm
@@ -115,8 +113,8 @@ class ModelConfig:
     citation: str = ""
 
     def __post_init__(self):
-        """Derive head_dim, check head/layer-count consistency as the JAX
-        package does, then refuse what the port cannot build."""
+        """Derive head_dim and check head/layer-count consistency as the JAX
+        package does."""
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_heads % self.num_kv_heads != 0:
@@ -126,15 +124,6 @@ class ModelConfig:
                 f"{self.name}: pattern({len(self.pattern)})x{self.repeats}"
                 f"+tail({len(self.tail)}) != derived num_layers"
             )
-        for spec in self.pattern + self.tail:
-            if spec.mixer not in PORTED_MIXERS:
-                raise _not_ported(f"mixer {spec.mixer!r}", LM_ITEM)
-            if spec.ffn not in PORTED_FFNS:
-                raise _not_ported(f"ffn {spec.ffn!r}", LM_ITEM)
-        if self.moe.enabled:
-            raise _not_ported("the MoE FFN", LM_ITEM)
-        if self.frontend:
-            raise _not_ported(f"frontend {self.frontend!r}", LM_ITEM)
 
     @property
     def num_layers(self) -> int:
@@ -160,12 +149,36 @@ class ModelConfig:
         """Key/value projection width (num_kv_heads x head_dim)."""
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def lru_width(self) -> int:
+        """RG-LRU recurrent width (lru_d, defaulting to d_model)."""
+        return self.lru_d or self.d_model
+
+    @property
+    def attention_only(self) -> bool:
+        """True when every layer is an attention mixer with a dense or no
+        FFN and there is no frontend: the configs the port trains."""
+        return (not self.moe.enabled and not self.frontend
+                and all(s.mixer in ("attn", "swa") and s.ffn != "moe"
+                        for s in self.pattern + self.tail))
+
     def param_count(self) -> int:
         """Exact parameter count from the shapes ``init_params`` makes on the
         meta device (no allocation; late import avoids a configs<->models
         cycle)."""
         from repro_torch.models.model import count_params  # noqa: PLC0415
         return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts) — the N in the
+        6ND MODEL_FLOPS roofline term."""
+        if not self.moe.enabled:
+            return self.param_count()
+        m = self.moe
+        n_moe_layers = sum(1 for s in self.layers() if s.ffn == "moe")
+        inactive = (n_moe_layers * (m.num_experts - m.top_k) * 3
+                    * self.d_model * m.expert_d_ff)
+        return self.param_count() - inactive
 
 
 def replace(cfg, **kw):

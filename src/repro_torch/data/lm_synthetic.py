@@ -4,7 +4,7 @@ only).
 Each client owns a deterministic token stream from a client-specific
 2-gram process over a Zipf marginal, seeded by (seed, client_id, salt):
 the same numpy draws as the JAX package, so both packages see the same
-tokens. The stub frontend embeddings are not ported (no frontend is).
+tokens, and the same stub frontend embeddings.
 """
 from __future__ import annotations
 
@@ -67,3 +67,12 @@ class SyntheticLMData:
                                 salt=round_idx)
             for cid in client_ids
         ])
+
+    def frontend_embeddings(self, client_id: int, batch: int, tokens: int,
+                            d_model: int, salt: int = 0) -> np.ndarray:
+        """Stub modality-frontend output: deterministic pseudo-embeddings
+        (batch, tokens, d_model), numpy float32, standing in for ViT patches
+        / EnCodec conditioning frames (the consumer casts them)."""
+        rng = _client_rng(self.seed, client_id, salt + 10_000)
+        e = rng.standard_normal((batch, tokens, d_model)).astype(np.float32)
+        return (e / np.sqrt(d_model)).astype(np.float32)

@@ -1,16 +1,20 @@
 """Batched serving (port of ``repro/launch/serve.py``): prefill a
-batch of synthetic requests, then decode tokens with the cached state.
+batch of synthetic requests, then decode tokens with the cached state, for
+every architecture of the JAX package.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b --full \\
       --batch 4 --prompt-len 1280 --gen 64 [--device cpu] [--plain-attention]
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and raises without a GPU.
 The weights are random (``--seed``), drawn directly in the compute dtype,
-bf16: a 27B-parameter tree in fp32 would need 108 GB. Decode attention goes
-through the ``swa_decode`` CUDA kernel on the card (its plain twin on the
-CPU); ``--plain-attention`` takes the einsum path instead, for comparisons.
-Prints what the JAX entry point prints, plus prefill ms, decode ms per step and
-tokens/s.
+bf16: a 27B-parameter tree in fp32 would need 108 GB. A frontend arch
+(internvl2's vision patches, musicgen's audio conditioning) takes
+``frontend_tokens`` stub embeddings in bf16 first and ``prompt_len -
+frontend_tokens`` text tokens after them. Decode attention goes through
+the ``swa_decode`` CUDA kernel on the card (its plain twin on the CPU);
+``--plain-attention`` takes the einsum path instead, for comparisons.
+Prints what the JAX entry point prints, plus prefill ms, decode ms per
+step and tokens/s.
 """
 from __future__ import annotations
 
@@ -39,6 +43,18 @@ def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
     data = SyntheticLMData(vocab_size=cfg.vocab_size, num_clients=batch,
                            seed=seed)
     return np.stack([data.client_batches(i, 1, 1, prompt_len - 1)[0, 0]
+                     for i in range(batch)])
+
+
+def make_frontend(cfg, batch: int, seed: int) -> np.ndarray | None:
+    """(batch, frontend_tokens, d_model) float32 stub frontend embeddings,
+    one synthetic client each, or None when ``cfg`` has no frontend."""
+    if not cfg.frontend:
+        return None
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, num_clients=batch,
+                           seed=seed)
+    return np.stack([data.frontend_embeddings(i, 1, cfg.frontend_tokens,
+                                              cfg.d_model)[0]
                      for i in range(batch)])
 
 
@@ -94,29 +110,37 @@ def _parse(argv):
     return ap.parse_args(argv)
 
 
-def main(argv=None, *, keep_prefill_state: bool = False) -> dict:
+def main(argv=None, *, cfg=None, keep_prefill_state: bool = False) -> dict:
     """CLI: prefill a synthetic batch, then decode ``--gen`` tokens.
 
-    Returns the run: ``cfg``, ``params``, the first token ``tok``, the
+    ``cfg`` replaces the config that ``--arch`` / ``--smoke`` name (a
+    full-width model cut in depth). Returns the run: ``cfg``, ``params``,
+    the ``prompts`` and ``frontend`` inputs, the first token ``tok``, the
     ``decode`` dict, the timings, and with ``keep_prefill_state`` a copy of
     the state right after prefill.
     """
     args = _parse(argv)
     device = resolve_device(args.device)
-    cfg = configs.get_smoke(args.arch) if args.smoke \
-        else configs.get_config(args.arch)
+    if cfg is None:
+        cfg = configs.get_smoke(args.arch) if args.smoke \
+            else configs.get_config(args.arch)
     params = init_params(torch.Generator(device=device).manual_seed(args.seed),
                          cfg, COMPUTE_DTYPE, device=device)
+    s_text = args.prompt_len - (cfg.frontend_tokens if cfg.frontend else 0)
     prompts = torch.from_numpy(
-        make_prompts(cfg, args.batch, args.prompt_len, args.seed)).to(device)
+        make_prompts(cfg, args.batch, s_text, args.seed)).to(device)
+    frontend = make_frontend(cfg, args.batch, args.seed)
+    if frontend is not None:
+        frontend = torch.from_numpy(frontend).to(device, COMPUTE_DTYPE)
 
     max_len = args.prompt_len + args.gen
-    q_chunk = min(32, args.prompt_len)
+    q_chunk = min(32, s_text)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     _sync(device)
     t0 = time.perf_counter()
     logits, state = prefill_step(params, prompts, cfg, max_len,
+                                 frontend=frontend,
                                  compute_dtype=COMPUTE_DTYPE, q_chunk=q_chunk)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     _sync(device)
@@ -147,7 +171,8 @@ def main(argv=None, *, keep_prefill_state: bool = False) -> dict:
     if dec["logits"] and not torch.isfinite(dec["logits"][-1]).all():
         raise RuntimeError("non-finite logits")
     print("ok")
-    return {"cfg": cfg, "params": params, "prompts": prompts, "tok": tok,
+    return {"cfg": cfg, "params": params, "prompts": prompts,
+            "frontend": frontend, "tok": tok,
             "prefill_logits": logits, "prefill_state": state0,
             "decode": dec, "prefill_ms": prefill_ms, "decode_ms": warm_ms,
             "tokens_per_s": tokens_per_s, "peak_bytes": peak}

@@ -43,7 +43,8 @@ Differences from the reference:
   ``torch.func`` transforms (``models.steps.lm_grad_fn``), so every
   repeat's activations are kept.
 * Flags whose paths are not ported raise ``NotImplementedError`` naming
-  their ROADMAP.md queue-1 item (``refuse_unported``).
+  their ROADMAP.md queue-1 item (``refuse_unported``), and so does an
+  ``--arch`` the port serves but does not train yet (item 11).
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ from repro_torch.core.sharded_round import make_fed_round_split
 from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.lm_synthetic import SyntheticLMData
 from repro_torch.models.model import init_params
-from repro_torch.models.steps import lm_loss
+from repro_torch.models.steps import lm_loss, refuse_untrained
 from repro_torch.optim import get_optimizer
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -193,7 +194,9 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md queue-1 item
-    for the first flag whose path this port does not have."""
+    for the first flag whose path this port does not have, or for an
+    ``--arch`` whose family the port does not train yet (a non-attention
+    mixer, an MoE FFN or a frontend: item 11)."""
     pending = [
         (args.coordinator is not None, "--coordinator", 10),
         ((args.num_processes or 1) > 1, "--num-processes > 1", 10),
@@ -203,6 +206,8 @@ def refuse_unported(args) -> None:
     for bad, what, item in pending:
         if bad:
             raise _not_ported(what, item)
+    # an arch the port serves but does not train yet (item 11)
+    refuse_untrained(configs.get_config(args.arch))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,20 +35,21 @@ class AttnCache(NamedTuple):
     slot_pos: torch.Tensor   # (L,) int32 token position per slot (-1 empty)
 
 
-def init_attn_params(normal, zeros, cfg: ModelConfig, lead=()):
+def init_attn_params(init, cfg: ModelConfig, lead=()):
     """q/k/v/o projections (plus qk-norm scales when enabled), each with the
-    leading dims ``lead``. ``normal(shape, fan_in)`` draws N(0, 1/fan_in)
-    weights, ``zeros(shape)`` the norm scales."""
+    leading dims ``lead``. ``init.normal(shape, fan_in)`` draws N(0,
+    1/fan_in) weights, ``init.zeros(shape)`` the norm scales
+    (``models.model.Init``)."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     p = {
-        "wq": normal((*lead, d, qd), d),
-        "wk": normal((*lead, d, kvd), d),
-        "wv": normal((*lead, d, kvd), d),
-        "wo": normal((*lead, qd, d), qd),
+        "wq": init.normal((*lead, d, qd), d),
+        "wk": init.normal((*lead, d, kvd), d),
+        "wv": init.normal((*lead, d, kvd), d),
+        "wo": init.normal((*lead, qd, d), qd),
     }
     if cfg.qk_norm:
-        p["q_scale"] = zeros((*lead, cfg.head_dim))
-        p["k_scale"] = zeros((*lead, cfg.head_dim))
+        p["q_scale"] = init.zeros((*lead, cfg.head_dim))
+        p["k_scale"] = init.zeros((*lead, cfg.head_dim))
     return p
 
 

@@ -1,6 +1,9 @@
-"""Common layers (port of ``repro/models/layers.py``): RMSNorm, RoPE,
-SwiGLU FFN, the LM's cross entropy."""
+"""Common layers (port of ``repro/models/layers.py``): RMSNorm and its
+per-head form, RoPE, SwiGLU FFN, the depthwise causal conv, the LM's cross
+entropy."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -12,6 +15,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def group_norm_heads(x, scale, eps: float = 1e-6):
+    """Per-head RMS normalization of (..., H, dh) tensors (xLSTM blocks),
+    with (1 + scale) weighting, in fp32, returned in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    out = out * (1.0 + scale.float())
     return out.to(x.dtype)
 
 
@@ -29,9 +42,50 @@ def rope(x, positions, theta: float = 10_000.0):
     return out.to(x.dtype)
 
 
+def sigmoid(x):
+    """``jax.nn.sigmoid``'s op sequence, 1 / (1 + exp(-x)), each op
+    rounded to x's dtype: in bf16 it gives JAX's bits, where
+    ``torch.sigmoid`` (one rounding) differs in about a third of them."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``: x * sigmoid(x), with ``sigmoid``'s op sequence."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu`` (the tanh approximation), op by op in x's dtype
+    with its constants rounded to it, as JAX computes it."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1.0 + torch.tanh(c(math.sqrt(2 / math.pi))
+                                  * (x + c(0.044715) * (x * (x * x)))))
+    return x * cdf
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU FFN: silu(x Wg) * (x Wu) Wd."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def causal_conv1d(x, kernel, state=None):
+    """Depthwise causal conv along the sequence axis.
+
+    x: (B, S, C), kernel: (W, C). With ``state`` (B, W-1, C), the
+    streaming update (decode, S = 1) continues from it; without, the input
+    is left-padded with zeros (train/prefill). Returns (y in x's dtype,
+    the last W-1 inputs as the new state).
+    """
+    w = kernel.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], w - 1, *x.shape[2:]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                   # (B, S+W-1, C)
+    S = x.shape[1]
+    y = sum(xp[:, i:i + S] * kernel[i] for i in range(w))
+    new_state = xp[:, -(w - 1):] if w > 1 else torch.zeros_like(pad)
+    return y.to(x.dtype), new_state
 
 
 def softmax_cross_entropy(logits, targets, valid_vocab: int | None = None,

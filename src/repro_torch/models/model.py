@@ -1,6 +1,8 @@
-"""The pattern decoder (port of ``repro/models/model.py``), for attention
-mixers (``attn``, ``swa``) with dense or no FFNs: the training forward,
-prefill and decode.
+"""The pattern decoder (port of ``repro/models/model.py``): the training
+forward, prefill and decode of every architecture of the JAX package.
+Mixers: full/sliding-window GQA attention, mLSTM, sLSTM, RG-LRU. FFNs:
+SwiGLU, MoE, none. A frontend arch (``cfg.frontend``) takes precomputed
+frontend embeddings, put before the text tokens (early fusion).
 
 Parameters keep the JAX package's tree and layout: ``embed`` (V, d),
 ``final_norm``, ``pattern/pos_i/...`` stacked over repeats (leading axis R)
@@ -9,11 +11,12 @@ and ``tail/layer_i/...``, so a JAX tree converts by copying
 Python loop over ``r`` that indexes the stacked params and caches.
 
 Decode state mirrors the parameter layout: per-pattern-position caches
-stacked over repeats. Its position ``pos`` is a host int, so a decode step
-reads nothing back from the device, and the caches are updated in place
-(clone the state to keep an earlier one). The JAX package's sharding
-constraints (``repro.sharding.constrain``) have no counterpart on one
-device and are dropped.
+(``AttnCache``, ``RGLRUState``, ``MLSTMState``, ``SLSTMState``) stacked
+over repeats. Its position ``pos`` is a host int, so a decode step reads
+nothing back from the device, and the caches are updated in place (clone
+the state to keep an earlier one). The JAX package's sharding constraints
+(``repro.sharding.constrain``) have no counterpart on one device and are
+dropped.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import tree_math as tm
 from repro_torch.core.round import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import rms_norm, swiglu
 
 # ---------------------------------------------------------------------------
@@ -35,9 +41,19 @@ from repro_torch.models.layers import rms_norm, swiglu
 # ---------------------------------------------------------------------------
 
 
-def _initializers(generator, dtype, device):
-    """``normal(shape, fan_in)``: N(0, 1/fan_in) drawn in ``dtype`` on
-    ``device``, tensor by tensor; ``zeros(shape)``."""
+class Init(NamedTuple):
+    """Tensor makers of one init, each in its dtype on its device:
+    ``normal(shape, fan_in)`` draws N(0, 1/fan_in); ``zeros(shape)``;
+    ``full(shape, value)``; ``linspace(shape, start, end)`` ramps along
+    the last axis (the same ramp in every leading index)."""
+
+    normal: Any
+    zeros: Any
+    full: Any
+    linspace: Any
+
+
+def _initializers(generator, dtype, device) -> Init:
     def normal(shape, fan_in):
         t = torch.empty(shape, dtype=dtype, device=device)
         if t.is_meta:             # shapes only (its normal_ is slow to load)
@@ -47,26 +63,49 @@ def _initializers(generator, dtype, device):
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return normal, zeros
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    def linspace(shape, start, end):
+        ramp = torch.linspace(start, end, shape[-1], dtype=torch.float32,
+                              device=device).to(dtype)
+        return ramp.expand(shape).clone()
+
+    return Init(normal, zeros, full, linspace)
 
 
-def _init_ffn(normal, zeros, cfg: ModelConfig, spec: LayerSpec, lead):
+def _init_mixer(init: Init, cfg: ModelConfig, spec: LayerSpec, lead):
+    if spec.mixer in ("attn", "swa"):
+        return attn.init_attn_params(init, cfg, lead)
+    if spec.mixer == "mlstm":
+        return xlstm_mod.init_mlstm_params(init, cfg, lead)
+    if spec.mixer == "slstm":
+        return xlstm_mod.init_slstm_params(init, cfg, lead)
+    if spec.mixer == "rglru":
+        return rglru_mod.init_rglru_params(init, cfg, lead)
+    raise ValueError(spec.mixer)
+
+
+def _init_ffn(init: Init, cfg: ModelConfig, spec: LayerSpec, lead):
     if spec.ffn == "none":
         return {}
     d, ff = cfg.d_model, cfg.d_ff
+    if spec.ffn == "moe":
+        return {"norm": init.zeros((*lead, d)),
+                "moe": moe_mod.init_moe_params(init, cfg, lead)}
     return {
-        "norm": zeros((*lead, d)),
-        "w_gate": normal((*lead, d, ff), d),
-        "w_up": normal((*lead, d, ff), d),
-        "w_down": normal((*lead, ff, d), ff),
+        "norm": init.zeros((*lead, d)),
+        "w_gate": init.normal((*lead, d, ff), d),
+        "w_up": init.normal((*lead, d, ff), d),
+        "w_down": init.normal((*lead, ff, d), ff),
     }
 
 
-def _init_layer(normal, zeros, cfg: ModelConfig, spec: LayerSpec, lead=()):
+def _init_layer(init: Init, cfg: ModelConfig, spec: LayerSpec, lead=()):
     return {
-        "norm": zeros((*lead, cfg.d_model)),
-        "mixer": attn.init_attn_params(normal, zeros, cfg, lead),
-        "ffn": _init_ffn(normal, zeros, cfg, spec, lead),
+        "norm": init.zeros((*lead, cfg.d_model)),
+        "mixer": _init_mixer(init, cfg, spec, lead),
+        "ffn": _init_ffn(init, cfg, spec, lead),
     }
 
 
@@ -81,21 +120,21 @@ def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
     convert a JAX tree instead.
     """
     device = resolve_device(device)
-    normal, zeros = _initializers(generator, dtype, device)
+    init = _initializers(generator, dtype, device)
     V, d = cfg.padded_vocab, cfg.d_model
     params: Dict[str, Any] = {
-        "embed": normal((V, d), d),
-        "final_norm": zeros((d,)),
+        "embed": init.normal((V, d), d),
+        "final_norm": init.zeros((d,)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = normal((d, V), d)
+        params["unembed"] = init.normal((d, V), d)
     params["pattern"] = {
-        f"pos_{i}": _init_layer(normal, zeros, cfg, spec, (cfg.repeats,))
+        f"pos_{i}": _init_layer(init, cfg, spec, (cfg.repeats,))
         for i, spec in enumerate(cfg.pattern)
     }
     if cfg.tail:
         params["tail"] = {
-            f"layer_{i}": _init_layer(normal, zeros, cfg, spec)
+            f"layer_{i}": _init_layer(init, cfg, spec)
             for i, spec in enumerate(cfg.tail)
         }
     return params
@@ -127,17 +166,57 @@ def _unembed(cparams, x):
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+_MIXER_FORWARD = {
+    "mlstm": xlstm_mod.mlstm_forward,
+    "slstm": xlstm_mod.slstm_forward,
+    "rglru": rglru_mod.rglru_forward,
+}
+_MIXER_DECODE = {
+    "mlstm": xlstm_mod.mlstm_decode,
+    "slstm": xlstm_mod.slstm_decode,
+    "rglru": rglru_mod.rglru_decode,
+}
+
+
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
+    """The layer's FFN with its residual; returns (x, MoE aux loss or
+    None)."""
+    if spec.ffn == "none":
+        return x, None
+    f = p["ffn"]
+    u = rms_norm(x, f["norm"], cfg.norm_eps)
+    if spec.ffn == "moe":
+        y, aux = moe_mod.moe_ffn(f["moe"], u, cfg)
+        return x + y, aux
+    return x + swiglu(u, f["w_gate"], f["w_up"], f["w_down"]), None
+
+
 def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, q_chunk: int,
                  return_cache: bool):
+    """One layer over the sequence; returns (x, aux or None, the mixer's
+    cache: raw (k, v) for attention, else its decode state)."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    y, cache = attn.attn_forward(p["mixer"], h, cfg, spec, q_chunk=q_chunk,
-                                 return_cache=return_cache)
-    x = x + y.to(x.dtype)
-    if spec.ffn == "dense":
-        f = p["ffn"]
-        u = rms_norm(x, f["norm"], cfg.norm_eps)
-        x = x + swiglu(u, f["w_gate"], f["w_up"], f["w_down"])
-    return x, cache
+    if spec.mixer in ("attn", "swa"):
+        y, cache = attn.attn_forward(p["mixer"], h, cfg, spec,
+                                     q_chunk=q_chunk,
+                                     return_cache=return_cache)
+    else:
+        y, cache = _MIXER_FORWARD[spec.mixer](p["mixer"], h, cfg,
+                                              return_cache=return_cache)
+    x, aux = _ffn(p, x + y.to(x.dtype), cfg, spec)
+    return x, aux, cache
+
+
+def _embed_inputs(cparams, cfg: ModelConfig, tokens, frontend,
+                  compute_dtype):
+    """Token embeddings (B, S_text, d), after the frontend embeddings
+    (B, F, d) when the config has a frontend."""
+    x = cparams["embed"][tokens]
+    if cfg.frontend:
+        if frontend is None:
+            raise ValueError(f"{cfg.name} requires frontend embeddings")
+        x = torch.cat([frontend.to(compute_dtype), x], dim=1)
+    return x
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -149,14 +228,15 @@ def _save_matmuls(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-            q_chunk: int = 1024, remat: str = "full",
-            logits_slice: Optional[int] = None):
-    """tokens: (B, S) int -> (logits (B, S_out, V), aux-loss scalar).
+def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
+            compute_dtype=torch.bfloat16, q_chunk: int = 1024,
+            remat: str = "full", logits_slice: Optional[int] = None):
+    """tokens: (B, S_text) int -> (logits (B, S_out, V), aux-loss scalar,
+    the sum of the MoE layers' router losses, fp32).
 
-    ``logits_slice``: if given, only the logits of the last N positions are
-    computed. The aux loss is the MoE router's in the JAX package; the
-    port builds no MoE FFN (``ModelConfig`` refuses one), so it is 0.
+    ``frontend`` (B, F, d): the frontend embeddings of a frontend arch,
+    put before the text. ``logits_slice``: if given, only the logits of
+    the last N positions are computed.
 
     ``remat`` ("full" | "dots" | anything else: none) recomputes each
     repeat of the pattern in the backward pass, as the JAX package's
@@ -168,14 +248,18 @@ def forward(params, tokens, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     refuses a remat request before it gets here.
     """
     cparams = _cast(params, compute_dtype)
-    x = cparams["embed"][tokens]                      # (B, S, d)
+    x = _embed_inputs(cparams, cfg, tokens, frontend, compute_dtype)
+    auxs = []
 
     def unit(x, unit_params):
-        """Apply one repeat of the whole pattern."""
+        """Apply one repeat of the whole pattern; returns (x, its aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, spec in enumerate(cfg.pattern):
-            x, _ = _apply_layer(unit_params[f"pos_{i}"], x, cfg, spec,
-                                q_chunk, False)
-        return x
+            x, a, _ = _apply_layer(unit_params[f"pos_{i}"], x, cfg, spec,
+                                   q_chunk, False)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     recompute = remat in ("full", "dots") and torch.is_grad_enabled()
     context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
@@ -183,16 +267,19 @@ def forward(params, tokens, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                else ckpt.noop_context_fn)
     for r in range(cfg.repeats):
         unit_params = _unit(cparams["pattern"], r)
-        x = (ckpt.checkpoint(unit, x, unit_params, use_reentrant=False,
-                             context_fn=context) if recompute
-             else unit(x, unit_params))
+        x, a = (ckpt.checkpoint(unit, x, unit_params, use_reentrant=False,
+                                context_fn=context) if recompute
+                else unit(x, unit_params))
+        auxs.append(a)
+    aux = torch.stack(auxs).sum()
     for i, spec in enumerate(cfg.tail):
-        x, _ = _apply_layer(cparams["tail"][f"layer_{i}"], x, cfg, spec,
-                            q_chunk, False)
+        x, a, _ = _apply_layer(cparams["tail"][f"layer_{i}"], x, cfg, spec,
+                               q_chunk, False)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(cparams, x), aux
 
 
@@ -203,9 +290,22 @@ def forward(params, tokens, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
 class DecodeState(NamedTuple):
     """All per-layer decode caches plus the current token position."""
 
-    pattern: Dict[str, attn.AttnCache]   # per position: stacked over repeats
-    tail: Dict[str, attn.AttnCache]
-    pos: int                             # tokens already consumed
+    pattern: Dict[str, Any]   # per position: its cache stacked over repeats
+    tail: Dict[str, Any]
+    pos: int                  # tokens already consumed
+
+
+def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                      max_len: int, cache_dtype, device, lead=()):
+    """An empty cache of one layer: the KV cache in ``cache_dtype``, the
+    recurrent states in fp32 (as the JAX package's)."""
+    if spec.mixer in ("attn", "swa"):
+        return attn.init_attn_cache(cfg, spec, batch, max_len, cache_dtype,
+                                    device, lead)
+    init_state = {"mlstm": xlstm_mod.init_mlstm_state,
+                  "slstm": xlstm_mod.init_slstm_state,
+                  "rglru": rglru_mod.init_rglru_state}[spec.mixer]
+    return init_state(cfg, batch, device=device, lead=lead)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -215,37 +315,51 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     ``device`` (``cuda`` unless given)."""
     device = resolve_device(device)
     pattern = {
-        f"pos_{i}": attn.init_attn_cache(cfg, spec, batch, max_len,
-                                         cache_dtype, device, (cfg.repeats,))
+        f"pos_{i}": _init_layer_cache(cfg, spec, batch, max_len, cache_dtype,
+                                      device, (cfg.repeats,))
         for i, spec in enumerate(cfg.pattern)
     }
     tail = {
-        f"layer_{i}": attn.init_attn_cache(cfg, spec, batch, max_len,
-                                           cache_dtype, device)
+        f"layer_{i}": _init_layer_cache(cfg, spec, batch, max_len,
+                                        cache_dtype, device)
         for i, spec in enumerate(cfg.tail)
     }
     return DecodeState(pattern, tail, 0)
 
 
+def _map_cache(fn, cache):
+    """The same kind of cache with ``fn`` applied to each tensor."""
+    return type(cache)(*(fn(t) for t in cache))
+
+
 def clone_state(state: DecodeState) -> DecodeState:
     """A copy of ``state`` that later decode steps on ``state`` leave as
     it is."""
-    copy = lambda caches: {k: attn.AttnCache(*(t.clone() for t in c))
+    copy = lambda caches: {k: _map_cache(torch.clone, c)
                            for k, c in caches.items()}
     return DecodeState(copy(state.pattern), copy(state.tail), state.pos)
 
 
+def _write(dst, src) -> None:
+    """Copy a cache into ``dst`` in place (a no-op for tensors that are
+    already ``dst``'s, as attention's in-place cache writes return)."""
+    for d, s in zip(dst, src):
+        if d is not s:
+            d.copy_(s)
+
+
 def _decode_layer(p, x, cache, cfg: ModelConfig, spec: LayerSpec, pos: int,
                   use_kernel: bool = False):
+    """One layer for one token; ``cache`` is updated in place."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    y, cache = attn.attn_decode(p["mixer"], h, cache, cfg, spec, pos,
-                                use_kernel=use_kernel)
-    x = x + y.to(x.dtype)
-    if spec.ffn == "dense":
-        f = p["ffn"]
-        u = rms_norm(x, f["norm"], cfg.norm_eps)
-        x = x + swiglu(u, f["w_gate"], f["w_up"], f["w_down"])
-    return x, cache
+    if spec.mixer in ("attn", "swa"):
+        y, new = attn.attn_decode(p["mixer"], h, cache, cfg, spec, pos,
+                                  use_kernel=use_kernel)
+    else:
+        y, new = _MIXER_DECODE[spec.mixer](p["mixer"], h, cache, cfg)
+    _write(cache, new)
+    x, _ = _ffn(p, x + y.to(x.dtype), cfg, spec)
+    return x
 
 
 def decode_step(params, token, state: DecodeState, cfg: ModelConfig, *,
@@ -258,15 +372,13 @@ def decode_step(params, token, state: DecodeState, cfg: ModelConfig, *,
     pos = state.pos
     for r in range(cfg.repeats):
         for i, spec in enumerate(cfg.pattern):
-            c = state.pattern[f"pos_{i}"]
-            x, _ = _decode_layer(
-                _unit(cparams["pattern"][f"pos_{i}"], r), x,
-                attn.AttnCache(c.k[r], c.v[r], c.slot_pos[r]), cfg, spec,
-                pos, use_kernel=use_kernel)
+            cache = _map_cache(lambda t: t[r], state.pattern[f"pos_{i}"])
+            x = _decode_layer(_unit(cparams["pattern"][f"pos_{i}"], r), x,
+                              cache, cfg, spec, pos, use_kernel=use_kernel)
     for i, spec in enumerate(cfg.tail):
-        x, _ = _decode_layer(cparams["tail"][f"layer_{i}"], x,
-                             state.tail[f"layer_{i}"], cfg, spec, pos,
-                             use_kernel=use_kernel)
+        x = _decode_layer(cparams["tail"][f"layer_{i}"], x,
+                          state.tail[f"layer_{i}"], cfg, spec, pos,
+                          use_kernel=use_kernel)
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
     logits = _unembed(cparams, x)[:, 0]
     return logits, state._replace(pos=pos + 1)
@@ -276,32 +388,41 @@ def decode_step(params, token, state: DecodeState, cfg: ModelConfig, *,
 # Prefill
 # ---------------------------------------------------------------------------
 
-def prefill(params, tokens, cfg: ModelConfig, max_len: int, *,
+def prefill(params, tokens, cfg: ModelConfig, max_len: int, *, frontend=None,
             compute_dtype=torch.bfloat16, q_chunk: int = 1024,
             cache_dtype=torch.bfloat16):
-    """Run the full prompt (B, S), build the decode state on the tokens'
-    device, return (last-token logits (B, V), state)."""
+    """Run the full prompt (B, S_text) (after ``frontend``'s embeddings for
+    a frontend arch), build the decode state on the tokens' device, return
+    (last-token logits (B, V), state).
+
+    The state holds what the layers leave: KV caches in ``cache_dtype``,
+    recurrent states in the dtypes the JAX package's prefill gives them
+    (fp32 RG-LRU and mLSTM memories, the sLSTM state and the conv tails in
+    ``compute_dtype``)."""
     cparams = _cast(params, compute_dtype)
-    x = cparams["embed"][tokens]                      # (B, S, d)
-    B, S = tokens.shape
-    state = init_decode_state(cfg, B, max_len, cache_dtype,
-                              device=tokens.device)
+    x = _embed_inputs(cparams, cfg, tokens, frontend, compute_dtype)
+    S = x.shape[1]
 
-    def layer(p, x, spec, dst: attn.AttnCache):
-        x, kv = _apply_layer(p, x, cfg, spec, q_chunk, True)
-        cache = attn.cache_from_prefill(cfg, spec, kv, max_len, cache_dtype)
-        for d, s in zip(dst, cache):
-            d.copy_(s)
-        return x
+    def layer(p, x, spec):
+        x, _, cache = _apply_layer(p, x, cfg, spec, q_chunk, True)
+        if spec.mixer in ("attn", "swa"):
+            cache = attn.cache_from_prefill(cfg, spec, cache, max_len,
+                                            cache_dtype)
+        return x, cache
 
+    pattern = {}
     for r in range(cfg.repeats):
         for i, spec in enumerate(cfg.pattern):
-            c = state.pattern[f"pos_{i}"]
-            x = layer(_unit(cparams["pattern"][f"pos_{i}"], r), x, spec,
-                      attn.AttnCache(c.k[r], c.v[r], c.slot_pos[r]))
+            x, cache = layer(_unit(cparams["pattern"][f"pos_{i}"], r), x,
+                             spec)
+            if r == 0:          # one buffer per position, stacked over R
+                pattern[f"pos_{i}"] = _map_cache(
+                    lambda t: t.new_empty((cfg.repeats, *t.shape)), cache)
+            _write(_map_cache(lambda t: t[r], pattern[f"pos_{i}"]), cache)
+            del cache
+    tail = {}
     for i, spec in enumerate(cfg.tail):
-        x = layer(cparams["tail"][f"layer_{i}"], x, spec,
-                  state.tail[f"layer_{i}"])
+        x, tail[f"layer_{i}"] = layer(cparams["tail"][f"layer_{i}"], x, spec)
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
     logits = _unembed(cparams, x[:, -1:])[:, 0]
-    return logits, state._replace(pos=S)
+    return logits, DecodeState(pattern, tail, S)

@@ -9,20 +9,37 @@ from typing import Optional
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.configs.base import ModelConfig, _not_ported
+from repro_torch.configs.base import LM_ITEM, ModelConfig, _not_ported
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import softmax_cross_entropy
 
 #: ROADMAP.md queue-1 item that brings a recompute composing with
-#: ``torch.func`` (item 11, part 2).
+#: ``torch.func`` (item 11, part 3).
 REMAT_ITEM = 11
+
+
+def refuse_untrained(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md queue 1, item 11 for
+    a config the port serves but does not train yet: a non-attention mixer,
+    an MoE FFN or a frontend (their ``vmap(grad)``, the MoE aux loss in the
+    loss and the frontend inputs of a batch are item 11's next part)."""
+    if not cfg.attention_only:
+        kinds = sorted({f"mixer {s.mixer!r}" for s in cfg.layers()
+                        if s.mixer not in ("attn", "swa")}
+                       | ({"the MoE FFN"} if cfg.moe.enabled else set())
+                       | ({f"frontend {cfg.frontend!r}"} if cfg.frontend
+                          else set()))
+        raise _not_ported(f"training {cfg.name} ({', '.join(kinds)})",
+                          LM_ITEM)
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             q_chunk: int = 1024, remat: str = "full"):
     """batch: {"tokens": (B, S+1) int}. Returns (loss, metrics): the mean
-    next-token cross entropy over the valid vocab, in fp32. The MoE aux
-    loss of the JAX package is 0 here (no MoE FFN is built)."""
+    next-token cross entropy over the valid vocab, in fp32. Configs with
+    other mixers, an MoE FFN or a frontend are refused
+    (``refuse_untrained``), so the aux loss, 0 here, adds nothing."""
+    refuse_untrained(cfg)
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = model_lib.forward(params, inputs, cfg,
@@ -41,9 +58,12 @@ def lm_grad_fn(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
 
     ``remat="full"`` / ``"dots"`` raise ``NotImplementedError``: torch's
     checkpointing does not compose with ``torch.func`` transforms, and a
-    recompute that does waits for ROADMAP.md queue 1, item 11 part 2. Every
+    recompute that does waits for ROADMAP.md queue 1, item 11 part 3. Every
     repeat's activations are kept instead (README: the memory it costs).
+    So does a config with a non-attention mixer, an MoE FFN or a frontend
+    (``refuse_untrained``).
     """
+    refuse_untrained(cfg)
     if remat in ("full", "dots"):
         raise _not_ported(f"remat={remat!r} under torch.func (the federated "
                           f"round's vmap(grad))", REMAT_ITEM)
@@ -105,9 +125,10 @@ def serve_step(params, token, state, cfg: ModelConfig, *,
 
 
 def prefill_step(params, tokens, cfg: ModelConfig, max_len: int, *,
-                 compute_dtype=torch.bfloat16, q_chunk: int = 1024,
-                 cache_dtype=torch.bfloat16):
-    """Prompt ingestion: returns (last-token logits, decode state)."""
-    return model_lib.prefill(params, tokens, cfg, max_len,
+                 frontend=None, compute_dtype=torch.bfloat16,
+                 q_chunk: int = 1024, cache_dtype=torch.bfloat16):
+    """Prompt ingestion (after ``frontend``'s embeddings for a frontend
+    arch): returns (last-token logits, decode state)."""
+    return model_lib.prefill(params, tokens, cfg, max_len, frontend=frontend,
                              compute_dtype=compute_dtype, q_chunk=q_chunk,
                              cache_dtype=cache_dtype)

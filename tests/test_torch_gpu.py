@@ -96,6 +96,12 @@ def _slot_positions(L, pos, kind):
     (2, 8, 2, 64, 1, 0, 0, "linear"),                 # L 1: 7 CTAs idle
     (2, 8, 2, 64, 5, 0, 4, "linear"),                 # L 5 < 8 CTAs
     (4, 64, 8, 128, 1344, 0, 1300, "linear"),         # qwen3-32b, G 8
+    (4, 48, 1, 128, 528, 0, 520, "linear"),           # granite-34b, G 48
+    (4, 24, 8, 128, 528, 0, 520, "linear"),           # minitron-4b, G 3
+    (4, 40, 8, 128, 8192, 8192, 9000, "ring"),        # llama4-scout, G 5
+    (4, 48, 8, 128, 528, 0, 520, "linear"),           # internvl2-26b, G 6
+    (4, 24, 24, 64, 528, 0, 520, "linear"),           # musicgen, MHA dh 64
+    (4, 16, 1, 256, 2048, 2048, 3100, "ring"),        # recurrentgemma
 ])
 def test_swa_decode_kernel_vs_twin(B, H, KV, dh, L, window, pos, kind, dtype):
     """fp32 2e-5 (softmax sums in another order), bf16 2e-2 (one rounding
@@ -104,6 +110,52 @@ def test_swa_decode_kernel_vs_twin(B, H, KV, dh, L, window, pos, kind, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _kernel_vs_twin(B, H, KV, dh, L, window, pos, kind, getattr(torch, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", [
+    "xlstm-125m", "minitron-4b", "musicgen-medium", "internvl2-26b",
+    "recurrentgemma-9b", "qwen3-moe-30b-a3b", "granite-34b",
+    "llama4-scout-17b-a16e"])
+def test_smoke_serving_on_the_card_equals_the_cpu(arch):
+    """Each new family's smoke config, fp32, from the same weights: prefill
+    then 3 decode steps through the kernel on the card and its twin on the
+    CPU, logits within 2e-3 (``tests/test_pallas_serving.py``'s bound for
+    the two routes); one launch per attention layer and step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = configs.get_smoke(arch)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    tokens = torch.from_numpy(serve.make_prompts(cfg, 2, 24, 0))
+    front = serve.make_frontend(cfg, 2, 0)
+    front = None if front is None else torch.from_numpy(front)
+    F = cfg.frontend_tokens if cfg.frontend else 0
+    n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tm.tmap(lambda t: t.to(dev), params)
+        kw = dict(compute_dtype=torch.float32)
+        logits, state = model.prefill(
+            p, tokens.to(dev), cfg, F + 24 + 3, q_chunk=16,
+            frontend=None if front is None else front.to(dev),
+            cache_dtype=torch.float32, **kw)
+        got = [logits]
+        before = swa_decode.launches["swa_decode"]
+        for i in range(3):
+            logits, state = model.decode_step(p, tokens[:, i].to(dev), state,
+                                              cfg, use_kernel=True, **kw)
+            got.append(logits)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert swa_decode.launches["swa_decode"] == before + 3 * n_attn
+        out[dev] = got
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.gpu

@@ -35,10 +35,12 @@ from test_torch_lm_train import _fedlm_params
 from repro.core import sharded_round as jax_sharded_round
 from repro.launch import train as jax_train
 from repro.models import steps as jax_steps
+from repro_torch import configs
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.core import tree_math as tm
 from repro_torch.examples import train_lm_federated
 from repro_torch.launch import train
+from repro_torch.models import steps
 
 #: The keys of one round's record in ``repro/launch/train.py``'s
 #: ``run_rounds.on_round``.
@@ -148,6 +150,9 @@ REFUSED = [
     (["--coordinator", "localhost:1234"], 10),
     (["--num-processes", "2"], 10), (["--process-id", "0"], 10),
     (["--shard-population"], 10),
+    *[(["--arch", arch], 11) for arch in (
+        "xlstm-125m", "musicgen-medium", "internvl2-26b",
+        "recurrentgemma-9b", "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e")],
 ]
 
 
@@ -159,6 +164,18 @@ def test_unported_flags_are_refused(flags, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1, item {item}"):
         train.main(SMOKE + ["--rounds", "1"] + flags)
+
+
+@pytest.mark.parametrize("arch", [flags[1] for flags, item in REFUSED
+                                  if item == 11])
+def test_lm_grad_fn_refuses_untrained_families(arch):
+    """The per-client grad of the federated round refuses the families the
+    port serves but does not train yet (a non-attention mixer, an MoE FFN
+    or a frontend), at full size and smoke size, naming item 11."""
+    for get in (configs.get_config, configs.get_smoke):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1, item 11"):
+            steps.lm_grad_fn(get(arch))
 
 
 #: The codec flags, which the port runs since ROADMAP.md queue 1, item 9.
