@@ -31,9 +31,18 @@
 3. Drives the FedPA path: ``FedSim(device="cuda").run`` for 3 FedPA rounds
    of the full-width EMNIST CNN (16 of 64 clients, l=5, one burn-in round),
    with batch and with streaming DP; each DP kernel must have been launched
-   (rounds - burn_in_rounds) * (l - 1) * 2 runs = 16 times.
+   (rounds - burn_in_rounds) * (l - 1) * 2 runs = 16 times. Every card run
+   of the CNN that is compared with the CPU (here and in phases 8, 10d
+   and 11d) takes cuDNN's deterministic algorithms (``deterministic``):
+   the default data-gradient kernel sums with atomics and moves the
+   card's params from run to run (phase 4 lists the kernels); the timed
+   rounds keep torch's defaults.
 4. Runs the same rounds on the CPU (through the kernels' plain twins) from
-   the same weights and data; final params must agree.
+   the same weights and data; final params must agree. Then, as a report,
+   phase 3's batch-DP rounds on the card once with cuDNN's default
+   algorithms and once under ``deterministic()``, each under
+   ``torch.profiler``: the convolution kernels each mode launched and each
+   run's distance from the CPU run.
 5. Holds the decode-attention kernel ``swa_decode`` against its twin at
    gemma3-27b's serving shapes (B 4, 32 heads, 16 KV heads, head_dim 128: a
    wrapped ring of L=1024 with window 1024, a linear cache of L=1344) and
@@ -84,9 +93,9 @@
    profiled run of one FedPA round gives the device time per round, its
    idle share and the kernels that take the most of it. Then the
    same path in fp32 compute on fedlm-100m cut to one layer (2 clients,
-   batch 2 x 64 tokens, one burn-in and one FedPA round) on the card and
-   on the CPU from the same weights: the final params must agree (phase
-   4's bound).
+   8 local steps, l = 4, batch 2 x 64 tokens, one burn-in and one FedPA
+   round) on the card and on the CPU from the same weights: the final
+   params must agree (phase 4's bound).
 10. Per-client state. (a) FedEP on the device store trains the full-width
    fedlm-100m through ``launch.train.main`` (phase 9's settings, the
    population cut from 64 to 16 for the store's 2 fp32 vectors of d per
@@ -97,8 +106,7 @@
    FedEP on one layer of it, fp32, client lr 0.01, with the host store
    and the device store on the card (bit for bit equal, with
    deterministic algorithms) and the device store on the CPU (phase 4's
-   bound); then, as a report, the same runs at phase 9b's client lr 0.05
-   beside FedPA's, card against CPU after every round. (c) ``device_gather`` / ``device_scatter`` with a stale stamp
+   bound). (c) ``device_gather`` / ``device_scatter`` with a stale stamp
    and a write mask under ``torch.cuda.set_sync_debug_mode("error")``,
    against the host store. (d) SCAFFOLD on the host and the device store
    (bit for bit equal, cuDNN deterministic) and FedEP at ``parallel`` and
@@ -177,6 +185,27 @@
    both routings, whose kept (token, expert) pairs must be equal.
    (e) Phase 5's checks at the new archs' decode shapes (in
    ``SWA_CASES``).
+14. Training the rest of the LM stack. (a) ``launch.train.main`` on the
+   full-size xlstm-125m (d = 129,642,288: 6 sLSTM and 6 mLSTM layers)
+   with phase 9's FedPA settings: DP launches (rounds - burn-in rounds)
+   x (l - 1) = 6 each, ``swa_decode`` none, finite records; round host ms
+   against the reckoned bound, the peak memory against phase 9's
+   reckoning, and a profiled local step (device ops and time, idle
+   share, top kernels). Client lr 0.01: at 0.05 its local steps diverge. (b) One FedPA round of the full-width
+   fedlm-100m in fp32 compute at 8 x 512 tokens a client step, from the
+   same state, with ``remat="none"`` and ``"full"`` (each pattern repeat
+   recomputed in the backward pass under the round's ``vmap(grad)``):
+   params within phase 4's bound, the peak memory lower with the
+   recompute; both peaks and round times.
+   (c) ``vmap(grad)`` of the loss over 2 clients on one-layer fp32 cuts
+   at full width, card against the CPU from the same weights, losses and
+   grads within phase 4's bound: qwen3-moe-30b-a3b under one-hot and
+   sort routing, llama4-scout-17b-a16e (one top-1 MoE layer),
+   recurrentgemma-9b (one repeat of RG-LRU, RG-LRU, local attention),
+   musicgen-medium and internvl2-26b with their frontend embeddings, and
+   xlstm-125m (one sLSTM and one mLSTM layer). An MoE cut's CPU run is
+   forced onto the experts the card chose, and the CPU router's flips
+   are counted.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -239,20 +268,32 @@ TRAIN_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
               "--seq-len", "128", "--server-lr", "0.3", "--prefetch-rounds",
               "0"]
 # ... and its fp32 replay on one layer, card against CPU
+# (8 local steps, a sample every step: l = 4 as at 12 steps and a sample
+# every 2, a third fewer local steps for the script's time; its runs on
+# the CPU in phases 9-12 took ~430 s at 12 on the H100 machine)
 REPLAY_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
-               "2", "--num-clients", "64", "--local-steps", "12",
-               "--burn-in-steps", "4", "--steps-per-sample", "2",
+               "2", "--num-clients", "64", "--local-steps", "8",
+               "--burn-in-steps", "4", "--steps-per-sample", "1",
                "--burn-in-rounds", "1", "--rounds", "2", "--batch", "2",
                "--seq-len", "64", "--server-lr", "0.3", "--prefetch-rounds",
                "0"]
+# phase 14a: the same command on the full-size xlstm-125m, at client lr
+# 0.01: at the default 0.05 (momentum 0.9) its local steps diverge and
+# reach NaN within the first round at full depth
+XLSTM_ARGV = [("xlstm-125m" if a == "fedlm-100m" else a)
+              for a in TRAIN_ARGV] + ["--client-lr", "0.01"]
+# phase 14b: phase 9's command at 8 x 512 tokens a client step, where the
+# activations a recompute frees weigh against the DP's fp32 vectors
+REMAT_ARGV = TRAIN_ARGV + ["--batch", "8", "--seq-len", "512", "--rounds",
+                           "1", "--burn-in-rounds", "0"]
 
 # phase 10: the population of the full-width FedEP run (cut from 64: the
 # device store holds 2 fp32 vectors of d per client) ...
 FEDEP_CLIENTS = 16
 # ... the one-layer FedEP replay's changes to phase 9b's command: a third
 # round, so a site is read back, and a client lr at which the local steps
-# train (the loss falls); at 9b's 0.05 the card-vs-CPU distance passes
-# phase 4's bound, and ``lr_witness`` reports it beside FedPA's
+# train (the loss falls); at 9b's 0.05 the card-vs-CPU distance passed
+# phase 4's bound
 FEDEP_REPLAY = ["--rounds", "3", "--client-lr", "0.01"]
 # ... and the stateful CNN runs (phase 3's settings)
 STATE_RUNS = (
@@ -399,10 +440,13 @@ def device_ops_per_call(fn, calls: int = 10, tries: int = 3):
 DP_D = 428_350
 #: d of the LM training path (fedlm-100m's parameter count)
 LM_D = 100_684_032
+#: d of xlstm-125m (``configs.get_config("xlstm-125m").param_count()``)
+XLSTM_D = 129_642_288
 DP_CASES = ((16, 4, DP_D, "float32", True), (16, 1, DP_D, "float32", False),
             (1, 4, DP_D, "float32", True), (6, 4, DP_D, "float32", True),
             (3, 4, 1300, "float32", False), (16, 4, DP_D, "bfloat16", True),
-            (4, 3, LM_D, "float32", True), (8, 3, LM_D, "float32", True))
+            (4, 3, LM_D, "float32", True), (8, 3, LM_D, "float32", True),
+            (4, 3, XLSTM_D, "float32", True))
 #: the outputs a CUDA graph of timed calls may hold (phase 2)
 GRAPH_BYTES = 4 * 2**30
 #: the ``ops.dp_step`` rows: stacks of 1, 6 and 16 clients
@@ -1013,6 +1057,39 @@ def run_rounds(device: str, params, seed: int, over: dict):
     return state, records, ms
 
 
+#: substrings of the kernel names that belong to convolutions (forward,
+#: data and weight gradients, split-K reductions)
+CONV_KEYS = ("wgrad", "dgrad", "fprop", "conv", "splitk", "implicit",
+             "bwd_filter", "bwd_data")
+
+
+def conv_kernels(params, seed: int, cpu_params) -> None:
+    """Phase 4, part 2 (a report): phase 3's batch-DP rounds on the card
+    with cuDNN's default algorithms and under ``deterministic()``, each
+    under ``torch.profiler``; prints each run's distance from the CPU run
+    ``cpu_params`` and the convolution kernels it launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for det in (False, True):
+        mode = "deterministic" if det else "default"
+        with deterministic(det), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, _ = run_main_path("cuda", params, seed, False)
+            torch.cuda.synchronize()
+        err = max((state.params[k].cpu() - v).abs().max().item()
+                  for k, v in cpu_params.items())
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and any(k in e.key.lower() for k in CONV_KEYS)}
+        print(f"conv kernels, {mode} cuDNN algorithms (phase 3's rounds, "
+              f"batch DP): card vs CPU params max abs diff {err:.3g}; "
+              f"{len(kernels) or 'no (not measured)'} convolution kernels "
+              f"seen", flush=True)
+        for key, count in sorted(kernels.items()):
+            print(f"  {count:6d} x {key[:150]}", flush=True)
+
+
 def params_close(got, want, what: str) -> None:
     """Phase 4's bound on two param trees (``got`` may be on the card):
     rtol 1e-3, atol 1e-4; prints the max abs difference."""
@@ -1036,7 +1113,8 @@ def rest_of_round(params, parallel_params, seed: int) -> dict:
     by_run = {}
     for name, over in ROUND_RUNS:
         fedpa_dp.reset_launches()
-        state, records, ms = run_rounds("cuda", params, seed, over)
+        with deterministic():
+            state, records, ms = run_rounds("cuda", params, seed, over)
         launches = dict(fedpa_dp.launches)
         expected = expected_dp_launches(over)
         dropped = [h["dropped"] for h in records]
@@ -1487,6 +1565,26 @@ def serve_rest(card: str, seed: int) -> dict:
     return by_arch
 
 
+def token_weights(cfg) -> int:
+    """The weights each token multiplies in a dense forward: every layer's
+    matrices (a leaf with two or more axes per layer: projections, FFN,
+    gates, convolution taps) and the unembedding, from the shapes on the
+    meta device."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models.model import init_params
+
+    n = cfg.padded_vocab * cfg.d_model
+    for path, leaf in pytree.tree_leaves_with_path(
+            init_params(None, cfg, device="meta")):
+        key = pytree.keystr(path)
+        if key.startswith(("['embed']", "['unembed']")):
+            continue
+        if leaf.dim() - key.startswith("['pattern']") >= 2:
+            n += leaf.numel()
+    return n
+
+
 def train_round_bound_ms(cfg, args, rate: float, fedep: bool = False):
     """The least time the card could take for one FedPA (or, with
     ``fedep``, FedEP) round of the training path, reckoned from the port's
@@ -1495,10 +1593,11 @@ def train_round_bound_ms(cfg, args, rate: float, fedep: bool = False):
     matmuls, local-step elementwise work, DP, server and client state).
     Counts what the code does, not what a fused round would need:
 
-    * matmuls: forward 2 x tokens x the weights each token multiplies (the
-      projections, the FFN, the tied unembedding) plus attention 4 B H S^2
-      dh a layer (each q chunk scores every key), backward twice that; for
-      C x K client steps and the eval forward;
+    * matmuls: forward 2 x tokens x the weights each token multiplies
+      (``token_weights``) plus attention 4 B H S^2 dh an attention layer
+      (each q chunk scores every key; the mLSTM's chunk products and the
+      sLSTM's recurrence count as their weights only), backward twice
+      that; for C x K client steps and the eval forward;
     * per client step and element of d: the bf16 cast of the params (6 B),
       the fp32 cast of the bf16 grads (6 B), sgdm (momentum, scale, add:
       40 B); on a sampling step the IASG sum (12 B); per sample its scale,
@@ -1515,12 +1614,10 @@ def train_round_bound_ms(cfg, args, rate: float, fedep: bool = False):
       accumulator's sum (4 B); once, the ratio ``num / den`` (12 B).
     """
     d, C, K = cfg.param_count(), args.clients, args.local_steps
-    B, S, L = args.batch, args.seq_len, cfg.num_layers
-    D, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    weights = L * (2 * D * qd + 2 * D * kvd + 3 * D * cfg.d_ff) \
-        + cfg.padded_vocab * D
-    fwd = 2 * B * S * weights + L * 4 * B * cfg.num_heads * S * S \
-        * cfg.head_dim
+    B, S = args.batch, args.seq_len
+    n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
+    fwd = 2 * B * S * token_weights(cfg) + n_attn * 4 * B * cfg.num_heads \
+        * S * S * cfg.head_dim
     mm_ms = (3 * fwd * C * K + fwd) / BF16_PEAK * 1e3
     ell = (K - args.burn_in_steps) // args.steps_per_sample
     sampling = ell * args.steps_per_sample
@@ -1533,22 +1630,24 @@ def train_round_bound_ms(cfg, args, rate: float, fedep: bool = False):
     return mm_ms + local_ms + dp_ms, mm_ms, local_ms, dp_ms
 
 
-def train_path(card: str, seed: int) -> dict:
-    """Phase 9, part 1: the full-width fedlm-100m through
-    ``launch.train.main``; returns the DP kernels' launches."""
+def train_path(card: str, seed: int, argv=TRAIN_ARGV, d_want=LM_D):
+    """Phase 9, part 1 (and 14a with ``XLSTM_ARGV``): the full-width model
+    of ``argv`` through ``launch.train.main``; returns the DP kernels'
+    launches, the run's result, its flags and the FedPA rounds' host
+    ms."""
     import torch
 
     from repro_torch.kernels import fedpa_dp
     from repro_torch.kernels import swa_decode as swa
     from repro_torch.launch import train
 
-    args = train.parse_args(TRAIN_ARGV)
+    args = train.parse_args(argv)
     ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
     expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
     fedpa_dp.reset_launches()
     swa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    res = train.main(TRAIN_ARGV + ["--seed", str(seed)])
+    res = train.main(argv + ["--seed", str(seed)])
     torch.cuda.synchronize()
     launches = dict(fedpa_dp.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1559,34 +1658,39 @@ def train_path(card: str, seed: int) -> dict:
     # history 3, mean, delta, u, v, new delta and mean 6) and the server's
     # params, momentum and anchor, in fp32
     reckoned = (15 * args.clients + 3) * 4 * d
+    slstm = sum(s.mixer == "slstm" for s in cfg.layers())
     for rec, sec in zip(recs, res["seconds"]):
         print(f"  round {rec['round']} ({rec['phase']}): host ms "
               f"{sec * 1e3:.1f}; eval_loss {rec['eval_loss']:.4f}",
               flush=True)
     warm = [sec * 1e3 for rec, sec in zip(recs, res["seconds"])
             if rec["phase"] == "fedpa"]
-    print(f"train {cfg.name}: d={d:,}, {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}; {args.clients} clients x "
-          f"{args.local_steps} steps x {args.batch}x{args.seq_len} tokens, "
-          f"l={ell}: FedPA round host ms {[round(x, 1) for x in warm]} "
-          f"(the first includes warm-up) against a bound of {total:.1f} ms "
-          f"(matmuls {mm:.1f}, local-step elementwise {local:.1f}, DP and "
-          f"server {dp:.1f}); peak memory allocated {peak / 2**30:.2f} GiB "
-          f"(reckoned {reckoned / 2**30:.2f} GiB of fp32 vectors); DP "
-          f"launches {launches} (expected {expected} each); swa_decode "
-          f"launches {swa.launches['swa_decode']} (expected 0)", flush=True)
-    if d != LM_D:
-        fail(f"fedlm-100m has d={d}, expected {LM_D}")
+    print(f"train {cfg.name}: d={d:,}, {cfg.num_layers} layers"
+          + (f" ({slstm} sLSTM, each a {args.seq_len}-step time loop in the "
+             f"forward and the backward of every client step: "
+             f"{slstm * args.seq_len} steps a forward)" if slstm else "")
+          + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}; "
+          f"{args.clients} clients x {args.local_steps} steps x "
+          f"{args.batch}x{args.seq_len} tokens, l={ell}, client lr "
+          f"{args.client_lr}: FedPA round host ms "
+          f"{[round(x, 1) for x in warm]} (the first includes warm-up) "
+          f"against a bound of {total:.1f} ms (matmuls {mm:.1f}, local-step "
+          f"elementwise {local:.1f}, DP and server {dp:.1f}); peak memory "
+          f"allocated {peak / 2**30:.2f} GiB (reckoned "
+          f"{reckoned / 2**30:.2f} GiB of fp32 vectors); DP launches "
+          f"{launches} (expected {expected} each); swa_decode launches "
+          f"{swa.launches['swa_decode']} (expected 0)", flush=True)
+    if d != d_want:
+        fail(f"{cfg.name} has d={d}, expected {d_want}")
     if any(n != expected for n in launches.values()):
-        fail(f"train: DP launches {launches} != {expected} each")
+        fail(f"train {cfg.name}: DP launches {launches} != {expected} each")
     if swa.launches["swa_decode"] != 0:
-        fail("swa_decode launched on the training path")
+        fail(f"swa_decode launched on the training path of {cfg.name}")
     losses = [r[k] for r in recs for k in ("eval_loss", "client_loss_first",
                                            "client_loss_last")]
     if len(recs) != args.rounds or not all(map(math.isfinite, losses)):
-        fail(f"train: records {recs}")
-    profile_train(sum(warm[1:]) / len(warm[1:]), seed)
-    return launches
+        fail(f"train {cfg.name}: records {recs}")
+    return launches, res, args, warm
 
 
 def profile_train(round_ms: float, seed: int, rounds: int = 1) -> None:
@@ -1813,8 +1917,8 @@ def store_close(got, want, what: str) -> None:
 def fedep_store_replay(seed: int) -> dict:
     """Phase 10b: FedEP on fedlm-100m cut to one layer, fp32, with the host
     store on the card, the device store on the card and the device store
-    on the CPU (phase 9b's settings at client lr 0.01; ``lr_witness``
-    reports 9b's 0.05, where the distance passes phase 4's bound). The
+    on the CPU (phase 9b's settings at client lr 0.01; at 9b's 0.05 the
+    distance passed phase 4's bound). The
     card runs, with deterministic algorithms, must agree bit for bit
     (params, sites, stamps), the card and the CPU within phase 4's bound.
     Returns the device-store card run's DP launches."""
@@ -1871,89 +1975,6 @@ def fedep_store_replay(seed: int) -> dict:
     return launches["device store, card"]
 
 
-@contextlib.contextmanager
-def round_snapshots(out: list):
-    """Inside the block, ``launch.train``'s checkpoint writer appends
-    ``(step, params, client-state dict or None)`` to ``out`` on the host
-    instead of writing files: with ``--ckpt-every 1`` a run leaves the
-    state after each of its rounds."""
-    from repro_torch.core import tree_math as tm
-    from repro_torch.launch import train
-
-    def keep(ckpt_dir, tree, step, metadata=None):
-        server, clients = ((tree["server"], tree["clients"])
-                           if isinstance(tree, dict) else (tree, None))
-        out.append((step, tm.tmap(lambda t: t.detach().cpu(), server.params),
-                    clients))
-
-    real, train.save_checkpoint = train.save_checkpoint, keep
-    try:
-        yield
-    finally:
-        train.save_checkpoint = real
-
-
-def lr_witness(seed: int) -> None:
-    """Phase 10b, part 2: 10b's one-layer runs at phase 9b's client lr
-    0.05, where FedEP's card-vs-CPU distance passes phase 4's bound, and
-    FedPA on the same cohorts and local steps (no sites), each on the card
-    and the CPU. Prints, after every round, the params' card-vs-CPU max
-    abs diff of both algorithms and that of FedEP's sites, written in
-    round 2 before any is read back: whether the growth is the local
-    steps' (shared with FedPA) or FedEP's own. A report: only finite
-    values and the stamps are checked."""
-    import tempfile
-
-    import numpy as np
-    import torch
-
-    from repro_torch import configs
-    from repro_torch.core import tree_math as tm
-    from repro_torch.launch import train
-
-    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
-    fedep = fedep_argv(REPLAY_ARGV, 4) + ["--rounds", "3"]
-    fedpa = list(REPLAY_ARGV) + ["--rounds", "3"]
-    fedpa[fedpa.index("--num-clients") + 1] = "4"
-    diffs, sites, loss = {}, {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for alg, argv in (("fedpa", fedpa), ("fedep", fedep)):
-            snaps, t0 = {}, time.perf_counter()
-            for dev in ("card", "CPU"):
-                snaps[dev] = []
-                extra = (["--ckpt-dir", tmp, "--ckpt-every", "1",
-                          "--seed", str(seed)]
-                         + (["--device", "cpu"] if dev == "CPU" else []))
-                with deterministic(), round_snapshots(snaps[dev]):
-                    res = train.main(argv + extra, cfg=cfg,
-                                     compute_dtype=torch.float32)
-                loss[alg, dev] = [round(r["client_loss_last"], 4)
-                                  for r in res["records"]]
-            diffs[alg] = [max((a - b).abs().max().item() for a, b in zip(
-                tm.tleaves(pc), tm.tleaves(pp)))
-                for (_, pc, _), (_, pp, _) in zip(*snaps.values())]
-            if alg == "fedep":
-                sites = [max(float(np.abs(a - b).max()) for a, b in zip(
-                    tm.tleaves(cc["buffers"]), tm.tleaves(cp["buffers"])))
-                    for (_, _, cc), (_, _, cp) in zip(*snaps.values())]
-                stamps = [(cc["stamps"].tolist(), cp["stamps"].tolist())
-                          for (_, _, cc), (_, _, cp) in zip(*snaps.values())]
-            print(f"  {alg} at client lr 0.05: {time.perf_counter() - t0:.1f}"
-                  f" s; client loss_last card {loss[alg, 'card']}, CPU "
-                  f"{loss[alg, 'CPU']}", flush=True)
-    print(f"lr witness ({cfg.name} cut to {cfg.num_layers} layer, fp32, 2 of "
-          f"4 clients, 1 burn-in + 2 sampling rounds, client lr 0.05): "
-          f"card vs CPU params max abs diff after rounds 1-3: FedPA "
-          f"{[f'{x:.3g}' for x in diffs['fedpa']]}, FedEP "
-          f"{[f'{x:.3g}' for x in diffs['fedep']]}; FedEP sites "
-          f"{[f'{x:.3g}' for x in sites]} (round 2's written before any is "
-          f"read back)", flush=True)
-    if not all(map(math.isfinite, diffs["fedpa"] + diffs["fedep"] + sites)):
-        fail(f"lr witness: a distance is not finite ({diffs}, {sites})")
-    if any(c != p for c, p in stamps):
-        fail(f"lr witness: the card's stamps differ from the CPU's {stamps}")
-
-
 def store_sync_check() -> None:
     """Phase 10c: ``device_gather`` / ``device_scatter`` on the card, with
     the ids, stamps and write mask already there, raise nothing under
@@ -2008,9 +2029,9 @@ def store_sync_check() -> None:
 def stateful_cnn_rounds(params, seed: int) -> dict:
     """Phase 10d: SCAFFOLD (host and device store) and FedEP (parallel and
     chunk 6) on the full-width CNN with phase 3's settings, each against
-    its CPU replay; the two SCAFFOLD runs bit for bit (cuDNN deterministic
-    for that pair, so the check sees the stores and not cuDNN's choice of
-    algorithm). Returns each run's DP launches."""
+    its CPU replay (the card under cuDNN's deterministic algorithms, as
+    every card-vs-CPU CNN comparison); the two SCAFFOLD runs bit for bit.
+    Returns each run's DP launches."""
     from repro_torch.kernels import fedpa_dp
 
     by_run, scaffold = {}, {}
@@ -2018,7 +2039,7 @@ def stateful_cnn_rounds(params, seed: int) -> dict:
         stateful_alg = over["algorithm"]
         pair = stateful_alg == "scaffold"
         fedpa_dp.reset_launches()
-        with deterministic(pair):
+        with deterministic():
             state, records, ms = run_rounds("cuda", params, seed, over)
         launches = dict(fedpa_dp.launches)
         expected = (0 if stateful_alg == "scaffold"
@@ -2157,7 +2178,6 @@ def per_client_state(card: str, params, seed: int) -> dict:
     torch.cuda.empty_cache()
     by_run["fedlm-100m 1 layer fp32 fedep (vs CPU)"] = \
         fedep_store_replay(seed)
-    lr_witness(seed)
     store_sync_check()
     by_run.update(stateful_cnn_rounds(params, seed))
     checkpoint_resume(seed)
@@ -2538,10 +2558,12 @@ def async_cnn_rounds(params, seed: int) -> dict:
     the draws, params within phase 4's bound, FedPA's DP launches the
     synchronous count. Returns each run's DP launches.
 
-    The card runs with cuDNN's deterministic algorithms: with the default
-    ones the stragglers run's card params vary from run to run, and in
-    about one run of three (on an H100) land 1.72e-4 from the CPU's
-    instead of ~4e-5."""
+    The card runs with cuDNN's deterministic algorithms, as every
+    card-vs-CPU CNN comparison: the default ones take a data-gradient
+    kernel that sums with atomics (``cudnn::detail::dgrad_engine``), so
+    the card's params vary from run to run (on an H100 the stragglers run
+    landed 1.72e-4 from the CPU's in 2 of 6 tries, ~4e-5 in the
+    others; phase 4 lists the kernels)."""
     import torch
 
     from repro_torch.kernels import fedpa_dp
@@ -2915,8 +2937,220 @@ def fedlora_rounds(card: str, seed: int) -> dict:
     return by_run
 
 
+def profile_step(cfg, args, params, seed: int) -> None:
+    """Where a local step's time goes (a whole round takes minutes under
+    the profiler at xlstm-125m's ~10^6 device ops): one bf16
+    ``vmap(lm_grad_fn)`` over the cohort from ``params`` on random tokens
+    (not ``launch.train``'s round), timed unprofiled (host ms with a sync,
+    warm), then once more under ``torch.profiler``: device ops and time,
+    the top kernels. The idle share (the profiled call's device time over
+    the unprofiled call's host ms) and the ops a round (the step's count
+    times the local steps) are estimates across two calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import tree_math as tm
+    from repro_torch.models import steps
+
+    C, B, S = args.clients, args.batch, args.seq_len
+    cohort = tm.tmap(lambda t: t.expand(C, *t.shape).clone(), params)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (C, B, S + 1), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(seed))}
+    fn = torch.func.vmap(steps.lm_grad_fn(cfg, q_chunk=min(64, S)))
+    host = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(cohort, batch)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(cohort, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ops = sum(e.count for e in events)
+    print(f"step profile ({cfg.name}, one bf16 vmap(grad) local step of "
+          f"{C} clients x {B}x{S} tokens): host ms {host[-1]:.1f} (warm; "
+          f"first {host[0]:.1f}); {ops} device ops, device time "
+          f"{dev_ms:.1f} ms (a second, profiled call); estimated device "
+          f"idle share {1 - dev_ms / host[-1]:.3f} (the profiled call's "
+          f"device time over the unprofiled call's host ms); estimated "
+          f"device ops a round ~{ops * args.local_steps} (x "
+          f"{args.local_steps} local steps)",
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms {e.count:7d} "
+              f"calls  {e.key[:90]}")
+
+
+def remat_check(seed: int) -> dict:
+    """Phase 14b: one FedPA round of the full-width fedlm-100m
+    (``REMAT_ARGV``, fp32 compute) from the same state with
+    ``remat="none"`` and ``"full"``: params within phase 4's bound, the
+    peak lower with the recompute. Returns the DP launches of each
+    run."""
+    import torch
+
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch import train
+
+    argv = REMAT_ARGV + ["--seed", str(seed)]
+    args = train.parse_args(argv)
+    runs, by_run = {}, {}
+    for remat in ("none", "full"):
+        fedpa_dp.reset_launches()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = train.main(argv, compute_dtype=torch.float32, remat=remat)
+        torch.cuda.synchronize()
+        runs[remat] = (res, torch.cuda.max_memory_allocated())
+        by_run[f"fedlm-100m fp32 fedpa remat={remat}"] = dict(
+            fedpa_dp.launches)
+    (none, peak_none), (full, peak_full) = runs["none"], runs["full"]
+    print(f"remat {none['cfg'].name} (d={none['cfg'].param_count():,}, "
+          f"fp32, one FedPA round of {args.clients} clients x "
+          f"{args.local_steps} steps x {args.batch}x{args.seq_len} tokens): "
+          f"round host "
+          f"ms none {none['seconds'][0] * 1e3:.1f}, full "
+          f"{full['seconds'][0] * 1e3:.1f}; peak memory allocated none "
+          f"{peak_none / 2**30:.2f} GiB, full {peak_full / 2**30:.2f} GiB; "
+          f"DP launches {by_run}", flush=True)
+    params_close(full["state"].params, none["state"].params,
+                 "remat full vs none, fedlm-100m fp32")
+    if not peak_full < peak_none:
+        fail(f"remat: the recompute's peak {peak_full} is not below "
+             f"{peak_none}")
+    return by_run
+
+
+def grad_cuts(seed: int) -> None:
+    """Phase 14c: ``vmap(grad)`` of the loss over 2 clients (the same
+    params, their own batches) on one-layer fp32 cuts at full width, card
+    against the CPU from the same weights: losses and grads within phase
+    4's bound. An MoE cut records the card's expert choices and forces
+    the CPU onto them (``routed``), counting the CPU router's flips."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import tree_math as tm
+    from repro_torch.launch.train import bf16_values
+    from repro_torch.models import model, steps
+
+    LS = configs.LayerSpec
+    moe_cfg = configs.replace(configs.get_config("qwen3-moe-30b-a3b"),
+                              repeats=1)
+    llama = configs.get_config("llama4-scout-17b-a16e")
+    cuts = (
+        ("moe onehot", moe_cfg, 64),
+        ("moe sort", configs.replace(moe_cfg, moe=configs.replace(
+            moe_cfg.moe, routing="sort")), 64),
+        ("llama4 moe", configs.replace(llama, pattern=llama.pattern[-1:],
+                                       repeats=1), 64),
+        ("rglru, rglru, swa", configs.replace(
+            configs.get_config("recurrentgemma-9b"), repeats=1, tail=()), 64),
+        ("audio frontend", configs.replace(
+            configs.get_config("musicgen-medium"), repeats=1), 64),
+        ("vision frontend", configs.replace(
+            configs.get_config("internvl2-26b"), repeats=1), 64),
+        ("slstm, mlstm", configs.replace(configs.get_config("xlstm-125m"),
+                                         repeats=1), 128),
+    )
+    f32, B, C = torch.float32, 2, 2
+    for name, cfg, S in cuts:
+        t0 = time.perf_counter()
+        params = model.init_params(
+            torch.Generator("cuda").manual_seed(seed), cfg, f32,
+            device="cuda")
+        r = torch.Generator().manual_seed(seed + 1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (C, B, S + 1),
+                                         generator=r)}
+        if cfg.frontend:
+            batch["frontend"] = torch.from_numpy(bf16_values(
+                (torch.randn((C, B, cfg.frontend_tokens, cfg.d_model),
+                             generator=r) / math.sqrt(cfg.d_model)).numpy()))
+
+        def client(p, b):
+            """One client's (loss, grads, its router's top-k choices)."""
+            def loss(p):
+                seen = []
+                with routed(record=seen, force=b.get("forced"), flips=[]):
+                    value = steps.lm_loss(p, b, cfg, compute_dtype=f32,
+                                          q_chunk=64, remat="none")[0]
+                return value, tuple(seen)
+
+            grads, (value, seen) = torch.func.grad_and_value(
+                loss, has_aux=True)(p)
+            return value, grads, seen
+
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            p = tm.tmap(lambda t: t.to(dev), params)
+            b = tm.tmap(lambda t: t.to(dev), batch)
+            if dev == "cpu" and cfg.moe.enabled:
+                b["forced"] = tuple(t.cpu() for t in out["cuda"][2])
+            if cfg.moe.enabled:
+                res = torch.func.vmap(client, in_dims=(None, 0))(p, b)
+            else:
+                res = torch.func.vmap(steps.lm_grad_fn(
+                    cfg, compute_dtype=f32, q_chunk=64),
+                    in_dims=(None, 0))(p, b) + ((),)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out[dev] = res        # the card's grads stay on the card
+            secs[dev] = time.perf_counter() - t1
+            del p, b, res
+        (lc, gc, seen_card), (lp, gp, seen_cpu) = out["cuda"], out["cpu"]
+        lc = lc.cpu()
+        flips = sum(int((a.cpu().sort(-1).values != b.sort(-1).values)
+                        .any(-1).sum()) for a, b in zip(seen_card, seen_cpu))
+        choices = sum(a[..., 0].numel() for a in seen_card)
+        # compared on the card, one leaf at a time
+        pairs = list(zip(tm.tleaves(gc), tm.tleaves(gp)))
+        err = max((a - b.cuda()).abs().max().item() for a, b in pairs)
+        print(f"fp32 one-layer vmap(grad) {name} ({cfg.name}, "
+              f"{'/'.join(f'{s.mixer}+{s.ffn}' for s in cfg.layers())}, d="
+              f"{cfg.param_count():,}, {C} clients x batch {B} x {S} text "
+              f"tokens{f' + {cfg.frontend_tokens} frontend' if cfg.frontend else ''}), "
+              f"card vs CPU: losses {[round(float(x), 6) for x in lc]} vs "
+              f"{[round(float(x), 6) for x in lp]}, grads max abs diff "
+              f"{err:.3g}"
+              + (f"; router flips on the CPU {flips} of {choices} token "
+                 f"choices (forced onto the card's)" if cfg.moe.enabled
+                 else "")
+              + f"; card {secs['cuda']:.1f} s, CPU {secs['cpu']:.1f} s "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not torch.allclose(lc, lp, rtol=1e-3, atol=1e-4):
+            fail(f"vmap(grad) {name}: card vs CPU losses differ")
+        for i, (a, b) in enumerate(pairs):
+            b = b.cuda()
+            if not (torch.isfinite(a).all()
+                    and torch.allclose(a, b, rtol=1e-3, atol=1e-4)):
+                fail(f"vmap(grad) {name}: grad leaf {i} differs ({err})")
+        del params, out, gc, gp, pairs
+        torch.cuda.empty_cache()
+
+
+def train_rest(card: str, seed: int) -> dict:
+    """Phase 14 (14a-14c); returns the DP launches of its runs."""
+    import torch
+
+    launches, res, args, _ = train_path(card, seed, XLSTM_ARGV, XLSTM_D)
+    by_run = {"xlstm-125m train": launches}
+    profile_step(res["cfg"], args, res["state"].params, seed)
+    del res
+    torch.cuda.empty_cache()
+    by_run.update(remat_check(seed))
+    torch.cuda.empty_cache()
+    grad_cuts(seed)
+    return by_run
+
+
 def main() -> int:
-    """Run the thirteen phases; returns the exit code."""
+    """Run the fourteen phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2977,7 +3211,9 @@ def main() -> int:
     cuda_runs = {}
     for streaming in (False, True):
         t0 = time.perf_counter()
-        state, history = run_main_path("cuda", params, args.seed, streaming)
+        with deterministic():
+            state, history = run_main_path("cuda", params, args.seed,
+                                           streaming)
         cuda_runs[streaming] = state
         print(f"cuda run streaming_dp={streaming}: "
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms for {ROUNDS} rounds "
@@ -3008,8 +3244,10 @@ def main() -> int:
     done(3)
 
     # -- phase 4: the same rounds on the CPU --------------------------------
+    cpu_runs = {}
     for streaming, cuda_state in cuda_runs.items():
         cpu_state, _ = run_main_path("cpu", params, args.seed, streaming)
+        cpu_runs[streaming] = cpu_state.params
         err = max((cuda_state.params[k].cpu() - v).abs().max().item()
                   for k, v in cpu_state.params.items())
         print(f"cuda vs cpu final params (streaming_dp={streaming}): "
@@ -3020,7 +3258,7 @@ def main() -> int:
             torch.testing.assert_close(cuda_state.params[k].cpu(), v,
                                        rtol=1e-3, atol=1e-4,
                                        msg=lambda m, k=k: f"{k}: {m}")
-
+    conv_kernels(params, args.seed, cpu_runs[False])
     done(4)
     torch.cuda.empty_cache()
 
@@ -3047,7 +3285,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 9: LM training, full-width fedlm-100m ------------------------
-    by_run["fedlm-100m train"] = train_path(card, args.seed)
+    by_run["fedlm-100m train"], _, _, warm = train_path(card, args.seed)
+    profile_train(sum(warm[1:]) / len(warm[1:]), args.seed)
     torch.cuda.empty_cache()
     by_run["fedlm-100m 1 layer fp32 (vs CPU)"] = train_replay(args.seed)
     done(9)
@@ -3072,6 +3311,14 @@ def main() -> int:
     swa_by_run = {"gemma3-27b serve (phase 7)": launches["swa_decode"]}
     swa_by_run.update(serve_rest(card, args.seed))
     done(13)
+    torch.cuda.empty_cache()
+
+    # -- phase 14: training the rest of the LM stack ------------------------
+    swa_decode.reset_launches()
+    by_run.update(train_rest(card, args.seed))
+    if swa_decode.launches["swa_decode"] != 0:
+        fail("swa_decode launched while training (phase 14)")
+    done(14)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -24,7 +24,6 @@ from repro_torch.configs import (
     xlstm_125m,
 )
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
-    LM_ITEM,
     FedConfig,
     LayerSpec,
     ModelConfig,

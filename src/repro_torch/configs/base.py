@@ -28,9 +28,6 @@ STATE_PLACEMENTS = ("host", "device")
 MIXERS = ("attn", "swa", "mlstm", "slstm", "rglru")
 #: FFN kinds.
 FFNS = ("dense", "moe", "none")
-#: ROADMAP.md queue-1 item that ports the rest of the LM stack (its
-#: training: the new mixers, the MoE and the frontends under vmap(grad)).
-LM_ITEM = 11
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -153,14 +150,6 @@ class ModelConfig:
     def lru_width(self) -> int:
         """RG-LRU recurrent width (lru_d, defaulting to d_model)."""
         return self.lru_d or self.d_model
-
-    @property
-    def attention_only(self) -> bool:
-        """True when every layer is an attention mixer with a dense or no
-        FFN and there is no frontend: the configs the port trains."""
-        return (not self.moe.enabled and not self.frontend
-                and all(s.mixer in ("attn", "swa") and s.ffn != "moe"
-                        for s in self.pattern + self.tail))
 
     def param_count(self) -> int:
         """Exact parameter count from the shapes ``init_params`` makes on the

@@ -74,13 +74,16 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     ``round_program.make_round_program`` describes, per
     ``fed.client_state_placement``.
 
-    client_batches: ``{"tokens": (C, K, B_local, S+1) int}`` (numpy or
+    client_batches: ``{"tokens": (C, K, B_local, S+1) int}``, plus
+    ``"frontend": (C, K, B_local, F, d)`` for a frontend arch (numpy or
     tensors). ``use_sampling=False`` gives the burn-in-round variant
-    (FedAvg regime) of the same FedPA config. The reference's default
-    ``remat="full"`` does not compose with the round's ``torch.func``
-    transforms (``models.steps.lm_grad_fn``), so the port's default is
-    ``"none"``; the reference's ``spmd_axes`` have no counterpart on one
-    device.
+    (FedAvg regime) of the same FedPA config. ``remat="full"`` recomputes
+    each pattern repeat in the backward pass under the round's
+    ``vmap(grad)`` (``models.model.recompute``), as the reference's
+    default does; the port's default is ``"none"``, since its rounds are
+    bound by the host's launches and the recompute adds device ops.
+    ``"dots"`` raises (``models.model.forward``). The reference's
+    ``spmd_axes`` have no counterpart on one device.
     """
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
                                   q_chunk, remat, use_sampling, chunk_size)

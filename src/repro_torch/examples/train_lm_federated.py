@@ -3,11 +3,15 @@ decoder on the synthetic-token federated corpus, through the port's
 ``launch/train.py`` (counterpart of ``examples/train_lm_federated.py``).
 
 The reduced config by default; ``--full`` trains the whole 100M model.
-Every other flag goes to ``repro_torch.launch.train``; it runs on ``cuda``
-unless ``--device cpu`` is given.
+Every other flag goes to ``repro_torch.launch.train`` and overrides the
+example's: ``--arch`` trains any of the 11 archs instead (MoE, RG-LRU,
+xLSTM, the frontend archs), reduced unless ``--full``. It runs on
+``cuda`` unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.examples.train_lm_federated \\
       --device cpu                                            # smoke
+  PYTHONPATH=src python -m repro_torch.examples.train_lm_federated \\
+      --device cpu --arch qwen3-moe-30b-a3b                   # smoke MoE
   PYTHONPATH=src python -m repro_torch.examples.train_lm_federated --full \\
       --rounds 300 --clients 8 --batch 8 --seq-len 512        # real
 """

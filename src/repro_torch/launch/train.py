@@ -37,14 +37,19 @@ cohorts (async only). Cohorts are built ``--prefetch-rounds`` ahead
 the default) or a thread; prefetching changes no number, only when
 cohorts are built.
 
+Every arch trains: a frontend arch's batches carry the stub frontend
+embeddings (rounded to bf16, as the reference's) before ``--seq-len``
+minus ``frontend_tokens`` text tokens, and an MoE arch's loss adds its
+router aux loss.
+
 Differences from the reference:
 
-* No remat: torch's checkpointing does not compose with the round's
-  ``torch.func`` transforms (``models.steps.lm_grad_fn``), so every
-  repeat's activations are kept.
+* The local steps keep every activation by default (``main(remat=
+  "none")``); the reference recomputes each pattern repeat
+  (``remat="full"``), which ``main(remat="full")`` gives here too
+  (``models.model.recompute``, under the round's ``vmap(grad)``).
 * Flags whose paths are not ported raise ``NotImplementedError`` naming
-  their ROADMAP.md queue-1 item (``refuse_unported``), and so does an
-  ``--arch`` the port serves but does not train yet (item 11).
+  their ROADMAP.md queue-1 item (``refuse_unported``).
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -72,7 +78,7 @@ from repro_torch.core.sharded_round import make_fed_round_split
 from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.lm_synthetic import SyntheticLMData
 from repro_torch.models.model import init_params
-from repro_torch.models.steps import lm_loss, refuse_untrained
+from repro_torch.models.steps import lm_loss
 from repro_torch.optim import get_optimizer
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -194,9 +200,7 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md queue-1 item
-    for the first flag whose path this port does not have, or for an
-    ``--arch`` whose family the port does not train yet (a non-attention
-    mixer, an MoE FFN or a frontend: item 11)."""
+    for the first flag whose path this port does not have."""
     pending = [
         (args.coordinator is not None, "--coordinator", 10),
         ((args.num_processes or 1) > 1, "--num-processes > 1", 10),
@@ -206,27 +210,44 @@ def refuse_unported(args) -> None:
     for bad, what, item in pending:
         if bad:
             raise _not_ported(what, item)
-    # an arch the port serves but does not train yet (item 11)
-    refuse_untrained(configs.get_config(args.arch))
+
+
+def bf16_values(x: np.ndarray) -> np.ndarray:
+    """``x`` rounded to bfloat16, kept as float32 numpy (numpy has no
+    bfloat16): the values the reference's ``astype(jnp.bfloat16)`` gives
+    its frontend embeddings."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
 
 
 @dataclasses.dataclass(frozen=True)
 class RoundBatches:
     """The cohort batch function ``(ids, round) -> {"tokens": (C, K, B,
     S+1)}`` for ``CohortSource`` (numpy; the round moves it to the
-    device). A module-level class, so the process prefetcher's spawned
-    child can unpickle it."""
+    device), plus ``"frontend"`` (C, K, B, F, d) when ``frontend_tokens``
+    is set: client ``c``'s stub embeddings of local step ``k`` of round
+    ``r`` (salt ``r * 1000 + k``), rounded to bf16 as the reference's. A
+    module-level class, so the process prefetcher's spawned child can
+    unpickle it."""
 
     data: SyntheticLMData
     local_steps: int
     batch: int
     seq_len: int
+    frontend_tokens: int = 0
+    d_model: int = 0
 
     def __call__(self, ids, round_idx: int):
-        """One cohort's token batches."""
-        return {"tokens": self.data.round_batches(
+        """One cohort's batches."""
+        batches = {"tokens": self.data.round_batches(
             ids, self.local_steps, self.batch, self.seq_len,
             round_idx=round_idx)}
+        if self.frontend_tokens:
+            batches["frontend"] = bf16_values(np.stack([np.stack([
+                self.data.frontend_embeddings(
+                    int(c), self.batch, self.frontend_tokens, self.d_model,
+                    salt=round_idx * 1000 + k)
+                for k in range(self.local_steps)]) for c in ids]))
+        return batches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,9 +269,15 @@ class ShiftedCohorts:
 
 def make_eval_fn(args, cfg, data, s_text, q_chunk, device, compute_dtype):
     """Held-out eval loss on a batch from the unseen client
-    ``num_clients + 1``, without a graph."""
-    eval_batch = to_device({"tokens": data.client_batches(
-        args.num_clients + 1, 1, args.batch, s_text)[0]}, device)
+    ``num_clients + 1`` (with its frontend embeddings for a frontend
+    arch), without a graph."""
+    eval_batch = {"tokens": data.client_batches(
+        args.num_clients + 1, 1, args.batch, s_text)[0]}
+    if cfg.frontend:
+        eval_batch["frontend"] = bf16_values(data.frontend_embeddings(
+            args.num_clients + 1, args.batch, cfg.frontend_tokens,
+            cfg.d_model))
+    eval_batch = to_device(eval_batch, device)
 
     @torch.no_grad()
     def eval_fn(params):
@@ -281,14 +308,15 @@ def restore_if_present(args, state, store, ckpt_tree):
 
 
 def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
-               eval_fn, emit, maybe_checkpoint, q_chunk, compute_dtype):
+               eval_fn, emit, maybe_checkpoint, q_chunk, compute_dtype,
+               remat):
     """Drive the ``RoundEngine`` over the burn-in and sampling programs
     from ``start_round`` to ``args.rounds``; returns ``(state, history)``.
     Synchronous runs keep an in-flight window of one; ``--async-rounds``
     widens it to ``max_staleness + 1``."""
     has_burn = alg.burns_in
     kw = dict(placement="parallel", compute_dtype=compute_dtype,
-              q_chunk=q_chunk)
+              q_chunk=q_chunk, remat=remat)
 
     def stages(use_sampling):
         return make_fed_round_split(cfg, fed, use_sampling=use_sampling,
@@ -342,12 +370,15 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
                       on_round=on_round)
 
 
-def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
+def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE,
+         remat: str = "none") -> dict:
     """Parse flags, build the round programs, drive the training loop.
 
-    ``cfg`` replaces the config that ``--arch`` / ``--smoke`` name, and
+    ``cfg`` replaces the config that ``--arch`` / ``--smoke`` name,
     ``compute_dtype`` the bf16 compute of the local steps (a full-width
-    model cut in depth, in fp32, for comparing devices). Returns ``cfg``,
+    model cut in depth, in fp32, for comparing devices) and ``remat`` the
+    local steps' recompute (``"full"``: each pattern repeat recomputed in
+    the backward pass, as the reference's default). Returns ``cfg``,
     the final ``state``, the per-client ``store`` (None when stateless),
     the engine's ``history``, the printed ``records`` and each round's
     host ``seconds``.
@@ -364,7 +395,7 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
 
     data = SyntheticLMData(vocab_size=cfg.vocab_size,
                            num_clients=args.num_clients, seed=args.seed)
-    s_text = args.seq_len
+    s_text = args.seq_len - (cfg.frontend_tokens if cfg.frontend else 0)
     params = tm.tmap(lambda t: t.to(device), init_params(
         torch.Generator().manual_seed(args.seed), cfg, device="cpu"))
     server_opt = get_optimizer(fed.server_opt, fed.server_lr,
@@ -394,7 +425,8 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
     q_chunk = min(64, s_text)
     source = CohortSource(fed, args.num_clients,
                           RoundBatches(data, fed.local_steps, args.batch,
-                                       s_text),
+                                       s_text, cfg.frontend_tokens
+                                       if cfg.frontend else 0, cfg.d_model),
                           seed=args.seed)
     eval_fn = make_eval_fn(args, cfg, data, s_text, q_chunk, device,
                            compute_dtype)
@@ -413,7 +445,7 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE) -> dict:
         state, history = run_rounds(args, cfg, fed, alg, state, store,
                                     start_round, source, eval_fn, emit,
                                     maybe_checkpoint, q_chunk,
-                                    compute_dtype)
+                                    compute_dtype, remat)
     return {"cfg": cfg, "state": state, "store": store, "history": history,
             "records": records, "seconds": seconds}
 

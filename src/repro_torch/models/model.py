@@ -26,8 +26,9 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.utils.checkpoint as ckpt
+from torch.utils import _pytree as pytree
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig, _not_ported
 from repro_torch.core import tree_math as tm
 from repro_torch.core.round import resolve_device
 from repro_torch.models import attention as attn
@@ -35,6 +36,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import rms_norm, swiglu
+
+#: ROADMAP.md queue-1 item that brings ``remat="dots"`` (keep the weight
+#: products, recompute the rest) under ``torch.func`` transforms.
+REMAT_DOTS_ITEM = 13
 
 # ---------------------------------------------------------------------------
 # Init
@@ -228,6 +233,49 @@ def _save_matmuls(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+class _Recompute(torch.autograd.Function):
+    """``fn(*tree)``'s outputs, with nothing of ``fn`` kept for the
+    backward pass but its inputs: the backward recomputes ``fn`` through
+    ``torch.func.vjp``. Unlike ``torch.utils.checkpoint`` it composes with
+    ``torch.func`` transforms (``generate_vmap_rule``: under ``vmap`` each
+    pass runs batched).
+
+    The backward runs under ``no_grad``, so it is differentiable once:
+    ``torch.func.grad`` takes its gradient with ``create_graph=True``,
+    which would otherwise keep every recomputed activation (and without a
+    recompute, every backward intermediate) alive until the end of the
+    call."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, spec, *flat):
+        with torch.no_grad():
+            return fn(*pytree.tree_unflatten(list(flat), spec))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, spec, *flat = inputs
+        ctx.fn, ctx.spec = fn, spec
+        ctx.save_for_backward(*flat)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        def fn(*flat):
+            return ctx.fn(*pytree.tree_unflatten(list(flat), ctx.spec))
+
+        with torch.no_grad():
+            _, vjp_fn = torch.func.vjp(fn, *ctx.saved_tensors)
+            return (None, None, *vjp_fn(grads))
+
+
+def recompute(fn, *args):
+    """``fn(*args)`` (a tree of tensors in, a tuple of tensors out),
+    recomputed in the backward pass under autograd or ``torch.func``."""
+    flat, spec = pytree.tree_flatten(args)
+    return _Recompute.apply(fn, spec, *flat)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
             compute_dtype=torch.bfloat16, q_chunk: int = 1024,
             remat: str = "full", logits_slice: Optional[int] = None):
@@ -240,12 +288,13 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
 
     ``remat`` ("full" | "dots" | anything else: none) recomputes each
     repeat of the pattern in the backward pass, as the JAX package's
-    ``jax.checkpoint`` does: ``torch.utils.checkpoint`` (non-reentrant),
-    with ``"dots"`` keeping the weight products. It applies only where
-    autograd records a graph. Under ``torch.func`` transforms (the
-    federated round's ``vmap(grad)``) torch refuses checkpointing with a
-    ``RuntimeError`` (saved-tensor hooks), so ``models.steps.lm_grad_fn``
-    refuses a remat request before it gets here.
+    ``jax.checkpoint`` does. ``"full"`` goes through ``recompute``, under
+    plain autograd and under ``torch.func`` transforms (the federated
+    round's ``vmap(grad)``) alike. ``"dots"`` keeps the weight products
+    through ``torch.utils.checkpoint`` (non-reentrant, selective) under
+    plain autograd; under ``torch.func`` transforms, where torch refuses
+    checkpointing (saved-tensor hooks), it raises ``NotImplementedError``
+    (ROADMAP.md queue 1, item 13).
     """
     cparams = _cast(params, compute_dtype)
     x = _embed_inputs(cparams, cfg, tokens, frontend, compute_dtype)
@@ -261,15 +310,19 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
                 aux = aux + a
         return x, aux
 
-    recompute = remat in ("full", "dots") and torch.is_grad_enabled()
-    context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                 _save_matmuls) if remat == "dots"
-               else ckpt.noop_context_fn)
+    run = unit
+    if remat == "full" and torch.is_grad_enabled():
+        run = functools.partial(recompute, unit)
+    elif remat == "dots" and torch.is_grad_enabled():
+        if torch._C._are_functorch_transforms_active():
+            raise _not_ported("remat='dots' under torch.func transforms",
+                              REMAT_DOTS_ITEM)
+        run = functools.partial(
+            ckpt.checkpoint, unit, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_matmuls))
     for r in range(cfg.repeats):
-        unit_params = _unit(cparams["pattern"], r)
-        x, a = (ckpt.checkpoint(unit, x, unit_params, use_reentrant=False,
-                                context_fn=context) if recompute
-                else unit(x, unit_params))
+        x, a = run(x, _unit(cparams["pattern"], r))
         auxs.append(a)
     aux = torch.stack(auxs).sum()
     for i, spec in enumerate(cfg.tail):

@@ -9,44 +9,30 @@ from typing import Optional
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.configs.base import LM_ITEM, ModelConfig, _not_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import softmax_cross_entropy
-
-#: ROADMAP.md queue-1 item that brings a recompute composing with
-#: ``torch.func`` (item 11, part 3).
-REMAT_ITEM = 11
-
-
-def refuse_untrained(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md queue 1, item 11 for
-    a config the port serves but does not train yet: a non-attention mixer,
-    an MoE FFN or a frontend (their ``vmap(grad)``, the MoE aux loss in the
-    loss and the frontend inputs of a batch are item 11's next part)."""
-    if not cfg.attention_only:
-        kinds = sorted({f"mixer {s.mixer!r}" for s in cfg.layers()
-                        if s.mixer not in ("attn", "swa")}
-                       | ({"the MoE FFN"} if cfg.moe.enabled else set())
-                       | ({f"frontend {cfg.frontend!r}"} if cfg.frontend
-                          else set()))
-        raise _not_ported(f"training {cfg.name} ({', '.join(kinds)})",
-                          LM_ITEM)
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             q_chunk: int = 1024, remat: str = "full"):
-    """batch: {"tokens": (B, S+1) int}. Returns (loss, metrics): the mean
-    next-token cross entropy over the valid vocab, in fp32. Configs with
-    other mixers, an MoE FFN or a frontend are refused
-    (``refuse_untrained``), so the aux loss, 0 here, adds nothing."""
-    refuse_untrained(cfg)
+    """batch: {"tokens": (B, S_text+1) int, ["frontend": (B, F, d)]}.
+    Returns (loss, metrics): the mean next-token cross entropy over the
+    valid vocab of the text positions (past a frontend's ``F``), plus
+    ``router_aux_weight`` times the MoE aux loss for an MoE config, in
+    fp32; metrics ``{"xent", "moe_aux"}``."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = model_lib.forward(params, inputs, cfg,
+                                    frontend=batch.get("frontend"),
                                     compute_dtype=compute_dtype,
                                     q_chunk=q_chunk, remat=remat)
+    if cfg.frontend:
+        logits = logits[:, cfg.frontend_tokens:]
     xent = softmax_cross_entropy(logits, targets, valid_vocab=cfg.vocab_size)
-    return xent, {"xent": xent, "moe_aux": aux}
+    total = xent + cfg.moe.router_aux_weight * aux if cfg.moe.enabled \
+        else xent
+    return total, {"xent": xent, "moe_aux": aux}
 
 
 def lm_grad_fn(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
@@ -56,21 +42,14 @@ def lm_grad_fn(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     that the round program can ``vmap`` it over the cohort. Compute runs
     in ``compute_dtype`` on the fp32 master params; grads come back fp32.
 
-    ``remat="full"`` / ``"dots"`` raise ``NotImplementedError``: torch's
-    checkpointing does not compose with ``torch.func`` transforms, and a
-    recompute that does waits for ROADMAP.md queue 1, item 11 part 3. Every
-    repeat's activations are kept instead (README: the memory it costs).
-    So does a config with a non-attention mixer, an MoE FFN or a frontend
-    (``refuse_untrained``).
+    ``remat="full"`` recomputes each pattern repeat in the backward pass
+    (``model.recompute``, which composes with ``vmap(grad)``): only the
+    repeats' inputs are kept. ``remat="dots"`` raises
+    ``NotImplementedError`` when called (ROADMAP.md queue 1, item 13).
     """
-    refuse_untrained(cfg)
-    if remat in ("full", "dots"):
-        raise _not_ported(f"remat={remat!r} under torch.func (the federated "
-                          f"round's vmap(grad))", REMAT_ITEM)
-
     def loss(params, batch):
         return lm_loss(params, batch, cfg, compute_dtype=compute_dtype,
-                       q_chunk=q_chunk, remat="none")[0]
+                       q_chunk=q_chunk, remat=remat)[0]
 
     grad_and_value = torch.func.grad_and_value(loss)
 

@@ -19,7 +19,8 @@ on the card equals the CPU's bit for bit (it is built on the host), the
 sketch's matmuls 1e-5 relative, int8 ``q`` equal but where ``x / scale``
 lies within 1e-5 of a half quantum (at most one flip), the scales per
 client; FedLoRA's ``lowrank`` rounds on the card as the stateful rounds
-above.
+above. The new families' ``vmap(grad)`` on the card (with the recompute)
+against the CPU: grads within 1e-4 of each leaf's largest entry.
 """
 import numpy as np
 import pytest
@@ -156,6 +157,54 @@ def test_smoke_serving_on_the_card_equals_the_cpu(arch):
         out[dev] = got
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,routing", [
+    ("xlstm-125m", None), ("minitron-4b", None), ("musicgen-medium", None),
+    ("internvl2-26b", None), ("recurrentgemma-9b", None),
+    ("qwen3-moe-30b-a3b", "onehot"), ("qwen3-moe-30b-a3b", "sort"),
+    ("granite-34b", None), ("llama4-scout-17b-a16e", "onehot"),
+    ("llama4-scout-17b-a16e", "sort")])
+def test_smoke_vmap_grad_on_the_card_equals_the_cpu(arch, routing):
+    """Each new family's smoke config trained as the round trains it:
+    ``vmap(lm_grad_fn)`` over 2 clients (their own params and batches,
+    frontends among them), fp32, from the same weights; the card with
+    ``remat="full"`` (the recompute under ``torch.func``), the CPU without.
+    Losses 1e-5 relative, grads within 1e-4 of each leaf's largest entry
+    (the tolerance of ``tests/test_torch_lm_grads.py`` against JAX)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import configs
+    from repro_torch.models import model, steps
+
+    cfg = configs.get_smoke(arch)
+    if routing:
+        cfg = configs.replace(cfg, moe=configs.replace(cfg.moe,
+                                                       routing=routing))
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    params = tm.tmap(lambda t: torch.stack([t, 1.01 * t]), params)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2, 25),
+                                     generator=g)}
+    if cfg.frontend:
+        batch["frontend"] = torch.randn(
+            (2, 2, cfg.frontend_tokens, cfg.d_model), generator=g).to(
+                torch.bfloat16).float()
+    out = {}
+    for dev, remat in (("cuda", "full"), ("cpu", "none")):
+        fn = torch.func.vmap(steps.lm_grad_fn(
+            cfg, compute_dtype=torch.float32, q_chunk=16, remat=remat))
+        loss, grads = fn(tm.tmap(lambda t: t.to(dev), params),
+                         tm.tmap(lambda t: t.to(dev), batch))
+        out[dev] = (loss.cpu(), [x.cpu() for x in tm.tleaves(grads)])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
 
 
 @pytest.mark.gpu

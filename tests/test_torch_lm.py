@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro import configs as jax_configs
 from repro.data import SyntheticLMData as JaxLMData
@@ -301,11 +302,24 @@ def test_unported_architectures_raise(make):
     """The configs the port refused before ROADMAP.md queue 1, item 11
     part 2 (an RG-LRU arch, an mLSTM mixer, an MoE FFN, a frontend) now
     construct, and equal the JAX package's field for field; the port
-    serves them but still refuses to train them, naming item 11."""
+    trains them: ``lm_grad_fn`` gives a finite loss and finite grads (on
+    the smoke config of the full-size arch), in the params' tree."""
     got, want = make(configs), make(jax_configs)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        steps.lm_grad_fn(got)
+    cfg = configs.get_smoke(got.name) if got.param_count() > 10**8 else got
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    r = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(r.integers(
+        0, cfg.vocab_size, size=(2, 17)))}
+    if cfg.frontend:
+        batch["frontend"] = torch.from_numpy(r.normal(size=(
+            2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    steps.lm_grad_fn(got)
+    loss, grads = steps.lm_grad_fn(cfg)(params, batch)
+    assert torch.isfinite(loss)
+    assert pytree.tree_structure(grads) == pytree.tree_structure(params)
+    assert all(torch.isfinite(g).all() for g in pytree.tree_leaves(grads))
 
 
 def test_synthetic_lm_data_matches_jax():

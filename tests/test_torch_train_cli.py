@@ -4,9 +4,10 @@ entry point's keys, the phase flips from the burn-in to FedPA, the losses are
 finite, the per-client state flags run and ``--ckpt-dir`` resumes,
 ``--async-rounds`` runs give the JAX entry point's records (FedLoRA's
 ``lowrank`` sketch among them), prefetching changes no number, the codec
-flags parse as the JAX entry point parses them, and each flag whose path
+flags parse as the JAX entry point parses them, each flag whose path
 is not ported is refused with the ROADMAP.md item that ports it, while
-the JAX package's ``parse_args`` accepts it.
+the JAX package's ``parse_args`` accepts it, and the per-client grad
+runs the families the port trains since it trains them all.
 
 Every run here builds its cohorts inline or on the thread prefetcher
 (``--prefetch-backend thread``): no test process starts a child
@@ -31,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_archs import _setup
+from test_torch_lm_grads import _batch
 from test_torch_lm_train import _fedlm_params
 from repro.core import sharded_round as jax_sharded_round
 from repro.launch import train as jax_train
@@ -87,12 +90,16 @@ def test_train_main_records(tmp_path, capsys):
                if isinstance(p, torch.Tensor))
 
 
-def test_example_runs_the_smoke_config_on_the_cpu():
-    res = train_lm_federated.main(["--device", "cpu", "--rounds", "1",
-                                   "--batch", "1", "--seq-len", "16",
-                                   "--prefetch-backend", "thread"])
-    assert res["cfg"].name == "fedlm-100m-smoke"
+@pytest.mark.parametrize("arch", [None, "musicgen-medium"])
+def test_example_runs_the_smoke_config_on_the_cpu(arch):
+    """The example's fedlm-100m, or another arch through ``--arch``."""
+    res = train_lm_federated.main(
+        ["--device", "cpu", "--rounds", "1", "--batch", "1", "--seq-len",
+         "16", "--prefetch-backend", "thread"]
+        + ([] if arch is None else ["--arch", arch]))
+    assert res["cfg"].name == f"{arch or 'fedlm-100m'}-smoke"
     assert [r["phase"] for r in res["records"]] == ["fedavg (burn-in)"]
+    assert math.isfinite(res["records"][0]["eval_loss"])
 
 
 #: The per-client state flags (ROADMAP.md queue 1, item 7) -> the phase
@@ -150,9 +157,6 @@ REFUSED = [
     (["--coordinator", "localhost:1234"], 10),
     (["--num-processes", "2"], 10), (["--process-id", "0"], 10),
     (["--shard-population"], 10),
-    *[(["--arch", arch], 11) for arch in (
-        "xlstm-125m", "musicgen-medium", "internvl2-26b",
-        "recurrentgemma-9b", "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e")],
 ]
 
 
@@ -166,16 +170,46 @@ def test_unported_flags_are_refused(flags, item):
         train.main(SMOKE + ["--rounds", "1"] + flags)
 
 
-@pytest.mark.parametrize("arch", [flags[1] for flags, item in REFUSED
-                                  if item == 11])
-def test_lm_grad_fn_refuses_untrained_families(arch):
-    """The per-client grad of the federated round refuses the families the
-    port serves but does not train yet (a non-attention mixer, an MoE FFN
-    or a frontend), at full size and smoke size, naming item 11."""
-    for get in (configs.get_config, configs.get_smoke):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 11"):
-            steps.lm_grad_fn(get(arch))
+#: The families the port serves and, since it trains them all, trains:
+#: train.main runs them in ``tests/test_torch_train_xlstm_frontends.py``
+#: and ``tests/test_torch_train_rglru_moe.py``.
+TRAINED_FAMILIES = ["xlstm-125m", "musicgen-medium", "internvl2-26b",
+                    "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                    "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.parametrize("arch", TRAINED_FAMILIES)
+def test_lm_grad_fn_trains_every_family(arch):
+    """The per-client grad of the federated round builds at full size and
+    runs at smoke size under the round's ``vmap`` over two clients (their
+    own params and batches, frontends among them): each client's loss
+    equals the JAX package's ``lm_loss`` (1e-5 relative, fp32), and its
+    loss and grads equal the unbatched ``lm_grad_fn``'s (1e-5 of each
+    leaf's largest entry)."""
+    steps.lm_grad_fn(configs.get_config(arch))
+    jcfg, tcfg, params, tparams, _, _ = _setup(arch)
+    cparams = tm.tmap(lambda t: torch.stack([t, 1.01 * t]), tparams)
+    batch = _batch(tcfg, seed=3, clients=2)
+    fn = steps.lm_grad_fn(tcfg, compute_dtype=torch.float32, q_chunk=16)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    losses, grads = torch.func.vmap(fn)(cparams, tb)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    if "frontend" in jb:
+        jb["frontend"] = jb["frontend"].astype(jnp.bfloat16)
+    jparams = jax.tree_util.tree_map(lambda x: jnp.stack([x, 1.01 * x]),
+                                     params)
+    jlosses = jax.jit(jax.vmap(lambda p, b: jax_steps.lm_loss(
+        p, b, jcfg, compute_dtype=jnp.float32, q_chunk=16,
+        remat="none")[0]))(jparams, jb)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses),
+                               rtol=1e-5)
+    for c in range(2):
+        loss, g = fn(tm.tmap(lambda t: t[c], cparams),
+                     tm.tmap(lambda t: t[c], tb))
+        assert float(loss) == pytest.approx(float(losses[c]), rel=1e-5)
+        for a, b in zip(tm.tleaves(grads), tm.tleaves(g)):
+            torch.testing.assert_close(
+                a[c], b, rtol=0, atol=1e-5 * float(b.abs().max()))
 
 
 #: The codec flags, which the port runs since ROADMAP.md queue 1, item 9.
@@ -227,10 +261,11 @@ def _close_records(got, want, keys=("eval_loss", "client_loss_first",
             assert a[k] == pytest.approx(b[k], rel=rel), k
 
 
-def _jax_train_records(argv, monkeypatch, capsys):
+def _jax_train_records(argv, monkeypatch, capsys, params=None):
     """The JAX entry point's printed records for ``argv`` (its main reads
-    ``sys.argv``), in fp32 compute from ``_fedlm_params``."""
-    params = _fedlm_params()
+    ``sys.argv``), in fp32 compute from numpy ``params`` (default:
+    ``_fedlm_params``)."""
+    params = _fedlm_params() if params is None else params
     f32 = dict(compute_dtype=jnp.float32)
     monkeypatch.setattr(jax_train, "init_params", lambda key, cfg:
                         jax.tree_util.tree_map(jnp.asarray, params))
