@@ -156,8 +156,8 @@
    one-layer fp32 cut (client lr 0.01, 3 rounds) on the card and the
    CPU: ``lowrank`` within phase 4's bound (params and residuals),
    ``lowrank+int8`` as a report (largest differences, int8 flips between
-   the runs), and ``lowrank`` at window 3 (staleness equal, within the
-   bound).
+   the runs), both at 2 rounds (one FedLoRA round), and ``lowrank`` at
+   window 3, 3 rounds (staleness equal, within the bound).
 13. Serving the rest of the LM stack on the card, bf16, each model freed
    before the next. (a) ``launch/serve.py``'s ``main`` on the full
    48-layer qwen3-moe-30b-a3b (128 experts, top-8, one-hot routing),
@@ -187,8 +187,8 @@
    ``SWA_CASES``).
 14. Training the rest of the LM stack. (a) ``launch.train.main`` on the
    full-size xlstm-125m (d = 129,642,288: 6 sLSTM and 6 mLSTM layers)
-   with phase 9's FedPA settings: DP launches (rounds - burn-in rounds)
-   x (l - 1) = 6 each, ``swa_decode`` none, finite records; round host ms
+   with phase 9's FedPA settings cut to one FedPA round and no burn-in
+   round: DP launches (rounds - burn-in rounds) x (l - 1) = 3 each, ``swa_decode`` none, finite records; round host ms
    against the reckoned bound, the peak memory against phase 9's
    reckoning, and a profiled local step (device ops and time, idle
    share, top kernels). Client lr 0.01: at 0.05 its local steps diverge. (b) One FedPA round of the full-width
@@ -206,6 +206,25 @@
    xlstm-125m (one sLSTM and one mLSTM layer). An MoE cut's CPU run is
    forced onto the experts the card chose, and the CPU router's flips
    are counted.
+15. Multi-process training (``launch/mesh.py``, ``core/collective.py``,
+   the population-sharded store). (a) Phase 10d's CNN FedEP rounds
+   through ``FedSim(mesh=make_host_mesh())`` inside a one-rank NCCL
+   group, against the same rounds with no mesh, both under
+   ``deterministic()``: params and store bitwise equal (the NCCL calls
+   are checked; NCCL between cards is not, on one card). (b) Phase 10a's
+   command (FedEP, full-width fedlm-100m, 4 of 16 clients) on two ``python
+   -m repro_torch.launch.train`` processes sharing the card over gloo
+   (``--num-processes 2 --dist-backend gloo``, a checkpoint at round 3):
+   both exit 0, rank 0 logs 3 records and rank 1 none, losses finite and
+   ``client_loss_last`` within 2e-2 relative of 10a's, 6 DP launches of
+   each kernel on each rank, 8 store rows (6,443,778,048 B) a rank, the
+   replica digests equal after every round, and the two shard files' 16
+   stamps equal to the draws; each rank's peak memory, host ms per round
+   and bytes sent to the other rank per round (from its ``rank_summary``
+   line). (c) 10b's one-layer fp32 FedEP replay on two ranks (spawned,
+   one client each) against one process on the card: params and the
+   store put together from the ranks within phase 4's bound, stamps
+   exact.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -279,9 +298,12 @@ REPLAY_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
                "0"]
 # phase 14a: the same command on the full-size xlstm-125m, at client lr
 # 0.01: at the default 0.05 (momentum 0.9) its local steps diverge and
-# reach NaN within the first round at full depth
+# reach NaN within the first round at full depth; one FedPA round and no
+# burn-in round (cut from 1 + 2 for the script's time: 3 DP launches of
+# each kernel, and the round's host ms includes its warm-up)
 XLSTM_ARGV = [("xlstm-125m" if a == "fedlm-100m" else a)
-              for a in TRAIN_ARGV] + ["--client-lr", "0.01"]
+              for a in TRAIN_ARGV] + ["--client-lr", "0.01", "--rounds",
+                                      "1", "--burn-in-rounds", "0"]
 # phase 14b: phase 9's command at 8 x 512 tokens a client step, where the
 # activations a recompute frees weigh against the DP's fp32 vectors
 REMAT_ARGV = TRAIN_ARGV + ["--batch", "8", "--seq-len", "512", "--rounds",
@@ -338,6 +360,10 @@ FEDLM_UP = {"fedpa_precision": 805_472_256, "lowrank": 3_612_160,
             "lowrank+int8": 903_144, "int8": 201_368_168}
 FEDLM_DOWN, FEDLM_DENSE = 402_736_132, 402_736_128
 
+# phase 15: multi-process training. Seconds a rank waits for its peers
+# (and each collective), and for a rank to exit
+MP_CONNECT_S = 300
+MP_TIMEOUT_S = 600
 # the serving path (gemma3-27b at full width): batch, prompt, generated
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 64
 # phase 13: the other architectures served at full width, bf16: (arch,
@@ -703,9 +729,9 @@ def make_batch_fn(cfg, seed: int):
     return batch_fn
 
 
-def make_sim(device: str, seed: int, streaming: bool, **over):
+def make_sim(device: str, seed: int, streaming: bool, mesh=None, **over):
     """The main path's ``FedSim`` on the full-width EMNIST CNN
-    (``FED_KW`` with ``over`` on top)."""
+    (``FED_KW`` with ``over`` on top; over ``mesh`` when given)."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.emnist_cnn import config
     from repro_torch.core.round import FedSim
@@ -714,7 +740,7 @@ def make_sim(device: str, seed: int, streaming: bool, **over):
     cfg = config()
     return FedSim(FedConfig(**{**FED_KW, **over}, streaming_dp=streaming),
                   cnn_grad_fn(cfg), make_batch_fn(cfg, seed), NUM_CLIENTS,
-                  seed=seed, device=device)
+                  seed=seed, device=device, mesh=mesh)
 
 
 def run_main_path(device: str, params, seed: int, streaming: bool):
@@ -1815,11 +1841,11 @@ def check_sites(store, want_stamps, what: str) -> None:
         fail(f"{what}: a drawn client's site is zero or not finite")
 
 
-def fedep_train_path(card: str, seed: int) -> dict:
+def fedep_train_path(card: str, seed: int):
     """Phase 10a: FedEP on the device store trains the full-width
     fedlm-100m through ``launch.train.main`` (phase 9's settings with the
     population cut from 64 to 16 for the store's memory); returns the DP
-    kernels' launches."""
+    kernels' launches and the run's records."""
     import torch
 
     from repro_torch.core import tree_math as tm
@@ -1882,7 +1908,7 @@ def fedep_train_path(card: str, seed: int) -> dict:
     if want.sum() != (args.rounds - args.burn_in_rounds) * args.clients:
         fail(f"train fedep: draws {want}")
     check_sites(store, want, "fedep store")
-    return launches
+    return launches, recs
 
 
 def equal_bitwise(a, b) -> bool:
@@ -2169,12 +2195,13 @@ def deterministic(on: bool = True):
         torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
 
 
-def per_client_state(card: str, params, seed: int) -> dict:
-    """Phase 10 (10a-10f); returns the DP launches of its runs."""
+def per_client_state(card: str, params, seed: int):
+    """Phase 10 (10a-10f); returns the DP launches of its runs and 10a's
+    records."""
     import torch
 
-    by_run = {"fedlm-100m fedep train (device store)":
-              fedep_train_path(card, seed)}
+    launches, records = fedep_train_path(card, seed)
+    by_run = {"fedlm-100m fedep train (device store)": launches}
     torch.cuda.empty_cache()
     by_run["fedlm-100m 1 layer fp32 fedep (vs CPU)"] = \
         fedep_store_replay(seed)
@@ -2182,7 +2209,7 @@ def per_client_state(card: str, params, seed: int) -> dict:
     by_run.update(stateful_cnn_rounds(params, seed))
     checkpoint_resume(seed)
     repeatability(params, seed)
-    return by_run
+    return by_run, records
 
 
 def cas_replay(args, burn_in_rounds: int, max_staleness: int):
@@ -2856,8 +2883,12 @@ def fedlora_replay(seed: int) -> dict:
     cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
     encode = QuantCodec.encode
     launches = None
-    for name, codec, extra in (("lowrank", "lowrank", []),
-                               ("lowrank+int8", "lowrank+int8", []),
+    # the synchronous runs take 2 rounds (one FedLoRA round after the
+    # burn-in; cut from 3 for the script's time), window 3 takes 3 for its
+    # staleness 0, 1, 2
+    for name, codec, extra in (("lowrank", "lowrank", ["--rounds", "2"]),
+                               ("lowrank+int8", "lowrank+int8",
+                                ["--rounds", "2"]),
                                ("lowrank window 3", "lowrank", ASYNC_ARGV)):
         argv = fedlora_argv(REPLAY_ARGV, 4, codec) + FEDEP_REPLAY + extra \
             + ["--seed", str(seed)]
@@ -3149,8 +3180,323 @@ def train_rest(card: str, seed: int) -> dict:
     return by_run
 
 
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_one_rank(params, seed: int) -> dict:
+    """Phase 15a: phase 10d's CNN FedEP rounds (device store, phase 3's
+    settings) through ``FedSim(mesh=make_host_mesh())`` inside a one-rank
+    NCCL group, against the same rounds with no mesh, both under
+    ``deterministic()``: params and store bitwise equal. The mesh's
+    collectives (the accumulator's broadcast, the metrics' all-gather, the
+    store rows' all-to-all, the replica digest) run through NCCL; one rank
+    checks the calls, not NCCL between cards. Returns each run's DP
+    launches."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import collective
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch.mesh import make_host_mesh
+
+    over = dict(STATE_RUNS)["fedep device store"]
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=MP_CONNECT_S))
+    try:
+        mesh = make_host_mesh("cuda")
+        runs, launches = {}, {}
+        for name, m in (("no mesh", None), ("one-rank nccl mesh", mesh)):
+            fedpa_dp.reset_launches()
+            collective.reset_traffic()
+            with deterministic():
+                sim = make_sim("cuda", seed, False, mesh=m, **over)
+                state = sim.init(params)
+                for r in range(ROUNDS):
+                    state, _ = sim.round(state, r)
+                torch.cuda.synchronize()
+            runs[name] = (state, sim.client_store.state_dict())
+            launches[f"cnn fedep, {name}"] = dict(fedpa_dp.launches)
+        calls, backend = collective.traffic["calls"], mesh.backend
+        collective.check_replicas(mesh, state)
+    finally:
+        dist.destroy_process_group()
+    (a, sa), (b, sb) = runs.values()
+    same = equal_bitwise(a, b) and equal_bitwise(sa, sb)
+    print(f"nccl one rank (phase 10d's cnn fedep, {ROUNDS} rounds, "
+          f"{mesh.shape} mesh, backend {backend}): {calls} NCCL "
+          f"collective calls; params and store bitwise equal to the run "
+          f"with no mesh: {same}; DP launches {launches}", flush=True)
+    if not same or not calls:
+        fail("nccl one rank: the mesh run differs from the run with no "
+             "mesh (or ran no collective)")
+    return launches
+
+
+def spawn_ranks(cmds, timeout: float):
+    """Run ``cmds`` (one per rank) at once, each a fresh interpreter with
+    the port on its path; returns their outputs, or fails (killing the
+    rest) when one exits non-zero or outlives ``timeout``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env,
+                              cwd=ROOT) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"a rank outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def json_lines(out: str, head: str) -> list:
+    """The JSON objects of ``out``'s lines that start with ``head``."""
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith(head)]
+
+
+def two_rank_train(card: str, seed: int, want_records: list) -> dict:
+    """Phase 15b: phase 10a's command (FedEP, full-width fedlm-100m, 4 of
+    16 clients, 2 a rank) on two ranks sharing the card over gloo, each a
+    ``python -m repro_torch.launch.train`` process, checkpointing at round
+    3. Returns each rank's DP launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    argv = fedep_argv(TRAIN_ARGV, FEDEP_CLIENTS) + ["--seed", str(seed)]
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    expected = (args.rounds - args.burn_in_rounds) * (ell - 1)
+    row_bytes = 2 * 4 * LM_D
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        dist = ["--num-processes", "2", "--coordinator",
+                f"127.0.0.1:{free_port()}", "--dist-backend", "gloo",
+                "--dist-timeout", str(MP_CONNECT_S), "--ckpt-dir", tmp,
+                "--ckpt-every", "3", "--log", os.path.join(tmp, "log.jsonl")]
+        t0 = time.perf_counter()
+        outs = spawn_ranks([[sys.executable, "-m", "repro_torch.launch.train",
+                             *argv, *dist, "--process-id", str(r)]
+                            for r in (0, 1)], MP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        recs = [json_lines(out, '{"round"') for out in outs]
+        with open(os.path.join(tmp, "log.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        sums = [json_lines(out, '{"rank_summary"')[0]["rank_summary"]
+                for out in outs]
+        shards = [np.load(os.path.join(
+            tmp, f"ckpt_{args.rounds:08d}.shard{r}of2.npz")) for r in (0, 1)]
+        metas = []
+        for r in (0, 1):
+            with open(os.path.join(
+                    tmp, f"ckpt_{args.rounds:08d}.shard{r}of2.json")) as f:
+                metas.append(json.load(f))
+        stamp_key = [m["key"] for m in metas[0]["manifest"]
+                     if m["path"] == "['stamps']"][0]
+        stamps = np.concatenate([sh[stamp_key] for sh in shards])
+        offsets = [m["shard"]["row_offset"] for m in metas]
+        saved = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp)
+    print(f"two ranks train fedep {args.arch}: d={LM_D:,}; {args.clients} "
+          f"of {args.num_clients} clients, 2 a rank, 2 ranks on one card "
+          f"({card}) over gloo, {wall:.1f} s from the spawn to both exits; "
+          f"files {saved}", flush=True)
+    for s in sums:
+        per_round = [round(b / 1e6, 1) for b in s["sent_bytes"]]
+        peak = ("not measured" if s["peak_bytes"] is None
+                else f"{s['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"  rank {s['rank']} on {s['device']}: peak memory allocated "
+              f"{peak}; host ms per round "
+              f"{[round(x, 1) for x in s['host_ms']]}; MB sent to the other "
+              f"rank per round {per_round} (in all: store rows "
+              f"{s['traffic']['rows'] / 1e6:.1f}, accumulator "
+              f"{s['traffic']['accumulator'] / 1e6:.1f}, gathered "
+              f"{s['traffic']['gathered'] / 1e6:.3f}; staged through the "
+              f"host {s['traffic']['staged'] / 1e6:.1f}; host s inside the "
+              f"collectives {s['traffic']['seconds']:.1f} of "
+              f"{sum(s['host_ms']) / 1e3:.1f}); store "
+              f"{s['store_rows']} rows, {s['store_bytes']:,} B; DP launches "
+              f"{s['dp_launches']} (expected {expected} each); replica "
+              f"digests equal after rounds 0..{len(s['host_ms']) - 1}",
+              flush=True)
+    got = [r["client_loss_last"] for r in recs[0]]
+    want = [r["client_loss_last"] for r in want_records]
+    print(f"  client_loss_last {got} against phase 10a's {want}; stamps of "
+          f"the shards (rows from {offsets}) {stamps.tolist()}", flush=True)
+    if len(recs[0]) != args.rounds or recs[1] or logged != recs[0]:
+        fail(f"two ranks: rank 0 logged {len(recs[0])} records ("
+             f"{len(logged)} in the log), rank 1 {len(recs[1])}")
+    losses = [r[k] for r in recs[0] for k in ("eval_loss", "client_loss_first",
+                                              "client_loss_last")]
+    if not all(map(math.isfinite, losses)):
+        fail(f"two ranks: records {recs[0]}")
+    if any(abs(g - w) > 2e-2 * abs(w) for g, w in zip(got, want)):
+        fail(f"two ranks: client_loss_last {got} vs phase 10a's {want}")
+    for s in sums:
+        if any(n != expected for n in s["dp_launches"].values()):
+            fail(f"two ranks: rank {s['rank']} DP launches "
+                 f"{s['dp_launches']} != {expected} each")
+        if s["store_rows"] != 8 or s["store_bytes"] != 8 * row_bytes:
+            fail(f"two ranks: rank {s['rank']} holds {s['store_rows']} rows,"
+                 f" {s['store_bytes']} B (want 8, {8 * row_bytes})")
+        if len(s["host_ms"]) != args.rounds:
+            fail(f"two ranks: rank {s['rank']} checked replicas after "
+                 f"{len(s['host_ms'])} rounds")
+    want_stamps = drawn_per_client(args, args.burn_in_rounds)
+    if offsets != [0, 8] or not np.array_equal(stamps, want_stamps):
+        fail(f"two ranks: shard stamps {stamps} (offsets {offsets}) != "
+             f"draws {want_stamps}")
+    return {f"fedlm-100m fedep train, 2 gloo ranks: rank {s['rank']}":
+            s["dp_launches"] for s in sums}
+
+
+def replay_rank(rank: int, port: int, argv: list, out: str) -> None:
+    """One rank of phase 15c (a spawned child): the one-layer fp32 FedEP
+    replay through ``launch.train.main`` over gloo; writes its params, its
+    store rows and its DP launches to ``out/rank<r>.npz``."""
+    import contextlib as ctl
+
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import tree_math as tm
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    dist = ["--num-processes", "2", "--process-id", str(rank),
+            "--coordinator", f"127.0.0.1:{port}", "--dist-backend", "gloo",
+            "--dist-timeout", str(MP_CONNECT_S)]
+    with open(os.path.join(out, f"rank{rank}.log"), "w") as log, \
+            ctl.redirect_stdout(log):
+        res = train.main(argv + dist, cfg=cfg, compute_dtype=torch.float32)
+    local, offset = res["store"].local_state_dict()
+    np.savez(os.path.join(out, f"rank{rank}.npz"), offset=offset,
+             stamps=local["stamps"],
+             launches=np.array([fedpa_dp.launches["dp_reduce"],
+                                fedpa_dp.launches["dp_map"]]),
+             **{f"p{i}": t.cpu().numpy() for i, t in
+                enumerate(tm.tleaves(res["state"].params))},
+             **{f"s{i}": b for i, b in
+                enumerate(tm.tleaves(local["buffers"]))})
+
+
+def two_rank_replay(seed: int) -> dict:
+    """Phase 15c: 10b's one-layer fp32 FedEP replay (client lr 0.01, 3
+    rounds, 2 of 4 clients: one a rank) on two gloo ranks sharing the card
+    (spawned children) and in one process on the card: params and the
+    store put together from the ranks within phase 4's bound, stamps
+    exact. Returns each rank's DP launches."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import tree_math as tm
+    from repro_torch.launch import train
+
+    cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
+    argv = fedep_argv(REPLAY_ARGV, 4) + FEDEP_REPLAY + ["--seed", str(seed)]
+    t0 = time.perf_counter()
+    one = train.main(argv, cfg=cfg, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_replay_")
+    try:
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=replay_rank, args=(r, port, argv, tmp))
+                 for r in (0, 1)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(MP_TIMEOUT_S)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        two_s = time.perf_counter() - t0
+        if alive or any(p.exitcode for p in procs):
+            fail(f"two-rank replay: ranks exited "
+                 f"{[p.exitcode for p in procs]}")
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in (0, 1)]
+    finally:
+        shutil.rmtree(tmp)
+    want_params = tm.tleaves(one["state"].params)
+    want_store = one["store"].state_dict()
+    got = [torch.from_numpy(ranks[0][f"p{i}"]) for i in
+           range(len(want_params))]
+    ranks_equal = all(np.array_equal(ranks[0][k], ranks[1][k])
+                      for k in ranks[0] if k.startswith("p"))
+    store = {"buffers": [np.concatenate([r[f"s{i}"] for r in ranks])
+                         for i in range(len(tm.tleaves(
+                             want_store["buffers"])))],
+             "stamps": np.concatenate([r["stamps"] for r in ranks])}
+    launches = {f"fedlm-100m 1 layer fp32 fedep, 2 gloo ranks: rank {r}":
+                {"dp_reduce": int(x["launches"][0]),
+                 "dp_map": int(x["launches"][1])}
+                for r, x in enumerate(ranks)}
+    bitwise = equal_bitwise(got, want_params) and equal_bitwise(
+        store["buffers"], tm.tleaves(want_store["buffers"]))
+    print(f"two-rank replay ({cfg.name} cut to {cfg.num_layers} layer, fp32, "
+          f"2 of 4 clients, one a rank): one process {one_s:.1f} s, two "
+          f"ranks {two_s:.1f} s from the spawn; the ranks' params bitwise "
+          f"equal {ranks_equal}; two ranks bitwise equal to one process "
+          f"{bitwise}; DP launches {launches}", flush=True)
+    if not ranks_equal:
+        fail("two-rank replay: the ranks' params differ")
+    params_close(got, want_params, "two ranks vs one process, params")
+    store_close({"buffers": store["buffers"], "stamps": store["stamps"]},
+                {"buffers": tm.tleaves(want_store["buffers"]),
+                 "stamps": want_store["stamps"]},
+                "two ranks vs one process")
+    return launches
+
+
+def multi_process(card: str, params, seed: int, fedep_records) -> dict:
+    """Phase 15 (15a-15c); returns the DP launches of its runs."""
+    import torch
+
+    by_run = nccl_one_rank(params, seed)
+    torch.cuda.empty_cache()
+    by_run.update(two_rank_train(card, seed, fedep_records))
+    by_run.update(two_rank_replay(seed))
+    return by_run
+
+
 def main() -> int:
-    """Run the fourteen phases; returns the exit code."""
+    """Run the fifteen phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3293,7 +3639,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 10: per-client state -----------------------------------------
-    by_run.update(per_client_state(card, params, args.seed))
+    runs10, fedep_records = per_client_state(card, params, args.seed)
+    by_run.update(runs10)
     done(10)
     torch.cuda.empty_cache()
 
@@ -3319,6 +3666,11 @@ def main() -> int:
     if swa_decode.launches["swa_decode"] != 0:
         fail("swa_decode launched while training (phase 14)")
     done(14)
+    torch.cuda.empty_cache()
+
+    # -- phase 15: multi-process training ------------------------------------
+    by_run.update(multi_process(card, params, args.seed, fedep_records))
+    done(15)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

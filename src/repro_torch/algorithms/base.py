@@ -18,10 +18,14 @@ metrics, state_update)``. The reference's update is per client under
 ``(C, ...)`` slice of the per-client store (``core/client_state.py``) and
 ``state_update`` the stack's ``(C, ...)`` new states.
 
-Aggregation lives in a linear fp32 accumulator space: ``reduce_stacked``
-sums a stacked cohort, ``accumulate`` folds one client, ``payload_accum``
-maps a payload into the space, and ``finalize`` casts once. Every payload
-map is elementwise, so it applies to a stacked payload as it is.
+Aggregation lives in a linear fp32 accumulator space: ``accumulate`` folds
+one client, ``reduce_stacked`` folds a stack client by client in cohort
+order, ``payload_accum`` maps a payload into the space, and ``finalize``
+casts once. Every placement folds the cohort's clients in cohort order, so
+all three sum the same terms in the same order, and a cohort split over
+ranks (``core/round_program.py``) hands the accumulator from rank to rank
+in that order: the sharded sum is the one-process sum, bit for bit. Every
+payload map is elementwise, so it applies to a stacked payload as it is.
 """
 from __future__ import annotations
 
@@ -212,11 +216,18 @@ class FedAlgorithm:
         return tm.tmap(lambda a, d: a + weight * d.to(a.dtype),
                        acc, self.payload_accum(payload))
 
-    def reduce_stacked(self, stacked_payloads, weights):
-        """Weighted sum of the cohort's payloads in fp32 (the accumulator);
-        :meth:`finalize` owns the single cast."""
-        return server_lib.weighted_sum(self.payload_accum(stacked_payloads),
-                                       weights, cast=False)
+    def reduce_stacked(self, stacked_payloads, weights, acc=None):
+        """``acc`` (fp32 zeros when None) plus the weighted sum of a stack
+        of payloads, folded client by client in stack order with
+        :meth:`accumulate`; :meth:`finalize` owns the single cast."""
+        for k in range(weights.shape[0]):
+            row = tm.tmap(lambda x, k=k: x[k], stacked_payloads)
+            if acc is None:
+                acc = tm.tmap(
+                    lambda x: torch.zeros_like(x, dtype=torch.float32),
+                    self.payload_accum(row))
+            acc = self.accumulate(acc, row, weights[k])
+        return acc
 
     def finalize(self, agg):
         """Accumulator -> pseudo-gradient: the single cast out of fp32."""

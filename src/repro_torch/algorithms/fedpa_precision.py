@@ -46,8 +46,14 @@ class FedPAPrecision(FedPA):
         ell = self.num_samples
         r = float(rho_l(ell, self.fed.shrinkage_rho))
         s32 = samples.to(torch.float32)
-        var = (s32.var(dim=1, correction=1) if ell > 1
-               else torch.zeros_like(s32[:, 0]))
+        if ell > 1:
+            # jnp.var's two passes: squared deviations from the mean, summed,
+            # over l - 1 (torch's var over this leading axis is ~20x slower
+            # on the CPU)
+            centered = s32 - s32.mean(dim=1, keepdim=True)
+            var = centered.square().sum(dim=1) / (ell - 1)
+        else:
+            var = torch.zeros_like(s32[:, 0])
         return tm.unflatten(1.0 / (r + (1.0 - r) * var), params,
                             self.delta_dtype)
 

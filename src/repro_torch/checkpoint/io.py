@@ -16,9 +16,13 @@ dtype recorded. Restore casts each leaf back to the template's type,
 dtype and device, checked by path and shape, with the reference's
 ``ValueError`` / ``KeyError`` / ``FileNotFoundError``.
 
-The reference's shard-local family (``save_checkpoint_shard``,
-``save_store_sharded``, ``restore_store_sharded``,
-``latest_sharded_checkpoint``) waits for ROADMAP.md queue 1, item 10.
+The shard-local family checkpoints a population-sharded client store the
+reference's way: each rank writes only the rows it owns as
+``ckpt_<step>.shard<k>of<n>.npz`` + ``.json`` (the manifest plus ``{"shard":
+{"index", "count", "row_offset"}}``) beside rank 0's server checkpoint.
+``latest_sharded_checkpoint`` skips a step whose set is incomplete, and
+``restore_store_sharded`` loads the shard whose rows match the rank's, or,
+when the topology changed, reads every shard and concatenates them.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 #: dtypes npz stores as they are (the reference's list); others widen.
 _NPZ_DTYPES = ("float64", "float32", "float16", "int64", "int32", "int16",
@@ -112,11 +117,8 @@ def _from_array(arr: np.ndarray, like):
     return np.asarray(arr).astype(np.asarray(like).dtype)
 
 
-def save_checkpoint(ckpt_dir: str, state: Any, step: int,
-                    metadata: Optional[dict] = None) -> str:
-    """Write ``state`` as ``ckpt_<step>.npz`` + a ``.json`` path/dtype
-    manifest; returns the npz path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def _pack_leaves(state: Any):
+    """``state`` -> (the arrays npz stores, the path/dtype manifest)."""
     arrays, manifest = {}, []
     for i, (path, leaf) in enumerate(leaves_with_paths(state)):
         arr, dtype = _to_array(leaf)
@@ -124,12 +126,25 @@ def save_checkpoint(ckpt_dir: str, state: Any, step: int,
         arrays[key] = arr
         manifest.append({"key": key, "path": path,
                          "shape": list(arr.shape), "dtype": dtype})
-    base = os.path.join(ckpt_dir, f"ckpt_{step:08d}")
+    return arrays, manifest
+
+
+def _write_base(base: str, arrays: dict, payload: dict) -> str:
     np.savez(base + ".npz", **arrays)
     with open(base + ".json", "w") as f:
-        json.dump({"step": step, "metadata": metadata or {},
-                   "manifest": manifest}, f, indent=1)
+        json.dump(payload, f, indent=1)
     return base + ".npz"
+
+
+def save_checkpoint(ckpt_dir: str, state: Any, step: int,
+                    metadata: Optional[dict] = None) -> str:
+    """Write ``state`` as ``ckpt_<step>.npz`` + a ``.json`` path/dtype
+    manifest; returns the npz path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays, manifest = _pack_leaves(state)
+    return _write_base(os.path.join(ckpt_dir, f"ckpt_{step:08d}"), arrays,
+                       {"step": step, "metadata": metadata or {},
+                        "manifest": manifest})
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[int]:
@@ -139,6 +154,31 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[int]:
     steps = [int(m.group(1)) for fn in os.listdir(ckpt_dir)
              if (m := re.match(r"ckpt_(\d+)\.npz$", fn))]
     return max(steps) if steps else None
+
+
+def _restore_leaves(like: Any, meta: dict, data, *,
+                    rows_free: bool = False) -> Any:
+    """``like``'s structure rebuilt from a manifest and its npz payload
+    (paths and shapes checked, each leaf cast to the template's); with
+    ``rows_free`` the leading (row) axis is exempt from the shape check."""
+    template = leaves_with_paths(like)
+    if len(template) != len(meta["manifest"]):
+        raise ValueError(
+            f"leaf count mismatch: template {len(template)} vs "
+            f"checkpoint {len(meta['manifest'])}")
+    by_path = {m["path"]: m for m in meta["manifest"]}
+
+    def restore(path, leaf):
+        if path not in by_path:
+            raise KeyError(f"checkpoint missing leaf {path}")
+        arr = data[by_path[path]["key"]]
+        got, want = tuple(arr.shape), tuple(np.shape(leaf))
+        if (got[1:] != want[1:]) if rows_free else (got != want):
+            raise ValueError(f"{path}: shape {arr.shape} != template "
+                             f"{want}")
+        return _from_array(arr, leaf)
+
+    return _rebuild(restore, like)
 
 
 def restore_checkpoint(ckpt_dir: str, like: Any,
@@ -153,21 +193,169 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
     base = os.path.join(ckpt_dir, f"ckpt_{step:08d}")
     with open(base + ".json") as f:
         meta = json.load(f)
-    template = leaves_with_paths(like)
-    if len(template) != len(meta["manifest"]):
-        raise ValueError(
-            f"leaf count mismatch: template {len(template)} vs "
-            f"checkpoint {len(meta['manifest'])}")
-    by_path = {m["path"]: m for m in meta["manifest"]}
     with np.load(base + ".npz") as data:
-        def restore(path, leaf):
-            if path not in by_path:
-                raise KeyError(f"checkpoint missing leaf {path}")
-            arr = data[by_path[path]["key"]]
-            if tuple(arr.shape) != tuple(np.shape(leaf)):
-                raise ValueError(f"{path}: shape {arr.shape} != template "
-                                 f"{tuple(np.shape(leaf))}")
-            return _from_array(arr, leaf)
-
-        tree = _rebuild(restore, like)
+        tree = _restore_leaves(like, meta, data)
     return tree, meta["step"], meta["metadata"]
+
+
+# -- shard-local client-store checkpoints -----------------------------------
+
+_SHARD_RE = re.compile(r"ckpt_(\d+)\.shard(\d+)of(\d+)\.npz$")
+
+
+def _shard_base(ckpt_dir: str, step: int, index: int, count: int) -> str:
+    return os.path.join(ckpt_dir, f"ckpt_{step:08d}.shard{index}of{count}")
+
+
+def save_checkpoint_shard(ckpt_dir: str, state: Any, step: int, *,
+                          row_offset: int, shard_index: int,
+                          num_shards: int,
+                          metadata: Optional[dict] = None) -> str:
+    """Write one rank's slice of a row-sharded state tree as
+    ``ckpt_<step>.shard<k>of<n>.npz`` (a family ``latest_checkpoint``
+    never picks up); the json records ``row_offset``, where the slice's
+    rows sit in the population."""
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard_index {shard_index} out of range for "
+                         f"{num_shards} shards")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays, manifest = _pack_leaves(state)
+    return _write_base(
+        _shard_base(ckpt_dir, step, shard_index, num_shards), arrays,
+        {"step": step, "metadata": metadata or {}, "manifest": manifest,
+         "shard": {"index": shard_index, "count": num_shards,
+                   "row_offset": row_offset}})
+
+
+def latest_sharded_checkpoint(ckpt_dir: str) -> Optional[int]:
+    """The highest step with a complete shard set (all n of n files): a
+    save some ranks had not finished is skipped."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    found: dict = {}
+    for fn in os.listdir(ckpt_dir):
+        m = _SHARD_RE.match(fn)
+        if m:
+            step, idx, count = (int(g) for g in m.groups())
+            found.setdefault((step, count), set()).add(idx)
+    complete = [step for (step, count), idxs in found.items()
+                if len(idxs) == count]
+    return max(complete) if complete else None
+
+
+def _read_shard(ckpt_dir: str, step: int, index: int, count: int):
+    """One shard's ``(manifest json, npz payload)``."""
+    base = _shard_base(ckpt_dir, step, index, count)
+    with open(base + ".json") as f:
+        meta = json.load(f)
+    return meta, np.load(base + ".npz")
+
+
+def _shard_metas(ckpt_dir: str, step: int) -> list:
+    """Every shard manifest of ``step`` (json only), checked complete."""
+    metas = []
+    for fn in sorted(os.listdir(ckpt_dir)):
+        m = _SHARD_RE.match(fn)
+        if m and int(m.group(1)) == step:
+            with open(os.path.join(ckpt_dir, fn[:-len(".npz")]
+                                   + ".json")) as f:
+                metas.append(json.load(f))
+    if not metas:
+        raise FileNotFoundError(
+            f"no shard checkpoints for step {step} in {ckpt_dir}")
+    count = metas[0]["shard"]["count"]
+    if len(metas) != count:
+        raise FileNotFoundError(
+            f"step {step} has {len(metas)}/{count} shards in {ckpt_dir}")
+    return metas
+
+
+def _concat_rows(trees: list):
+    """Trees of the same structure, each leaf concatenated along rows."""
+    leaves = [dict(leaves_with_paths(t)) for t in trees]
+    return _rebuild(lambda path, _: np.concatenate(
+        [np.asarray(lv[path]) for lv in leaves], axis=0), trees[0])
+
+
+def _rank_and_count() -> Tuple[int, int]:
+    """This process's rank and the world size (0 and 1 with no group)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def save_store_sharded(ckpt_dir: str, store, step: int,
+                       metadata: Optional[dict] = None) -> str:
+    """Checkpoint a client-state store shard-locally: every rank calls
+    this and writes the rows it owns (``local_state_dict``), as shard
+    ``rank`` of ``world size``; a store without that API (the host store)
+    writes its whole state, as the reference's."""
+    if hasattr(store, "local_state_dict"):
+        state, row_offset = store.local_state_dict()
+    else:
+        state, row_offset = store.state_dict(), 0
+    index, count = _rank_and_count()
+    return save_checkpoint_shard(ckpt_dir, state, step,
+                                 row_offset=row_offset, shard_index=index,
+                                 num_shards=count, metadata=metadata)
+
+
+def restore_store_sharded(ckpt_dir: str, store,
+                          step: Optional[int] = None) -> int:
+    """Restore a client-state store from its shard files, in place;
+    returns the step. The shard whose rows are the rank's own is loaded
+    alone (``load_local_state_dict``); when the topology changed between
+    save and restore, every shard is read and concatenated in row order
+    and loaded through ``load_state_dict``."""
+    if step is None:
+        step = latest_sharded_checkpoint(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no shard checkpoints in {ckpt_dir}")
+    metas = _shard_metas(ckpt_dir, step)
+    count = metas[0]["shard"]["count"]
+    sharded = hasattr(store, "local_state_dict")
+    if sharded:
+        local, row_offset = store.local_state_dict()
+    else:
+        local, row_offset = store.state_dict(), 0
+    local_rows = int(np.asarray(local["stamps"]).shape[0])
+    match = next(
+        (m for m in metas
+         if m["shard"]["row_offset"] == row_offset
+         and m["manifest"] and m["manifest"][0]["shape"][0] == local_rows),
+        None)
+    if match is not None:
+        meta, data = _read_shard(ckpt_dir, step, match["shard"]["index"],
+                                 count)
+        with data:
+            tree = _restore_leaves(local, meta, data)
+        if sharded:
+            store.load_local_state_dict(tree, row_offset)
+        else:
+            store.load_state_dict(tree)
+        return step
+    # the topology changed: every shard's rows, in population order
+    parts = []
+    for m in sorted(metas, key=lambda m: m["shard"]["row_offset"]):
+        meta, data = _read_shard(ckpt_dir, step, m["shard"]["index"], count)
+        with data:
+            parts.append((m["shard"]["row_offset"],
+                          _restore_leaves(local, meta, data,
+                                          rows_free=True)))
+    offsets = [off for off, _ in parts]
+    rows = [np.asarray(t["stamps"]).shape[0] for _, t in parts]
+    if offsets[0] != 0:
+        raise ValueError(f"first shard starts at row {offsets[0]}, not 0")
+    for (off, r), nxt in zip(zip(offsets, rows), offsets[1:] + [None]):
+        if nxt is not None and off + r != nxt:
+            raise ValueError(
+                f"shard rows are not contiguous: [{off}, {off + r}) then "
+                f"{nxt} — cannot reassemble the population")
+    full = _concat_rows([t for _, t in parts])
+    total = int(np.asarray(full["stamps"]).shape[0])
+    if total != store.num_clients:
+        raise ValueError(
+            f"reassembled population has {total} rows, store expects "
+            f"{store.num_clients}")
+    store.load_state_dict(full)
+    return step

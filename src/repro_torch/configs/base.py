@@ -1,12 +1,13 @@
-"""Configs of the port (from ``repro/configs/base.py``): ``FedConfig`` and
-the LM's ``LayerSpec``, ``MoEConfig`` and ``ModelConfig``.
+"""Configs of the port (from ``repro/configs/base.py``): ``FedConfig``, the
+LM's ``LayerSpec``, ``MoEConfig`` and ``ModelConfig``, and the logical
+process mesh ``MeshConfig`` (``SINGLE_POD``, ``MULTI_POD``).
 
 Same field names, defaults and eager validation as the JAX package, so the
 two accept and reject the same keyword arguments; every mixer, FFN and
 frontend of the JAX package builds. Paths that are not ported yet raise
 ``NotImplementedError`` where they are asked for, naming the ``ROADMAP.md``
 item (queue 1) that will port them (``_not_ported``); they are never
-silently ignored. ``ShapeConfig`` and ``MeshConfig`` are not ported.
+silently ignored. ``ShapeConfig`` is not ported (item 12).
 """
 from __future__ import annotations
 
@@ -349,3 +350,38 @@ class FedConfig:
         """l: posterior samples per client per round (one per IASG window);
         0 for algorithms without a sampling phase."""
         return get_algorithm(self).num_samples
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical mesh: per-axis extents and their axis names (``launch.mesh``
+    lays it over the ranks of a process group)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        """Total devices (ranks) in the mesh: the product of the extents."""
+        return math.prod(self.shape)
+
+    @property
+    def data_extent(self) -> int:
+        """Total client-parallel extent (pod x data)."""
+        n = 1
+        for ax, s in zip(self.axes, self.shape):
+            if ax in ("pod", "data"):
+                n *= s
+        return n
+
+    @property
+    def model_extent(self) -> int:
+        """Extent of the "model" axis (1 if the mesh has none)."""
+        for ax, s in zip(self.axes, self.shape):
+            if ax == "model":
+                return s
+        return 1
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))

@@ -27,24 +27,42 @@ indexing and ``index_copy_`` alike would let an arbitrary write win. Both
 give the same ``state_dict()`` (numpy buffers, int64 stamps), so a
 checkpoint of one restores into the other (``checkpoint/io.py``).
 
-Population sharding — the reference's ``mesh`` / ``population_spec``
-arguments, ``population_layout``, the ``CLIENT_AXES`` placement and the
-shard-local ``local_state_dict`` / ``load_local_state_dict`` — waits for
-ROADMAP.md queue 1, item 10, and raises ``NotImplementedError`` naming it.
+Population sharding: given a mesh (``launch.mesh.ProcessMesh``) the
+device store shards its population over the mesh's client axes (``("pod",
+"data")`` by default, or ``population_spec``'s), padded up to a multiple of
+their extent (:func:`population_layout`): rank ``r`` holds only rows ``[r R,
+(r + 1) R)`` of the padded population, ``R = padded_num_clients /
+extent``, on its own device. Padding rows are dead: their stamps are -1 and
+range-checked ids cannot reach them. ``prepare_ids`` turns a cohort into a
+:class:`CohortRoute`, and ``device_gather`` / ``device_scatter`` then move
+each cohort row between the rank that owns it and the rank that runs it
+(``core.collective.exchange_rows``): the gather hands each rank its own
+cohort rows, ``[r C / W, (r + 1) C / W)``, and the CAS scatter writes each
+updated row back on its owner only, with the gather-time stamps and the
+write mask, the drop count summed over the ranks. ``local_state_dict`` /
+``load_local_state_dict`` checkpoint the rows a rank owns; ``state_dict``
+refuses on a multi-process mesh.
 """
 from __future__ import annotations
 
 import abc
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import _not_ported
+from repro_torch.core import collective
 from repro_torch.core import tree_math as tm
+from repro_torch.launch.mesh import rank_device
 
-#: ROADMAP.md queue-1 item that ports population sharding.
-SHARDING_ITEM = 10
+#: Mesh axis names that may carry the population / client dimension, in
+#: precedence order (the reference's ``CLIENT_AXES``).
+CLIENT_AXES = ("pod", "data")
+
+#: ROADMAP.md queue-1 item that shards a mesh's other axes (FSDP).
+FSDP_ITEM = "10 part 2"
 
 
 def _require_unique_ids(client_ids: np.ndarray, op: str) -> None:
@@ -73,11 +91,139 @@ def _np_dtype(x) -> np.dtype:
     return np.asarray(x).dtype
 
 
-def population_layout(*args, **kwargs):
-    """The padded population layout over a mesh: not ported (item 10)."""
-    del args, kwargs
-    raise _not_ported("population_layout (population sharding)",
-                      SHARDING_ITEM)
+class PopulationLayout(NamedTuple):
+    """How a population of ``num_clients`` lays out over a mesh:
+    ``padded_num_clients`` is ``num_clients`` rounded up to a multiple of
+    ``extent`` (the product of the sharded axes' sizes), ``spec`` the mesh
+    axes the leading axis shards over (``()`` when unsharded)."""
+
+    num_clients: int
+    padded_num_clients: int
+    spec: tuple
+    extent: int
+
+    @property
+    def padding(self) -> int:
+        """Number of dead tail rows added to make N divisible."""
+        return self.padded_num_clients - self.num_clients
+
+    @property
+    def rows_per_shard(self) -> int:
+        """Rows each shard holds, padding included."""
+        return self.padded_num_clients // self.extent
+
+
+def _spec_axes(population_spec) -> tuple:
+    """The mesh axes a leading-axis spec names: ``("data",)``, ``"data"``
+    or ``(("pod", "data"),)`` (a ``PartitionSpec``'s first entry)."""
+    if population_spec is None:
+        return ()
+    parts = ((population_spec,) if isinstance(population_spec, str)
+             else tuple(population_spec))
+    if not parts or parts[0] is None:
+        return ()
+    head = parts[0]
+    return tuple(head) if isinstance(head, (tuple, list)) else (head,)
+
+
+def population_layout(mesh, num_clients: int,
+                      population_spec=None) -> PopulationLayout:
+    """The padded population layout for ``num_clients`` over ``mesh``, the
+    reference's arithmetic: the leading axis shards over the mesh's
+    ``CLIENT_AXES`` (or ``population_spec``'s axes). Only ``mesh.shape``
+    (``{axis: size}``) and ``mesh.axis_names`` are read; ``mesh=None`` or
+    an extent of 1 is the unsharded layout."""
+    if num_clients <= 0:
+        raise ValueError(f"num_clients must be >= 1, got {num_clients}")
+    if mesh is None:
+        return PopulationLayout(num_clients, num_clients, (), 1)
+    if population_spec is None:
+        axes = tuple(a for a in CLIENT_AXES if a in mesh.axis_names)
+    else:
+        axes = _spec_axes(population_spec)
+        missing = [a for a in axes if a not in mesh.axis_names]
+        if missing:
+            raise ValueError(
+                f"population_spec names mesh axes {missing} not in mesh "
+                f"{tuple(mesh.axis_names)}")
+    extent = 1
+    for a in axes:
+        extent *= mesh.shape[a]
+    if extent <= 1:
+        return PopulationLayout(num_clients, num_clients, (), 1)
+    padded = -(-num_clients // extent) * extent
+    return PopulationLayout(num_clients, padded, axes, extent)
+
+
+def shard_index(mesh, axes, rank: Optional[int] = None) -> int:
+    """Row-major index of ``rank``'s coordinates over ``axes`` (0 for no
+    axes): the shard of the population, or of the cohort, it holds."""
+    coords = mesh.coords(rank)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
+def rank_of_shard(mesh, axes) -> list:
+    """``rank_of_shard[s]``: the rank holding shard ``s`` over ``axes``,
+    which must span every rank (each rank one shard); a mesh with other
+    axes wider than 1 would replicate shards across them (FSDP over the
+    model axis, item 10 part 2)."""
+    extent = math.prod(mesh.shape[a] for a in axes)
+    if extent != mesh.size:
+        raise _not_ported(
+            f"a mesh {mesh.shape} whose axes {tuple(axes)} cover {extent} of "
+            f"its {mesh.size} ranks", FSDP_ITEM)
+    out = [0] * extent
+    for r in range(mesh.size):
+        out[shard_index(mesh, axes, r)] = r
+    return out
+
+
+def cohort_ranks(mesh, axes=None) -> list:
+    """``cohort_ranks(mesh)[s]``: the rank that runs shard ``s`` of a
+    cohort split over the mesh's client axes (those of ``axes``, in
+    ``CLIENT_AXES`` order, when given)."""
+    names = mesh.axis_names if axes is None else (
+        (axes,) if isinstance(axes, str) else tuple(axes))
+    return rank_of_shard(mesh, tuple(a for a in CLIENT_AXES if a in names))
+
+
+def cohort_rows(mesh, num_rows: int, axes=None) -> tuple:
+    """The ``[lo, hi)`` cohort rows this rank runs when ``num_rows`` split
+    evenly over the ranks (``ValueError`` when they do not divide, as the
+    reference's ``NamedSharding`` refuses)."""
+    ranks = cohort_ranks(mesh, axes)
+    if num_rows % len(ranks):
+        raise ValueError(
+            f"a cohort of {num_rows} rows does not split evenly over "
+            f"{len(ranks)} ranks")
+    n = num_rows // len(ranks)
+    lo = ranks.index(mesh.rank) * n
+    return lo, lo + n
+
+
+class CohortRoute(NamedTuple):
+    """Where one cohort's rows live on a population-sharded store, as seen
+    by this rank (built by ``DeviceClientStateStore.prepare_ids``).
+
+    This rank runs cohort rows ``[lo, hi)``. It owns ``own_rows`` (local
+    row indices, at cohort positions ``own_pos``, in increasing position)
+    and sends ``send_counts[q]`` of them to rank ``q`` at the gather; it
+    receives ``recv_counts[p]`` rows from rank ``p``, at positions
+    ``lo + recv_pos`` in the order received, and ``order`` puts them back
+    in cohort order. The scatter runs the same plan backwards."""
+
+    mesh: object
+    lo: int
+    hi: int
+    own_rows: torch.Tensor
+    own_pos: torch.Tensor
+    send_counts: tuple
+    recv_counts: tuple
+    recv_pos: torch.Tensor
+    order: torch.Tensor
 
 
 class BaseClientStateStore(abc.ABC):
@@ -86,6 +232,9 @@ class BaseClientStateStore(abc.ABC):
     template, the ``initialized`` guard and the checkpoint population
     check. Subclasses place the buffers and implement gather, scatter,
     reset and the state dict under the CAS contract."""
+
+    #: Whether the class takes a ``mesh`` (population sharding).
+    shardable = False
 
     def __init__(self, num_clients: int):
         """Create an empty store for a population of ``num_clients``."""
@@ -227,8 +376,12 @@ def device_gather(store_state, client_ids: torch.Tensor):
     ``store_state`` is :meth:`DeviceClientStateStore.device_state` and
     ``client_ids`` the ``(C,)`` int64 ids on the same device
     (:meth:`DeviceClientStateStore.prepare_ids`): two ``index_select``
-    calls per leaf, no host sync.
+    calls per leaf, no host sync. On a population-sharded store
+    ``client_ids`` is a :class:`CohortRoute`, and the result is this
+    rank's cohort rows, each pulled from the rank that owns it.
     """
+    if isinstance(client_ids, CohortRoute):
+        return _routed_gather(store_state, client_ids)
     states = tm.tmap(lambda b: b.index_select(0, client_ids),
                      store_state["buffers"])
     return states, store_state["stamps"].index_select(0, client_ids)
@@ -245,8 +398,15 @@ def device_scatter(store_state, client_ids: torch.Tensor, updates,
     read it. ``stamps=None`` writes unconditionally. ``write_mask`` ((C,)
     0/1) suppresses masked-out clients' writes and stamp bumps without
     counting them as drops; it syncs only when given on the host.
-    ``client_ids`` must be unique (``prepare_ids`` checks on the host).
+    ``client_ids`` must be unique (``prepare_ids`` checks on the host). On
+    a population-sharded store ``client_ids`` is a :class:`CohortRoute`,
+    ``updates`` and ``stamps`` this rank's cohort rows and ``write_mask``
+    the whole cohort's; each row is written on the rank that owns it and
+    ``drops`` is the count over every rank.
     """
+    if isinstance(client_ids, CohortRoute):
+        return _routed_scatter(store_state, client_ids, updates, stamps,
+                               write_mask)
     buffers, all_stamps = store_state["buffers"], store_state["stamps"]
     current = all_stamps.index_select(0, client_ids)
     ok = (torch.ones_like(current, dtype=torch.bool) if stamps is None
@@ -268,6 +428,54 @@ def device_scatter(store_state, client_ids: torch.Tensor, updates,
     return store_state, wanted - ok.sum()
 
 
+def _routed_gather(store_state, route: CohortRoute):
+    """:func:`device_gather` on a sharded store: each owner sends its
+    cohort rows to the ranks that run them."""
+    def pull(b):
+        got = collective.exchange_rows(route.mesh,
+                                       b.index_select(0, route.own_rows),
+                                       route.send_counts, route.recv_counts)
+        return got.index_select(0, route.order)
+
+    return (tm.tmap(pull, store_state["buffers"]),
+            pull(store_state["stamps"]))
+
+
+def _routed_scatter(store_state, route: CohortRoute, updates, stamps,
+                    write_mask):
+    """:func:`device_scatter` on a sharded store: the runners send the
+    updated rows (and their gather-time stamps) back to the owners, which
+    apply the CAS to their own rows."""
+    buffers, all_stamps = store_state["buffers"], store_state["stamps"]
+
+    def push(x):
+        return collective.exchange_rows(route.mesh,
+                                        x.index_select(0, route.recv_pos),
+                                        route.recv_counts, route.send_counts)
+
+    current = all_stamps.index_select(0, route.own_rows)
+    ok = (torch.ones_like(current, dtype=torch.bool) if stamps is None
+          else current == push(stamps))
+    if write_mask is None:
+        wanted = torch.tensor(route.own_rows.shape[0], device=current.device)
+    else:
+        wm = torch.as_tensor(write_mask, device=current.device).index_select(
+            0, route.own_pos) > 0
+        ok = ok & wm
+        wanted = wm.sum()
+
+    def write(b, u):
+        u = push(u)
+        mask = ok.reshape(-1, *(1,) * (u.dim() - 1))
+        b.index_copy_(0, route.own_rows, torch.where(
+            mask, u.to(b.dtype), b.index_select(0, route.own_rows)))
+
+    tm.tmap(write, buffers, updates)
+    all_stamps.index_add_(0, route.own_rows, ok.to(all_stamps.dtype))
+    drops = (wanted - ok.sum()).reshape(1)
+    return store_state, collective.all_gather_rows(route.mesh, drops).sum()
+
+
 class DeviceClientStateStore(BaseClientStateStore):
     """Per-client persistent state as tensors on one device.
 
@@ -279,28 +487,64 @@ class DeviceClientStateStore(BaseClientStateStore):
     count, one sync). The state crosses to the host only in
     :meth:`state_dict` (checkpoints). ``device`` defaults to ``cuda`` and
     raises without a GPU.
+
+    With a ``mesh`` the population is sharded over its client axes (or
+    ``population_spec``'s): this rank's buffers hold rows ``[row_offset,
+    row_offset + rows)`` of the padded population on the mesh's device,
+    ``gather`` / ``scatter`` take and give this rank's cohort rows, and
+    checkpoints go through :meth:`local_state_dict`.
     """
 
-    def __init__(self, num_clients: int, *, device=None):
-        """Create an empty store for ``num_clients`` clients on ``device``."""
+    shardable = True
+
+    def __init__(self, num_clients: int, *, device=None, mesh=None,
+                 population_spec=None):
+        """Create an empty store for ``num_clients`` clients on ``device``
+        (with a ``mesh``: its device), population-sharded over ``mesh``
+        per ``population_spec`` (default: the mesh's client axes)."""
         # core.round builds its engine from this module: import late
         from repro_torch.core.round import resolve_device  # noqa: PLC0415
         super().__init__(num_clients)
-        self.device = resolve_device(device)
-        self._stamps = torch.zeros(num_clients, dtype=torch.int64,
-                                   device=self.device)
+        if mesh is None and population_spec is not None:
+            raise ValueError("population_spec requires a mesh")
+        self.mesh = mesh
+        self.layout = population_layout(mesh, num_clients, population_spec)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.rows, self.row_offset = num_clients, 0
+        else:
+            if (device is not None
+                    and rank_device(device, mesh.rank) != mesh.device):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+            self._owners = rank_of_shard(mesh, self.layout.spec)
+            self.rows = self.layout.rows_per_shard
+            self.row_offset = self.rows * shard_index(mesh,
+                                                      self.layout.spec)
+        self._stamps = self._fresh_stamps()
+
+    @property
+    def padded_num_clients(self) -> int:
+        """The population's extent across the shards (N + padding)."""
+        return self.layout.padded_num_clients
+
+    def _fresh_stamps(self) -> torch.Tensor:
+        """0 for this rank's live rows, -1 for its padding rows."""
+        idx = torch.arange(self.row_offset, self.row_offset + self.rows,
+                           device=self.device)
+        return torch.where(idx < self.num_clients, 0, -1).to(torch.int64)
 
     def _allocate(self, template):
-        n = self.num_clients
         return tm.tmap(lambda x: torch.zeros(
-            (n,) + tuple(np.shape(x)), dtype=torch.as_tensor(x).dtype,
-            device=self.device), template)
+            (self.rows,) + tuple(np.shape(x)),
+            dtype=torch.as_tensor(x).dtype, device=self.device), template)
 
     def reset(self) -> "DeviceClientStateStore":
         """Zero every client's state and write stamp, in place."""
         if self._buffers is not None:
             tm.tmap(lambda b: b.zero_(), self._buffers)
-        self._stamps.zero_()
+        self._stamps = self._fresh_stamps()
         return self
 
     def _check_range(self, ids: np.ndarray) -> np.ndarray:
@@ -317,16 +561,44 @@ class DeviceClientStateStore(BaseClientStateStore):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def prepare_ids(self, client_ids) -> torch.Tensor:
-        """Cohort ids -> the ``(C,)`` int64 ids on the device, checked on
-        the host for duplicates and range first (``index_select`` would
-        raise on the device, ``index_copy_`` would let a duplicate win)."""
+    def _route(self, ids: np.ndarray) -> CohortRoute:
+        """The cohort's :class:`CohortRoute` on this rank (every rank
+        builds the same plan from the same ids)."""
+        mesh, me = self.mesh, self.mesh.rank
+        runners = cohort_ranks(mesh)
+        lo, hi = cohort_rows(mesh, ids.shape[0])
+        owner = np.asarray(self._owners)[ids // self.rows]
+        runner = np.asarray(runners)[np.arange(ids.shape[0]) // (hi - lo)]
+        W = mesh.size
+        own_pos = np.flatnonzero(owner == me)
+        mine = np.arange(lo, hi)
+        recv_pos = np.concatenate([mine[owner[lo:hi] == p]
+                                   for p in range(W)]) - lo
+        return CohortRoute(
+            mesh, lo, hi,
+            own_rows=self._ids_on_device(ids[own_pos] - self.row_offset),
+            own_pos=self._ids_on_device(own_pos),
+            send_counts=tuple(int((runner[own_pos] == q).sum())
+                              for q in range(W)),
+            recv_counts=tuple(int((owner[lo:hi] == p).sum())
+                              for p in range(W)),
+            recv_pos=self._ids_on_device(recv_pos),
+            order=self._ids_on_device(np.argsort(recv_pos, kind="stable")))
+
+    def prepare_ids(self, client_ids):
+        """Cohort ids -> the ``(C,)`` int64 ids on the device (a
+        :class:`CohortRoute` on a sharded store), checked on the host for
+        duplicates and range first (``index_select`` would raise on the
+        device, ``index_copy_`` would let a duplicate win)."""
         ids = np.asarray(client_ids, np.int64)
         _require_unique_ids(ids, "DeviceClientStateStore")
-        return self._ids_on_device(self._check_range(ids))
+        self._check_range(ids)
+        return self._ids_on_device(ids) if self.mesh is None \
+            else self._route(ids)
 
     def device_state(self):
-        """The store as ``{"buffers", "stamps"}`` for the round program."""
+        """The store as ``{"buffers", "stamps"}`` for the round program
+        (this rank's rows on a sharded store)."""
         self._require_initialized()
         return {"buffers": self._buffers, "stamps": self._stamps}
 
@@ -338,14 +610,18 @@ class DeviceClientStateStore(BaseClientStateStore):
         return self
 
     def gather(self, client_ids):
-        """``(stacked_states, stamps)`` on the device, ids range-checked."""
+        """``(stacked_states, stamps)`` on the device, ids range-checked
+        (on a sharded store: this rank's cohort rows)."""
         self._require_initialized()
         ids = self._check_range(np.asarray(client_ids, np.int64))
-        return device_gather(self.device_state(), self._ids_on_device(ids))
+        return device_gather(self.device_state(), self._ids_on_device(ids)
+                             if self.mesh is None else self._route(ids))
 
     def scatter(self, client_ids, updates, stamps=None,
                 write_mask=None) -> int:
-        """CAS write-back; returns #clients dropped (reads the count)."""
+        """CAS write-back; returns #clients dropped (reads the count). On a
+        sharded store ``updates`` and ``stamps`` are this rank's cohort
+        rows and the count is over every rank."""
         ids = self.prepare_ids(client_ids)
         updates = tm.tmap(lambda u: torch.as_tensor(u, device=self.device),
                           updates)
@@ -356,35 +632,83 @@ class DeviceClientStateStore(BaseClientStateStore):
         self.set_device_state(new_state)
         return int(drops)
 
+    def _live(self) -> int:
+        """How many of this rank's rows are live clients (not padding)."""
+        return max(0, min(self.rows, self.num_clients - self.row_offset))
+
     def state_dict(self):
-        """A host copy: numpy buffers and int64 stamps, as the host
-        store's, so a checkpoint restores into either placement."""
+        """A host copy: numpy buffers and int64 stamps of the live rows, as
+        the host store's, so a checkpoint restores into either placement
+        and any layout. On a multi-process mesh no rank holds every row:
+        use :meth:`local_state_dict` there."""
         self._require_initialized()
-        return {"buffers": tm.tmap(
-                    lambda b: b.detach().to("cpu", copy=True).numpy(),
-                    self._buffers),
-                "stamps": self._stamps.to("cpu", copy=True).numpy()}
+        if self.mesh is not None and self.mesh.size > 1:
+            raise RuntimeError(
+                "state_dict() needs every row addressable; on a "
+                "multi-process mesh checkpoint shard-locally with "
+                "local_state_dict() instead")
+        return self.local_state_dict()[0]
 
     def load_state_dict(self, state) -> "DeviceClientStateStore":
-        """Restore from either store's :meth:`state_dict` (copied to the
-        device; population checked)."""
+        """Restore from either store's :meth:`state_dict` (the whole
+        population; each rank keeps its own rows, re-padded)."""
         stamps = self._check_restore_stamps(state)
-        self._buffers = tm.tmap(
-            lambda b: torch.tensor(_host(b), device=self.device),
-            state["buffers"])
-        self._stamps = torch.tensor(stamps, device=self.device)
-        return self
+        return self._load_rows(state["buffers"], stamps, 0)
 
     def local_state_dict(self):
-        """Shard-local checkpoint rows: not ported (item 10)."""
-        raise _not_ported("local_state_dict (shard-local checkpoints)",
-                          SHARDING_ITEM)
+        """This rank's live rows: ``(state, row_offset)``, ``state`` as
+        :meth:`state_dict` gives it (padding clipped, int64 stamps) and
+        ``row_offset`` its position in the population; feed both to
+        ``checkpoint.save_checkpoint_shard``."""
+        self._require_initialized()
+        live = self._live()
+        state = {"buffers": tm.tmap(
+                     lambda b: b[:live].detach().to("cpu", copy=True).numpy(),
+                     self._buffers),
+                 "stamps": self._stamps[:live].to("cpu", copy=True).numpy()}
+        return state, min(self.row_offset, self.num_clients)
 
-    def load_local_state_dict(self, state, row_offset: int):
-        """Shard-local restore: not ported (item 10)."""
-        del state, row_offset
-        raise _not_ported("load_local_state_dict (shard-local checkpoints)",
-                          SHARDING_ITEM)
+    def load_local_state_dict(self, state, row_offset: int
+                              ) -> "DeviceClientStateStore":
+        """Restore from one rank's :meth:`local_state_dict` (or one shard
+        file): the rows of ``[row_offset, row_offset + rows)`` that this
+        rank owns are loaded, its other rows zeroed (stamps 0, -1 on
+        padding). An unsharded store needs the whole population."""
+        stamps = _host(state["stamps"]).astype(np.int64)
+        rows = stamps.shape[0]
+        if row_offset < 0 or row_offset + rows > self.num_clients:
+            raise ValueError(
+                f"shard rows [{row_offset}, {row_offset + rows}) out of "
+                f"range for population {self.num_clients}")
+        if self.mesh is None and (row_offset != 0
+                                  or rows != self.num_clients):
+            raise ValueError(
+                "unsharded store restore needs the full population "
+                "(offset 0); got a partial shard")
+        return self._load_rows(state["buffers"], stamps, row_offset)
+
+    def _load_rows(self, buffers, stamps: np.ndarray, offset: int):
+        """Load host rows that start at population row ``offset`` into the
+        rows this rank owns (the rest: zeros, fresh stamps)."""
+        lo = max(offset, self.row_offset)
+        hi = min(offset + stamps.shape[0], self.row_offset + self.rows)
+
+        def rows_of(src: np.ndarray, fresh: torch.Tensor) -> torch.Tensor:
+            if hi > lo:
+                fresh[lo - self.row_offset:hi - self.row_offset] = \
+                    torch.from_numpy(np.ascontiguousarray(
+                        src[lo - offset:hi - offset]))
+            return fresh
+
+        def buffer(b) -> torch.Tensor:
+            b = _host(b)
+            return rows_of(b, torch.zeros(
+                (self.rows,) + b.shape[1:], device=self.device,
+                dtype=torch.as_tensor(b[:0]).dtype))
+
+        self._buffers = tm.tmap(buffer, buffers)
+        self._stamps = rows_of(stamps, self._fresh_stamps())
+        return self
 
 
 #: Store classes by ``FedConfig.client_state_placement`` value.
@@ -412,17 +736,22 @@ def make_client_store(placement: str, num_clients: int, *, device=None,
                       mesh=None, population_spec=None
                       ) -> BaseClientStateStore:
     """The store for a ``client_state_placement`` value; ``device`` places
-    the device store (default ``cuda``). A ``mesh`` or ``population_spec``
-    (population sharding) raises ``NotImplementedError`` (item 10)."""
+    the device store (default ``cuda``). ``mesh`` / ``population_spec``
+    shard the population; only a store class that is ``shardable`` (the
+    device store) takes them."""
     try:
         cls = STORES[placement]
     except KeyError:
         raise ValueError(
             f"unknown client_state_placement {placement!r}; "
             f"known: {tuple(STORES)}") from None
-    if mesh is not None or population_spec is not None:
-        raise _not_ported("a population-sharded client store (mesh=)",
-                          SHARDING_ITEM)
-    if cls is DeviceClientStateStore:
+    if mesh is not None:
+        if not cls.shardable:
+            raise ValueError(
+                f"client_state_placement={placement!r} does not support "
+                f"population sharding (mesh given); use \"device\"")
+        return cls(num_clients, device=device, mesh=mesh,
+                   population_spec=population_spec)
+    if cls.shardable:
         return cls(num_clients, device=device)
     return cls(num_clients)

@@ -23,6 +23,15 @@ The reference keeps a second, fused backend for its one jitted round
 program with buffer donation; eager PyTorch has neither, so the port
 keeps only the split stages.
 
+On a population-sharded store (``FedSim(mesh=)``, a multi-process
+``launch.train``) every rank runs this loop in step: ``prepare_ids`` gives
+a ``CohortRoute`` and the same gather and apply-order CAS write-back move
+each cohort row between the rank that owns it and the rank that runs it
+(``core/client_state.py``). The reference's ``lift_operand``, which lifts
+host operands to global arrays for a multi-process run, has no
+counterpart: the port has no global arrays, and each rank's operands are
+its own host arrays and tensors on its device.
+
 A dispatched cohort runs eagerly: on the CPU it is done when ``_dispatch``
 returns, on the GPU its kernels are queued on the stream ahead of the
 server update that follows, so it reads the params it was dispatched

@@ -20,6 +20,13 @@ the configured placement. A stateful algorithm (SCAFFOLD, FedEP) gets a
 per-client store (``core/client_state.py``) placed per
 ``fed.client_state_placement``: host numpy buffers, or tensors on
 ``device``.
+
+``FedSim(mesh=)`` runs one process of a multi-process simulation: the
+device store's population is sharded over the mesh's ranks, each rank
+stacks and runs only its rows of each cohort (in any placement: the
+sequential one runs a rank's rows one after another), and each rank folds
+its rows onto the accumulator of the ranks before it, so the aggregate is
+the unsharded round's bit for bit (``core/round_program.py``).
 """
 from __future__ import annotations
 
@@ -33,13 +40,14 @@ from repro_torch.algorithms import get_algorithm
 from repro_torch.compression.accounting import round_bytes
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tree_math as tm
-from repro_torch.core.client_state import make_client_store
+from repro_torch.core.client_state import cohort_ranks, make_client_store
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round_program import (make_cohort_program,
                                             make_server_program)
 from repro_torch.core.server import ServerState, init_server_state
 from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.prefetch import Cohort, stack_host
+from repro_torch.launch.mesh import rank_device
 from repro_torch.optim import get_optimizer
 
 
@@ -58,18 +66,26 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class StackCohort:
     """``CohortSource``'s batch builder for ``FedSim``: each client's
-    ``batch_fn(client_id, round_idx, local_steps)`` stacked on the host. A
-    plain object, so it pickles (to a spawned prefetch child) exactly when
-    ``batch_fn`` does."""
+    ``batch_fn(client_id, round_idx, local_steps)`` stacked on the host;
+    with ``shards = (W, s)`` only shard ``s`` of ``W`` equal shards of the
+    cohort (a rank's rows). A plain object, so it pickles (to a spawned
+    prefetch child) exactly when ``batch_fn`` does."""
 
     batch_fn: Callable
     local_steps: int
+    shards: Optional[tuple] = None
 
     def __call__(self, client_ids, round_idx: int):
-        """The cohort's batches with a leading client axis."""
+        """The cohort's (or this shard's) batches with a leading client
+        axis."""
+        ids = list(client_ids)
+        if self.shards is not None:
+            W, s = self.shards
+            n = len(ids) // W
+            ids = ids[s * n:(s + 1) * n]
         return stack_host([self.batch_fn(int(cid), round_idx,
                                          self.local_steps)
-                           for cid in client_ids])
+                           for cid in ids])
 
 
 @dataclasses.dataclass
@@ -84,6 +100,13 @@ class FedSim:
     ``placement`` / ``chunk_size`` override ``fed.round_placement`` /
     ``fed.round_chunk_size``: the round math is the same in all three
     placements, only the stacks of clients the kernels see differ.
+
+    ``mesh`` (a ``launch.mesh.ProcessMesh``; its device is the run's)
+    splits each cohort's rows over its ranks and shards the device store's
+    population over them; ``spmd_axes`` names the mesh axes the cohort
+    splits over (default: its client axes). A sharded run sums the same
+    terms in the same order as an unsharded one. With more than one rank
+    a stateful algorithm needs the device store.
     """
 
     fed: FedConfig
@@ -95,12 +118,28 @@ class FedSim:
     device: Optional[object] = None
     placement: Optional[str] = None
     chunk_size: Optional[int] = None
+    mesh: Optional[object] = None
+    spmd_axes: Optional[tuple] = None
 
     def __post_init__(self):
         """Resolve the device, the cohort source, the optimizers, the
         algorithm."""
+        shards = None
+        if self.mesh is not None:
+            if (self.device is not None and rank_device(
+                    self.device, self.mesh.rank) != self.mesh.device):
+                raise ValueError(f"device {self.device} is not the mesh's "
+                                 f"{self.mesh.device}")
+            self.device = self.mesh.device
+            ranks = cohort_ranks(self.mesh, self.spmd_axes)
+            if self.fed.clients_per_round % len(ranks):
+                raise ValueError(
+                    f"clients_per_round={self.fed.clients_per_round} does "
+                    f"not split evenly over the mesh's {len(ranks)} ranks")
+            shards = (len(ranks), ranks.index(self.mesh.rank))
         self.device = resolve_device(self.device)
-        self.stack_cohort = StackCohort(self.batch_fn, self.fed.local_steps)
+        self.stack_cohort = StackCohort(self.batch_fn, self.fed.local_steps,
+                                        shards)
         self.source = CohortSource(self.fed, self.num_clients,
                                    self.stack_cohort, self.client_weights,
                                    self.seed)
@@ -111,9 +150,11 @@ class FedSim:
                                         self.fed.server_momentum)
         self._alg = get_algorithm(self.fed)
         self._has_burn_regime = self._alg.burns_in
+        device_store = self.fed.client_state_placement == "device"
         self.client_store = (
             make_client_store(self.fed.client_state_placement,
-                              self.num_clients, device=self.device)
+                              self.num_clients, device=self.device,
+                              mesh=self.mesh if device_store else None)
             if self._alg.stateful or self._alg.burn_stateful else None)
         self._engine: Optional[RoundEngine] = None
         self._round_bytes: Optional[dict] = None
@@ -171,7 +212,9 @@ class FedSim:
                                         placement=self.placement,
                                         chunk_size=self.chunk_size,
                                         use_sampling=use_sampling,
-                                        server_opt=self.server_opt),
+                                        server_opt=self.server_opt,
+                                        mesh=self.mesh,
+                                        spmd_axes=self.spmd_axes),
                     make_server_program(self.fed, server_opt=self.server_opt,
                                         use_sampling=use_sampling))
 

@@ -21,7 +21,10 @@ stack:
     not divide is padded with zero-weight duplicates of client 0, whose
     metrics are sliced off before the cohort means.
 
-They give the same round math up to the order of fp32 sums. The cohort
+Each folds the cohort's clients onto the fp32 accumulator in cohort order
+(``FedAlgorithm.reduce_stacked`` / ``accumulate``), so the three sum the
+same terms in the same order; a client's own update may differ in its
+last bits between stacks of different sizes. The cohort
 stage also applies the fault annotations of ``data.cohort_source``: the
 survivor mask zeroes dropped clients' weights before normalisation (an
 all-dropped round is a zero aggregate with 0.0 losses), and the
@@ -37,6 +40,21 @@ state's placement (``core/client_state.py``) decides the signatures: the
 host store's slice comes in and the new states go out; the device store's
 whole state comes in with the cohort's ids, and the cohort gathers on the
 device (the round, or the engine at apply time, CAS-scatters there).
+
+With a ``mesh`` (``launch.mesh.ProcessMesh``) of W ranks the cohort's rows
+split over the ranks: rank r is handed only its rows ``[r C / W, (r + 1) C
+/ W)`` of the batches (and of a sharded store's states) and runs them
+through the resolved placement, while the weights, the survivor mask and
+the ids stay the whole cohort's, so the normalised weights are the
+one-process ones. Every placement folds its clients onto the accumulator
+in cohort order (``FedAlgorithm.reduce_stacked``); split over ranks, each
+rank folds its rows onto the sum of the ranks before it and hands it on,
+the last rank broadcasting the total (``core.collective``), so every rank
+holds the one-process aggregate bit for bit. The per-client metrics are
+gathered, so q-FFL's ``z``, the survivor normalisation and the loss means
+are computed over the whole cohort as in one process.
+``finish_cohort`` runs after the sum, and the server step on every rank on
+the same aggregate keeps the replicas equal.
 """
 from __future__ import annotations
 
@@ -46,8 +64,10 @@ import numpy as np
 import torch
 
 from repro_torch.algorithms import resolve_algorithm
+from repro_torch.core import collective
 from repro_torch.core import tree_math as tm
-from repro_torch.core.client_state import device_gather, device_scatter
+from repro_torch.core.client_state import (cohort_ranks, device_gather,
+                                           device_scatter)
 from repro_torch.core.server import ServerState, normalized_weights
 from repro_torch.optim import Optimizer, get_optimizer
 
@@ -101,6 +121,11 @@ class _CohortCtx(NamedTuple):
     place: str
     chunk_size: Optional[int]
     server_opt: Optimizer
+    mesh: object = None
+    #: (W, this rank's shard of the cohort, the rank of the shard before
+    #: it or None, the rank of the shard after it or None, the rank of the
+    #: last shard); None without a mesh
+    split: Optional[tuple] = None
 
 
 def _budget_masked(grad_fn: Callable) -> Callable:
@@ -163,30 +188,30 @@ def _state_arg(ctx, cstates, lo: int, hi: int) -> tuple:
     return (_rows(cstates, lo, hi),) if ctx.stateful else ()
 
 
-def _run_parallel(ctx, params, batches, weights, extras, cstates):
+def _run_parallel(ctx, params, batches, weights, extras, cstates, start):
     res = ctx.client_update(params, batches,
                             *((cstates,) if ctx.stateful else ()), *extras)
     w = _qffl_weights(ctx, weights, res.metrics)
-    return (ctx.alg.reduce_stacked(res.payload, w), res.metrics,
+    return (ctx.alg.reduce_stacked(res.payload, w, start()), res.metrics,
             res.state_update)
 
 
-def _run_sequential(ctx, params, batches, weights, extras, cstates):
-    acc = ctx.alg.init_accum(params)
+def _run_sequential(ctx, params, batches, weights, extras, cstates, start):
+    acc = None
     parts, states = [], []
     for c in range(weights.shape[0]):
         res = ctx.client_update(params, _rows(batches, c, c + 1),
                                 *_state_arg(ctx, cstates, c, c + 1), *extras)
         w = _qffl_weights(ctx, weights[c:c + 1], res.metrics)
-        acc = ctx.alg.accumulate(acc, tm.tmap(lambda x: x[0], res.payload),
-                                 w[0])
+        acc = ctx.alg.accumulate(start() if acc is None else acc,
+                                 tm.tmap(lambda x: x[0], res.payload), w[0])
         parts.append(res.metrics)
         states.append(res.state_update)
     C = weights.shape[0]
     return acc, _cat_metrics(parts, C), _cat_states(states, C)
 
 
-def _run_chunked(ctx, params, batches, weights, extras, cstates,
+def _run_chunked(ctx, params, batches, weights, extras, cstates, start,
                  chunk: int):
     C = weights.shape[0]
     pad = -(-C // chunk) * chunk - C
@@ -201,16 +226,16 @@ def _run_chunked(ctx, params, batches, weights, extras, cstates,
         weights = torch.cat([weights, weights.new_zeros(pad)])
         if ctx.stateful:
             cstates = tm.tmap(pad_lead, cstates)
-    acc = ctx.alg.init_accum(params)
+    acc = None
     parts, states = [], []
     for lo in range(0, C + pad, chunk):
         res = ctx.client_update(params, _rows(batches, lo, lo + chunk),
                                 *_state_arg(ctx, cstates, lo, lo + chunk),
                                 *extras)
-        part = ctx.alg.reduce_stacked(
+        acc = ctx.alg.reduce_stacked(
             res.payload,
-            _qffl_weights(ctx, weights[lo:lo + chunk], res.metrics))
-        acc = tm.tmap(lambda a, p: a + p.to(a.dtype), acc, part)
+            _qffl_weights(ctx, weights[lo:lo + chunk], res.metrics),
+            start() if acc is None else acc)
         parts.append(res.metrics)
         states.append(res.state_update)
     return acc, _cat_metrics(parts, C), _cat_states(states, C)
@@ -228,7 +253,14 @@ def _run_cohort(ctx: _CohortCtx, state: ServerState, client_batches,
     device = tm.tleaves(params)[0].device
     batches = to_device(client_batches, device)
     cstates = (to_device(client_states, device) if ctx.stateful else None)
-    C = tm.tleaves(batches)[0].shape[0]
+    n = tm.tleaves(batches)[0].shape[0]     # this rank's rows
+    W, shard, prev, after, last = ctx.split or (1, 0, None, None, None)
+    C = n * W
+    if client_weights is not None and len(client_weights) != C:
+        raise ValueError(
+            f"{len(client_weights)} client weights for {n} rows of "
+            f"batches on each of {W} ranks: with a mesh the batches are "
+            f"this rank's rows, the weights the whole cohort's")
     extras = ctx.alg.broadcast(state, ctx.server_opt)
     if survivor_mask is None:
         weights = normalized_weights(client_weights, C, device)
@@ -237,17 +269,29 @@ def _run_cohort(ctx: _CohortCtx, state: ServerState, client_batches,
         base = (np.ones((C,), np.float32) if client_weights is None
                 else np.asarray(client_weights, np.float32))
         weights = normalized_weights(base * mask, C, device, masked=True)
+    mine = weights[shard * n:(shard + 1) * n]
+
+    def start():
+        """The accumulator this rank folds its rows onto: zeros, or the
+        sum of the shards before it (awaited at the first fold)."""
+        acc = ctx.alg.init_accum(params)
+        return acc if prev is None else collective.recv_tree(ctx.mesh, acc,
+                                                             prev)
 
     if ctx.place == "parallel":
         agg, metrics, new_states = _run_parallel(ctx, params, batches,
-                                                 weights, extras, cstates)
+                                                 mine, extras, cstates, start)
     elif ctx.place == "sequential":
-        agg, metrics, new_states = _run_sequential(ctx, params, batches,
-                                                   weights, extras, cstates)
+        agg, metrics, new_states = _run_sequential(
+            ctx, params, batches, mine, extras, cstates, start)
     else:
         agg, metrics, new_states = _run_chunked(
-            ctx, params, batches, weights, extras, cstates,
-            _resolve_chunk(ctx.fed, ctx.chunk_size, C))
+            ctx, params, batches, mine, extras, cstates, start,
+            _resolve_chunk(ctx.fed, ctx.chunk_size, n))
+    if ctx.split is not None:
+        agg = collective.hand_on(ctx.mesh, agg, after, last)
+        metrics = {k: collective.all_gather_rows(ctx.mesh, v)
+                   for k, v in metrics.items()}
 
     if ctx.fed.qffl_q:
         # the placements folded with the tilted weights w_k * lam_k;
@@ -278,7 +322,8 @@ def make_cohort_program(grad_fn: Callable, fed, *,
                         use_sampling: bool = True,
                         client_opt: Optional[Optimizer] = None,
                         server_opt: Optional[Optimizer] = None,
-                        wrap_client: Optional[Callable] = None) -> Callable:
+                        wrap_client: Optional[Callable] = None,
+                        mesh=None, spmd_axes=None) -> Callable:
     """Build ``cohort_fn(state, client_batches, client_weights=None,
     survivor_mask=None) -> (agg, {"loss_first", "loss_last"})``.
 
@@ -310,6 +355,13 @@ def make_cohort_program(grad_fn: Callable, fed, *,
 
     ``state.algo_state`` (SCAFFOLD's server control variate) reaches the
     clients through the algorithm's ``broadcast``.
+
+    ``mesh`` splits the cohort's rows over its ranks (over the client axes
+    of ``spmd_axes`` when given): ``client_batches`` (and a device store's
+    gathered states) are this rank's rows, ``client_weights`` and
+    ``survivor_mask`` the whole cohort's, and every rank returns the same
+    aggregate and losses. A host store's slice cannot split over more than
+    one rank (``ValueError``).
     """
     alg = resolve_algorithm(fed, use_sampling)
     eff = alg.fed
@@ -323,10 +375,24 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     client_update = alg.make_client_update(grad, client_opt)
     if wrap_client is not None:
         client_update = wrap_client(client_update)
+    split = None
+    if mesh is not None:
+        ranks = cohort_ranks(mesh, spmd_axes)
+        shard = ranks.index(mesh.rank)
+        split = (len(ranks), shard, ranks[shard - 1] if shard else None,
+                 ranks[shard + 1] if shard + 1 < len(ranks) else None,
+                 ranks[-1])
+        if (split[0] > 1 and alg.stateful
+                and fed.client_state_placement != "device"):
+            raise ValueError(
+                f"a cohort split over {split[0]} ranks needs "
+                f"client_state_placement='device' for the stateful "
+                f"{alg.name!r}: the host store's slice is one process's")
     ctx = _CohortCtx(alg=alg, client_update=client_update,
                      stateful=alg.stateful, fed=fed,
                      place=resolve_placement(fed, placement),
-                     chunk_size=chunk_size, server_opt=server_opt)
+                     chunk_size=chunk_size, server_opt=server_opt,
+                     mesh=mesh, split=split)
 
     if ctx.stateful and fed.client_state_placement == "device":
         def cohort_fn(state: ServerState, client_batches,
@@ -388,7 +454,8 @@ def make_round_program(grad_fn: Callable, fed, *,
                        use_sampling: bool = True,
                        client_opt: Optional[Optimizer] = None,
                        server_opt: Optional[Optimizer] = None,
-                       wrap_client: Optional[Callable] = None) -> Callable:
+                       wrap_client: Optional[Callable] = None,
+                       mesh=None, spmd_axes=None) -> Callable:
     """Build ``round_fn(state, client_batches, client_weights=None,
     survivor_mask=None) -> (new_state, {"loss_first", "loss_last"})``: the
     cohort stage then the server stage (see ``make_cohort_program``). The
@@ -400,12 +467,14 @@ def make_round_program(grad_fn: Callable, fed, *,
     ``(store_state, client_ids)`` instead and returns ``(new_state, losses,
     new_store_state)``: gather, clients, CAS scatter (in place, with the
     survivor mask as its write mask, so a dropped client's state does not
-    land) and server step, with no host sync.
+    land) and server step, with no host sync. ``mesh`` / ``spmd_axes``
+    split the cohort over ranks as in ``make_cohort_program``.
     """
     cohort_fn = make_cohort_program(
         grad_fn, fed, placement=placement, chunk_size=chunk_size,
         use_sampling=use_sampling, client_opt=client_opt,
-        server_opt=server_opt, wrap_client=wrap_client)
+        server_opt=server_opt, wrap_client=wrap_client, mesh=mesh,
+        spmd_axes=spmd_axes)
     server_fn = make_server_program(fed, server_opt=server_opt,
                                     use_sampling=use_sampling)
     stateful = resolve_algorithm(fed, use_sampling).stateful

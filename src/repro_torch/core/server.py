@@ -65,15 +65,6 @@ def normalized_weights(client_weights, num_clients: int, device=None,
     return torch.as_tensor(w / total, device=device)
 
 
-def weighted_sum(stacked_deltas, weights, cast: bool = True):
-    """sum_i w_i * delta_i over the leading client axis, reduced in fp32;
-    ``cast=False`` keeps the fp32 sum (the accumulator space)."""
-    return tm.tmap(
-        lambda d: (torch.tensordot(weights, d.to(torch.float32), dims=1)
-                   .to(d.dtype if cast else torch.float32)),
-        stacked_deltas)
-
-
 def server_update(state: ServerState, mean_delta,
                   server_opt: Optimizer) -> ServerState:
     """theta <- SERVEROPT(theta, Delta); ``algo_state`` is carried through

@@ -1,5 +1,5 @@
 """The production federated round of the LM (port of
-``repro/core/sharded_round.py``), on one device.
+``repro/core/sharded_round.py``), on one device or over a mesh of ranks.
 
 The reference builds one jitted SPMD program per placement and adds the
 sharding hooks of the TPU mesh:
@@ -11,12 +11,21 @@ sharding hooks of the TPU mesh:
     all-gather at each client's compute boundary;
   * ``chunked`` — ``chunk`` clients batched at a time, chunks in turn.
 
-On one device every sharding hook is the identity: ``fsdp_constrain`` and
-``tp_constrain`` (the reference's ``prepare_params``, ``constrain_accum``,
-``finalize_params`` and the payload constraint) place nothing, so they are
-left out. What stays of the sequential placement's client wrapper is its
-cast of the master params to ``compute_dtype`` before the client update:
-its clients step on params in the compute dtype, as the reference's do.
+Here ``parallel`` and ``chunked`` take a ``mesh`` (``launch.mesh``): the
+cohort's rows split over its ranks, each rank runs its rows and folds
+them onto the accumulator the rank before it hands on (``round_program``):
+the only cross-client collective, as in the reference. The
+``sequential`` placement's FSDP over ranks (parameter-shaped state
+sharded over data x model, a bf16 all-gather at each local step) is
+ROADMAP.md queue 1, item 10 part 2: a ``sequential`` round on a mesh of
+more than one rank raises
+``NotImplementedError`` naming it. On one rank every sharding hook is the
+identity: ``fsdp_constrain`` and ``tp_constrain`` (the reference's
+``prepare_params``, ``constrain_accum``, ``finalize_params`` and the
+payload constraint) place nothing, so they are left out. What stays of the
+sequential placement's client wrapper is its cast of the master params to
+``compute_dtype`` before the client update: its clients step on params in
+the compute dtype, as the reference's do.
 The program structure and the client math live in
 ``round_program``; this module contributes the LM ``grad_fn`` and that
 wrapper, for the whole round (``make_fed_round``, one cohort then one
@@ -28,7 +37,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import FedConfig, ModelConfig
+from repro_torch.configs.base import FedConfig, ModelConfig, _not_ported
 from repro_torch.core import tree_math as tm
 from repro_torch.core.round_program import (make_cohort_program,
                                             make_round_program,
@@ -38,15 +47,20 @@ from repro_torch.models.steps import lm_grad_fn
 
 def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
                     compute_dtype, q_chunk: int, remat: str,
-                    use_sampling: bool, chunk_size: Optional[int]):
+                    use_sampling: bool, chunk_size: Optional[int],
+                    mesh=None, spmd_axes=None):
     """Shared wiring: ``(grad_fn, round_kwargs)`` for a placement."""
     grad_fn = lm_grad_fn(cfg, compute_dtype=compute_dtype, q_chunk=q_chunk,
                          remat=remat)
     kw = dict(placement=placement, use_sampling=use_sampling)
     if placement in ("parallel", "chunked"):
-        return grad_fn, dict(kw, chunk_size=chunk_size)
+        return grad_fn, dict(kw, chunk_size=chunk_size, mesh=mesh,
+                             spmd_axes=spmd_axes)
     if placement != "sequential":
         raise ValueError(f"unknown placement {placement!r}")
+    if mesh is not None and mesh.size > 1:
+        raise _not_ported("the sequential placement's FSDP over a mesh of "
+                          "ranks", "10 part 2")
 
     def wrap_client(client_update):
         def cast_client_update(master_params, batches, *extra):
@@ -67,7 +81,8 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
                    placement: str = "parallel",
                    compute_dtype=torch.bfloat16, q_chunk: int = 1024,
                    remat: str = "none", use_sampling: bool = True,
-                   chunk_size: Optional[int] = None) -> Callable:
+                   chunk_size: Optional[int] = None, mesh=None,
+                   spmd_axes=None) -> Callable:
     """Build ``round_fn(server_state, client_batches, client_weights=None,
     survivor_mask=None) -> (state, metrics)``; a stateful algorithm's
     round takes and returns its client state as
@@ -82,11 +97,13 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     ``vmap(grad)`` (``models.model.recompute``), as the reference's
     default does; the port's default is ``"none"``, since its rounds are
     bound by the host's launches and the recompute adds device ops.
-    ``"dots"`` raises (``models.model.forward``). The reference's
-    ``spmd_axes`` have no counterpart on one device.
+    ``"dots"`` raises (``models.model.forward``). ``mesh`` splits the
+    cohort's rows over its ranks (``client_batches`` are then this rank's
+    rows), over the client axes of ``spmd_axes`` when given.
     """
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
-                                  q_chunk, remat, use_sampling, chunk_size)
+                                  q_chunk, remat, use_sampling, chunk_size,
+                                  mesh, spmd_axes)
     return make_round_program(grad_fn, fed, **kw)
 
 
@@ -94,13 +111,14 @@ def make_fed_round_split(cfg: ModelConfig, fed: FedConfig, *,
                          placement: str = "parallel",
                          compute_dtype=torch.bfloat16, q_chunk: int = 1024,
                          remat: str = "none", use_sampling: bool = True,
-                         chunk_size: Optional[int] = None
-                         ) -> Tuple[Callable, Callable]:
+                         chunk_size: Optional[int] = None, mesh=None,
+                         spmd_axes=None) -> Tuple[Callable, Callable]:
     """Same wiring as ``make_fed_round``, split into the engine's two
     stages: ``(cohort_fn, server_fn)`` (``round_program``'s
     ``make_cohort_program`` / ``make_server_program``)."""
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
-                                  q_chunk, remat, use_sampling, chunk_size)
+                                  q_chunk, remat, use_sampling, chunk_size,
+                                  mesh, spmd_axes)
     return (make_cohort_program(grad_fn, fed, **kw),
             make_server_program(fed, use_sampling=use_sampling))
 

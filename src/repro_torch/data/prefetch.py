@@ -18,10 +18,16 @@ cohorts up to ``depth`` rounds ahead of the round loop
   but a builder that holds the GIL serializes with the round loop.
 
 Both only *build* cohorts; ordering, staleness and server updates stay
-with the consumer (``core.engine.RoundEngine``). The reference's
-multi-host feeding (``local_row_range``, ``host_shard_to_global``,
-``globalize_cohort_batches``, ``replicate_global``) waits for ROADMAP.md
-queue 1, item 10.
+with the consumer (``core.engine.RoundEngine``).
+
+Multi-process feeding: with a mesh of ranks each rank builds only its own
+rows of a cohort (``local_row_range``) and places them on its own device
+(``host_shard_to_global`` / ``globalize_cohort_batches``); no batch bytes
+cross ranks. ``replicate_global`` places the inputs every rank holds alike
+(server state, ids, masks) on the rank's device. The reference assembles
+global arrays from the per-host slices; the port has no global arrays, so
+these are their rank-local counterparts, and the round program takes the
+rank's rows as they are (``core/round_program.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +45,54 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+
+def local_row_range(mesh, axes, global_rows: int):
+    """The ``[lo, hi)`` leading-axis rows this rank runs when
+    ``global_rows`` cohort rows split evenly over the mesh ``axes`` (a
+    name or a tuple); ``ValueError`` when they do not divide."""
+    # core.client_state imports this module's package: import late
+    from repro_torch.core.client_state import cohort_rows  # noqa: PLC0415
+
+    return cohort_rows(mesh, global_rows, axes)
+
+
+def host_shard_to_global(local, mesh, axes, global_rows: int,
+                         row_offset: int) -> torch.Tensor:
+    """This rank's contiguous ``(rows, ...)`` slice of a ``(global_rows,
+    ...)`` cohort array, checked to be exactly the rows
+    :func:`local_row_range` gives the rank (the reference's callback
+    raises on the same mismatch), on the rank's device."""
+    lo, hi = local_row_range(mesh, axes, global_rows)
+    rows = int(np.shape(local)[0])
+    if (row_offset, row_offset + rows) != (lo, hi):
+        raise RuntimeError(
+            f"rows [{row_offset}, {row_offset + rows}) given to a rank "
+            f"that runs [{lo}, {hi})")
+    if isinstance(local, np.ndarray):
+        local = torch.from_numpy(np.ascontiguousarray(local))
+    return local.to(mesh.device)
+
+
+def globalize_cohort_batches(batches, mesh, axes, global_rows: int,
+                             row_offset: int):
+    """This rank's stacked batches (its :func:`local_row_range` rows of
+    the cohort) with every leaf checked and placed on its device by
+    :func:`host_shard_to_global`."""
+    return pytree.tree_map(
+        lambda b: host_shard_to_global(b, mesh, axes, global_rows,
+                                       row_offset), batches)
+
+
+def replicate_global(tree, mesh):
+    """A tree every rank holds alike (numpy or tensor leaves) on the
+    rank's device; tensors already there pass through."""
+    def place(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(mesh.device) if isinstance(x, torch.Tensor) else x
+
+    return pytree.tree_map(place, tree)
 
 
 def stack_host(trees):

@@ -1,5 +1,5 @@
-"""Federated LM training entry point (port of ``repro/launch/train.py``), one
-process on one device.
+"""Federated LM training entry point (port of ``repro/launch/train.py``), on
+one device or on several processes, one device each.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch fedlm-100m \\
       --smoke --rounds 20 --algorithm fedpa --device cpu
@@ -42,14 +42,34 @@ embeddings (rounded to bf16, as the reference's) before ``--seq-len``
 minus ``frontend_tokens`` text tokens, and an MoE arch's loss adds its
 router aux loss.
 
+Multi-process runs (the reference's flags): every process is started
+with ``--coordinator host:port --num-processes W --process-id r``; rank r
+runs on ``cuda:{r % device_count}`` (or the CPU), the ranks form a
+``("data",)`` mesh (``launch/mesh.py``) and a distributed run implies
+``--shard-population``: the device store's population is sharded over
+the ranks (a stateful algorithm needs ``--client-state-placement
+device``), each rank builds and runs only its rows of each cohort and
+folds them onto the accumulator of the ranks before it (so the aggregate
+is the one-process aggregate bit for bit), and every rank takes the same
+server step; a digest of the server state is compared across
+ranks after every round. Rank 0 prints and logs the records and writes
+the server checkpoint; every rank writes its own store shard
+(``ckpt_<step>.shard<r>of<W>``) and a restore reads both. At the end each
+rank prints one ``{"rank_summary": ...}`` line (its device, DP launches,
+peak memory, store rows and bytes, host ms and bytes sent to other ranks
+per round). ``--shard-population`` alone runs the sharded path in one
+process. ``--async-rounds`` stays single-process, as in the reference.
+
 Differences from the reference:
 
 * The local steps keep every activation by default (``main(remat=
   "none")``); the reference recomputes each pattern repeat
   (``remat="full"``), which ``main(remat="full")`` gives here too
   (``models.model.recompute``, under the round's ``vmap(grad)``).
-* Flags whose paths are not ported raise ``NotImplementedError`` naming
-  their ROADMAP.md queue-1 item (``refuse_unported``).
+* ``--dist-backend {nccl,gloo}`` (default: nccl on CUDA, gloo on the
+  CPU) stands for the reference's ``jax_cpu_collectives_implementation``
+  setting; gloo on CUDA is how two ranks share one card, which NCCL
+  refuses. ``--dist-timeout`` bounds the wait for the other ranks.
 """
 from __future__ import annotations
 
@@ -66,8 +86,11 @@ import torch
 from repro_torch import configs
 from repro_torch.algorithms import algorithm_names, get_algorithm, phase_name
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.checkpoint.io import (restore_store_sharded,
+                                       save_store_sharded)
 from repro_torch.compression.accounting import round_bytes
-from repro_torch.configs.base import FedConfig, _not_ported
+from repro_torch.configs.base import FedConfig
+from repro_torch.core import collective
 from repro_torch.core import tree_math as tm
 from repro_torch.core.client_state import make_client_store
 from repro_torch.core.engine import RoundEngine
@@ -77,6 +100,11 @@ from repro_torch.core.server import init_server_state
 from repro_torch.core.sharded_round import make_fed_round_split
 from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.lm_synthetic import SyntheticLMData
+from repro_torch.data.prefetch import (globalize_cohort_batches,
+                                       local_row_range)
+from repro_torch.kernels import fedpa_dp
+from repro_torch.launch.mesh import (DEFAULT_TIMEOUT_S, init_distributed,
+                                     make_host_mesh)
 from repro_torch.models.model import init_params
 from repro_torch.models.steps import lm_loss
 from repro_torch.optim import get_optimizer
@@ -185,10 +213,18 @@ def parse_args(argv=None):
                     help="where stateful algorithms' per-client state "
                          "lives: host numpy buffers (one sync per round at "
                          "the scatter) or tensors on the device")
-    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port where rank 0 listens (multi-process)")
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--shard-population", action="store_true")
+    ap.add_argument("--shard-population", action="store_true",
+                    help="shard the device store's population over the "
+                         "ranks (implied by a multi-process run)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend (default: nccl on CUDA, "
+                         "gloo on the CPU; gloo lets ranks share a card)")
+    ap.add_argument("--dist-timeout", type=float, default=DEFAULT_TIMEOUT_S,
+                    help="seconds to wait for the other ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -196,20 +232,6 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     return ap.parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP.md queue-1 item
-    for the first flag whose path this port does not have."""
-    pending = [
-        (args.coordinator is not None, "--coordinator", 10),
-        ((args.num_processes or 1) > 1, "--num-processes > 1", 10),
-        (args.process_id is not None, "--process-id", 10),
-        (args.shard_population, "--shard-population", 10),
-    ]
-    for bad, what, item in pending:
-        if bad:
-            raise _not_ported(what, item)
 
 
 def bf16_values(x: np.ndarray) -> np.ndarray:
@@ -287,7 +309,7 @@ def make_eval_fn(args, cfg, data, s_text, q_chunk, device, compute_dtype):
     return eval_fn
 
 
-def restore_if_present(args, state, store, ckpt_tree):
+def restore_if_present(args, state, store, ckpt_tree, verbose=True):
     """Resume from ``--ckpt-dir`` when it holds a checkpoint; returns
     ``(state, start_round)`` and loads the client state into ``store`` in
     place."""
@@ -303,20 +325,40 @@ def restore_if_present(args, state, store, ckpt_tree):
         else:
             state = restored["server"]
             store.load_state_dict(restored["clients"])
-        print(f"restored checkpoint at round {start_round}")
+        if verbose:
+            print(f"restored checkpoint at round {start_round}")
     return state, start_round
+
+
+@dataclasses.dataclass(frozen=True)
+class RankRows:
+    """The cohort batch function of one rank of a mesh: its
+    ``local_row_range`` rows of each cohort, built by ``batches`` and
+    placed on its device (``globalize_cohort_batches``)."""
+
+    batches: RoundBatches
+    mesh: object
+
+    def __call__(self, ids, round_idx: int):
+        """This rank's rows of the cohort ``ids``."""
+        lo, hi = local_row_range(self.mesh, "data", len(ids))
+        local = self.batches(np.asarray(ids)[lo:hi], round_idx)
+        return globalize_cohort_batches(local, self.mesh, "data", len(ids),
+                                        lo)
 
 
 def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
                eval_fn, emit, maybe_checkpoint, q_chunk, compute_dtype,
-               remat):
+               remat, mesh=None):
     """Drive the ``RoundEngine`` over the burn-in and sampling programs
     from ``start_round`` to ``args.rounds``; returns ``(state, history)``.
     Synchronous runs keep an in-flight window of one; ``--async-rounds``
-    widens it to ``max_staleness + 1``."""
+    widens it to ``max_staleness + 1``. With a ``mesh`` the cohort splits
+    over its ranks, and the ranks' server states are compared after every
+    round (``collective.check_replicas``)."""
     has_burn = alg.burns_in
     kw = dict(placement="parallel", compute_dtype=compute_dtype,
-              q_chunk=q_chunk, remat=remat)
+              q_chunk=q_chunk, remat=remat, mesh=mesh)
 
     def stages(use_sampling):
         return make_fed_round_split(cfg, fed, use_sampling=use_sampling,
@@ -349,6 +391,7 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
     def on_round(rec, round_state):
         # one device sync per round, for live logging
         nonlocal last_t
+        collective.check_replicas(mesh, round_state)
         r = start_round + rec["round"]
         out = {"round": r,
                "eval_loss": (float(rec["eval"]["eval_loss"])
@@ -366,7 +409,8 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
 
     return engine.run(state, ShiftedCohorts(source, start_round),
                       args.rounds - start_round,
-                      eval_fn=lambda p: {"eval_loss": eval_fn(p)},
+                      eval_fn=(None if eval_fn is None
+                               else lambda p: {"eval_loss": eval_fn(p)}),
                       on_round=on_round)
 
 
@@ -380,18 +424,50 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE,
     local steps' recompute (``"full"``: each pattern repeat recomputed in
     the backward pass, as the reference's default). Returns ``cfg``,
     the final ``state``, the per-client ``store`` (None when stateless),
-    the engine's ``history``, the printed ``records`` and each round's
-    host ``seconds``.
+    the engine's ``history``, the printed ``records``, each round's host
+    ``seconds``, the ``mesh`` (None unless sharded) and each round's
+    bytes ``sent`` to other ranks. A multi-process run leaves its process
+    group when it ends.
     """
     args = parse_args(argv)
-    refuse_unported(args)
+    if (args.num_processes or 0) > 1 and args.async_rounds:
+        raise SystemExit("--async-rounds is single-host only (the async "
+                         "engine's apply-order write-back has no "
+                         "cross-process story yet); drop the flag")
+    distributed = init_distributed(
+        args.coordinator, args.process_id, args.num_processes,
+        backend=args.dist_backend, device=args.device,
+        timeout=args.dist_timeout)
+    try:
+        return _train(args, distributed, cfg, compute_dtype, remat)
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
+    """``main`` once the process group (if any) is up."""
+    shard_pop = args.shard_population or distributed
     device = resolve_device(args.device)
+    mesh = make_host_mesh(device) if shard_pop else None
+    if mesh is not None:
+        device = mesh.device
+    is_main = mesh is None or mesh.rank == 0
     if cfg is None:
         cfg = (configs.get_smoke(args.arch) if args.smoke
                else configs.get_config(args.arch))
     fed = build_fed(args)
-    print(f"arch={cfg.name} params={cfg.param_count():,} "
-          f"algorithm={fed.algorithm} rounds={args.rounds} device={device}")
+    if shard_pop and fed.prefetch_backend == "process":
+        # a rank's cohort builder places its rows on the rank's device,
+        # which a spawned builder child must never touch
+        fed = dataclasses.replace(fed, prefetch_backend="thread")
+    if is_main:
+        print(f"arch={cfg.name} params={cfg.param_count():,} "
+              f"algorithm={fed.algorithm} rounds={args.rounds} "
+              f"device={device}"
+              + (f" processes={mesh.size} backend={mesh.backend}"
+                 if distributed else "")
+              + (f" population_mesh={tuple(mesh.sizes)}" if mesh else ""))
 
     data = SyntheticLMData(vocab_size=cfg.vocab_size,
                            num_clients=args.num_clients, seed=args.seed)
@@ -402,52 +478,98 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE,
                                fed.server_momentum)
     alg = get_algorithm(fed)
     state = init_server_state(params, server_opt, algorithm=alg)
+    device_store = fed.client_state_placement == "device"
+    stateful = alg.stateful or alg.burn_stateful
+    if shard_pop and stateful and not device_store:
+        raise SystemExit("population sharding needs the device store for "
+                         "stateful algorithms: add "
+                         "--client-state-placement device")
     store = (make_client_store(fed.client_state_placement, args.num_clients,
-                               device=device)
+                               device=device,
+                               mesh=mesh if device_store else None)
              .ensure(alg.init_client_state(params))
-             if alg.stateful or alg.burn_stateful else None)
+             if stateful else None)
+    # a sharded store never ships in the server checkpoint: each rank
+    # writes its own rows (checkpoint.io.save_store_sharded)
+    sharded_store = store is not None and mesh is not None
 
     def ckpt_tree(round_state):
         """The checkpoint tree: the bare server state, or ``{"server",
         "clients"}`` (the one place device client state reaches the
         host)."""
-        if store is None:
+        if store is None or sharded_store:
             return round_state
         return {"server": round_state, "clients": store.state_dict()}
 
     def maybe_checkpoint(round_state, r):
         if args.ckpt_dir and ((r + 1) % args.ckpt_every == 0
                               or r == args.rounds - 1):
-            save_checkpoint(args.ckpt_dir, ckpt_tree(round_state), r + 1,
-                            {"arch": cfg.name, "algorithm": fed.algorithm})
+            meta = {"arch": cfg.name, "algorithm": fed.algorithm}
+            if is_main:
+                save_checkpoint(args.ckpt_dir, ckpt_tree(round_state), r + 1,
+                                meta)
+            if sharded_store:
+                save_store_sharded(args.ckpt_dir, store, r + 1, meta)
 
-    state, start_round = restore_if_present(args, state, store, ckpt_tree)
+    state, start_round = restore_if_present(
+        args, state, None if sharded_store else store, ckpt_tree,
+        verbose=is_main)
+    if sharded_store and start_round:
+        restore_store_sharded(args.ckpt_dir, store, step=start_round)
     q_chunk = min(64, s_text)
+    batches = RoundBatches(data, fed.local_steps, args.batch, s_text,
+                           cfg.frontend_tokens if cfg.frontend else 0,
+                           cfg.d_model)
     source = CohortSource(fed, args.num_clients,
-                          RoundBatches(data, fed.local_steps, args.batch,
-                                       s_text, cfg.frontend_tokens
-                                       if cfg.frontend else 0, cfg.d_model),
+                          batches if mesh is None else RankRows(batches,
+                                                                mesh),
                           seed=args.seed)
-    eval_fn = make_eval_fn(args, cfg, data, s_text, q_chunk, device,
-                           compute_dtype)
+    eval_fn = (make_eval_fn(args, cfg, data, s_text, q_chunk, device,
+                            compute_dtype) if is_main else None)
 
-    records, seconds = [], []
-    with (open(args.log, "a") if args.log
+    records, seconds, sent = [], [], []
+    collective.reset_traffic()
+    with (open(args.log, "a") if args.log and is_main
           else contextlib.nullcontext()) as logf:
         def emit(rec, sec):
+            seconds.append(sec)
+            sent.append(collective.sent_bytes() - sum(sent))
+            if not is_main:
+                return  # every rank computes the records; one reports
             print(json.dumps(rec), flush=True)
             if logf:
                 logf.write(json.dumps(rec) + "\n")
                 logf.flush()
             records.append(rec)
-            seconds.append(sec)
 
         state, history = run_rounds(args, cfg, fed, alg, state, store,
                                     start_round, source, eval_fn, emit,
                                     maybe_checkpoint, q_chunk,
-                                    compute_dtype, remat)
+                                    compute_dtype, remat, mesh)
+    if distributed:
+        print(json.dumps({"rank_summary": rank_summary(
+            mesh, device, store, seconds, sent)}), flush=True)
     return {"cfg": cfg, "state": state, "store": store, "history": history,
-            "records": records, "seconds": seconds}
+            "records": records, "seconds": seconds, "mesh": mesh,
+            "sent": sent}
+
+
+def rank_summary(mesh, device, store, seconds, sent) -> dict:
+    """What one rank of a multi-process run used: its device, its DP
+    kernel launches, its peak memory (CUDA only), its store's rows and
+    buffer bytes, its host ms per round, and the bytes it sent to other
+    ranks per round, by kind in all, and staged through the host."""
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    bufs = (tm.tleaves(store.device_state()["buffers"])
+            if store is not None and hasattr(store, "device_state") else [])
+    return {"rank": mesh.rank, "world": mesh.size, "device": str(device),
+            "backend": mesh.backend, "dp_launches": dict(fedpa_dp.launches),
+            "peak_bytes": peak,
+            "store_rows": getattr(store, "rows", None),
+            "store_bytes": sum(b.numel() * b.element_size() for b in bufs),
+            "host_ms": [x * 1e3 for x in seconds], "sent_bytes": sent,
+            "traffic": dict(collective.traffic)}
 
 
 if __name__ == "__main__":

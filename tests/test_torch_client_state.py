@@ -31,6 +31,7 @@ from repro_torch.core.round import FedSim
 from repro_torch.core.round_program import (make_cohort_program,
                                             make_round_program)
 from repro_torch.core.server import init_server_state
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import get_optimizer
 
 #: Every store the contract is held on: the port's two placements and the
@@ -234,12 +235,18 @@ def test_make_client_store_resolves_placement():
         cs.make_client_store("tpu", 2)
     with pytest.raises(ValueError, match="client_state_placement"):
         FedConfig(client_state_placement="tpu")
-    for call in (lambda: cs.make_client_store("device", 2, mesh=object()),
-                 lambda: cs.population_layout(None, 2),
-                 lambda: dev.local_state_dict()):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 10"):
-            call()
+    # population sharding: a one-process mesh shards the device store
+    # (one shard), the host store refuses a mesh as the reference's does
+    mesh = make_host_mesh("cpu")
+    sharded = cs.make_client_store("device", 2, mesh=mesh)
+    assert sharded.layout == cs.population_layout(mesh, 2)
+    assert (sharded.rows, sharded.row_offset) == (2, 0)
+    with pytest.raises(ValueError, match="population sharding"):
+        cs.make_client_store("host", 2, mesh=mesh)
+    assert cs.population_layout(None, 2).padded_num_clients == 2
+    dev.ensure(np.zeros(1, np.float32))
+    local, offset = dev.local_state_dict()
+    assert offset == 0 and local["stamps"].tolist() == [0, 0]
 
 
 def test_device_store_needs_cuda_without_a_device(monkeypatch):

@@ -4,9 +4,9 @@ entry point's keys, the phase flips from the burn-in to FedPA, the losses are
 finite, the per-client state flags run and ``--ckpt-dir`` resumes,
 ``--async-rounds`` runs give the JAX entry point's records (FedLoRA's
 ``lowrank`` sketch among them), prefetching changes no number, the codec
-flags parse as the JAX entry point parses them, each flag whose path
-is not ported is refused with the ROADMAP.md item that ports it, while
-the JAX package's ``parse_args`` accepts it, and the per-client grad
+flags parse as the JAX entry point parses them, the multi-process flags
+raise the reference's errors for a bad launch while ``--shard-population``
+runs in one process, and the per-client grad
 runs the families the port trains since it trains them all.
 
 Every run here builds its cohorts inline or on the thread prefetcher
@@ -43,6 +43,7 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.core import tree_math as tm
 from repro_torch.examples import train_lm_federated
 from repro_torch.launch import train
+from repro_torch.launch.mesh import DEFAULT_TIMEOUT_S
 from repro_torch.models import steps
 
 #: The keys of one round's record in ``repro/launch/train.py``'s
@@ -151,23 +152,47 @@ def test_stateful_flags_run_and_resume(flags, phase, tmp_path, capsys):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
 
 
-#: Flags valid in the reference whose paths the port lacks -> the
-#: ROADMAP.md queue-1 item that ports them.
-REFUSED = [
-    (["--coordinator", "localhost:1234"], 10),
-    (["--num-processes", "2"], 10), (["--process-id", "0"], 10),
-    (["--shard-population"], 10),
+#: Multi-process launches the reference refuses, with its errors: an
+#: incomplete or out-of-range launch (``ValueError``, before any process
+#: group forms), async rounds over processes and a host store sharded
+#: for a stateful algorithm (``SystemExit``).
+LAUNCH_ERRORS = [
+    (["--num-processes", "2"], ValueError, "--coordinator"),
+    (["--num-processes", "2", "--coordinator", "127.0.0.1:1"], ValueError,
+     "--process-id"),
+    (["--num-processes", "2", "--coordinator", "127.0.0.1:1",
+      "--process-id", "2"], ValueError, "out of range"),
+    (["--num-processes", "2", "--coordinator", "127.0.0.1:1",
+      "--process-id", "0", "--async-rounds"], SystemExit, "single-host"),
+    (["--shard-population", "--algorithm", "scaffold", "--client-opt",
+      "sgd", "--burn-in-rounds", "0"], SystemExit, "device store"),
 ]
 
 
-@pytest.mark.parametrize("flags,item", REFUSED,
+@pytest.mark.parametrize("flags,error,match", LAUNCH_ERRORS,
                          ids=lambda v: " ".join(v) if isinstance(v, list)
-                         else str(v))
-def test_unported_flags_are_refused(flags, item):
-    jax_train.parse_args(flags)          # valid in the reference
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1, item {item}"):
+                         else None)
+def test_multi_process_flags_raise_the_reference_errors(flags, error,
+                                                        match):
+    jax_train.parse_args(flags)          # flags the reference parses
+    with pytest.raises(error, match=match):
         train.main(SMOKE + ["--rounds", "1"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--algorithm", "fedep", "--client-state-placement", "device"]],
+    ids=["fedpa", "fedep device store"])
+def test_shard_population_in_one_process(flags, capsys):
+    """``--shard-population`` alone: one process is the whole mesh, the
+    banner names it and the records equal the unsharded run's."""
+    sharded = train.main(SMOKE + ["--rounds", "2", "--shard-population"]
+                         + flags)
+    assert "population_mesh=(1,)" in capsys.readouterr().out
+    assert sharded["mesh"].size == 1
+    plain = train.main(SMOKE + ["--rounds", "2"] + flags)
+    for a, b in zip(sharded["records"], plain["records"]):
+        for k in ("eval_loss", "client_loss_first", "client_loss_last"):
+            assert math.isclose(a[k], b[k], rel_tol=1e-5), k
 
 
 #: The families the port serves and, since it trains them all, trains:
@@ -224,11 +249,13 @@ CODEC_FLAGS = [
 @pytest.mark.parametrize("flags", CODEC_FLAGS, ids=lambda v: " ".join(v))
 def test_codec_flags_parse_like_jax(flags):
     """The flags parse to the JAX entry point's values (the port adds only
-    ``--device``), and the configs they build agree: fedlora's constructs,
-    a codec on FedPA raises ValueError in both packages."""
+    ``--device``, ``--dist-backend`` and ``--dist-timeout``), and the
+    configs they build agree: fedlora's constructs, a codec on FedPA
+    raises ValueError in both packages."""
     got = vars(train.parse_args(flags))
     want = vars(jax_train.parse_args(flags))
-    assert got.pop("device") is None and got == want
+    assert got.pop("device") is None and got.pop("dist_backend") is None
+    assert got.pop("dist_timeout") == DEFAULT_TIMEOUT_S and got == want
     args = train.parse_args(flags)
     if args.algorithm == "fedlora":
         assert dataclasses.asdict(train.build_fed(args)) == \
