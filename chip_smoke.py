@@ -26,7 +26,8 @@
    makes as ``torch.profiler`` counts them. Last, both DP kernels at the
    LM training path's d = 100,684,032 (fedlm-100m), lp 3: C = 4, the
    path's cohort, and C = 8, where ``V`` holds 2.42e9 elements (past
-   2^31, so the 64-bit offsets are exercised); each case's buffers are
+   2^31, so the 64-bit offsets are exercised), and C = 1 at half that
+   d, the shard of each of phase 16c's two ranks; each case's buffers are
    freed after it.
 3. Drives the FedPA path: ``FedSim(device="cuda").run`` for 3 FedPA rounds
    of the full-width EMNIST CNN (16 of 64 clients, l=5, one burn-in round),
@@ -62,8 +63,9 @@
    kernel route's logits must equal the plain route's, teacher-forced from
    a copy of the same prefill state, within 2e-3.
 7. The serving path itself: ``launch/serve.py``'s ``main`` on the full
-   62-layer gemma3-27b in bf16, batch 4, prompt 1280, 64 generated tokens;
-   ``swa_decode`` must have been launched 63 x 62 = 3906 times. The same
+   62-layer gemma3-27b in bf16, batch 4, prompt 1280, 32 generated
+   tokens; ``swa_decode`` must have been launched 31 x 62 = 1922 times.
+   The same
    decode is replayed through the plain route (0 launches) from a copy of
    the prefill state, teacher-forced on the kernel route's tokens; the max
    logit difference must stay within one bf16 rounding (2^-8) of the
@@ -93,7 +95,7 @@
    profiled run of one FedPA round gives the device time per round, its
    idle share and the kernels that take the most of it. Then the
    same path in fp32 compute on fedlm-100m cut to one layer (2 clients,
-   8 local steps, l = 4, batch 2 x 64 tokens, one burn-in and one FedPA
+   6 local steps, l = 4, batch 2 x 64 tokens, one burn-in and one FedPA
    round) on the card and on the CPU from the same weights: the final
    params must agree (phase 4's bound).
 10. Per-client state. (a) FedEP on the device store trains the full-width
@@ -161,10 +163,10 @@
 13. Serving the rest of the LM stack on the card, bf16, each model freed
    before the next. (a) ``launch/serve.py``'s ``main`` on the full
    48-layer qwen3-moe-30b-a3b (128 experts, top-8, one-hot routing),
-   batch 4, prompt 1024, 32 tokens; (b) on the full 38-layer
+   batch 4, prompt 1024, 16 tokens; (b) on the full 38-layer
    recurrentgemma-9b (26 RG-LRU, 12 local attention layers at window
-   2048), batch 4, prompt 3072 (the ring wraps in prefill), 32 tokens;
-   (c) at batch 4, prompt 512, 16 tokens: internvl2-26b (256 vision
+   2048), batch 4, prompt 3072 (the ring wraps in prefill), 16 tokens;
+   (c) at the same batch, prompt 512, 16 tokens: internvl2-26b (256 vision
    frontend tokens), minitron-4b, musicgen-medium (64 audio frontend
    tokens), xlstm-125m, granite-34b cut from 88 to 40 repeats and
    llama4-scout-17b-a16e cut from 12 to 2 repeats (both too large for
@@ -172,7 +174,7 @@
    step beside the decode bound (every weight and the decode state read
    once per step over the HBM rate), tokens/s and the peak memory;
    ``swa_decode`` must have been launched (tokens - 1) x attention layers
-   times (48 x 31, 12 x 31, 0 for xlstm-125m), and the decode replayed
+   times (48 x 15, 12 x 15, 0 for xlstm-125m), and the decode replayed
    through the plain route from a copy of the prefill state must keep
    its logits within phase 7's bound, with greedy tokens equal wherever
    the kernel route's top two logits are further apart than twice the
@@ -187,13 +189,15 @@
    ``SWA_CASES``).
 14. Training the rest of the LM stack. (a) ``launch.train.main`` on the
    full-size xlstm-125m (d = 129,642,288: 6 sLSTM and 6 mLSTM layers)
-   with phase 9's FedPA settings cut to one FedPA round and no burn-in
-   round: DP launches (rounds - burn-in rounds) x (l - 1) = 3 each, ``swa_decode`` none, finite records; round host ms
+   with phase 9's FedPA settings cut to one FedPA round, no burn-in
+   round and 6 local steps (2 burn-in steps, a sample every step: l = 4):
+   DP launches (rounds - burn-in rounds) x (l - 1) = 3 each,
+   ``swa_decode`` none, finite records; round host ms
    against the reckoned bound, the peak memory against phase 9's
    reckoning, and a profiled local step (device ops and time, idle
    share, top kernels). Client lr 0.01: at 0.05 its local steps diverge. (b) One FedPA round of the full-width
-   fedlm-100m in fp32 compute at 8 x 512 tokens a client step, from the
-   same state, with ``remat="none"`` and ``"full"`` (each pattern repeat
+   fedlm-100m in fp32 compute at 8 x 512 tokens a client step (6 local
+   steps, l = 4, as 14a), from the same state, with ``remat="none"`` and ``"full"`` (each pattern repeat
    recomputed in the backward pass under the round's ``vmap(grad)``):
    params within phase 4's bound, the peak memory lower with the
    recompute; both peaks and round times.
@@ -225,6 +229,24 @@
    one client each) against one process on the card: params and the
    store put together from the ranks within phase 4's bound, stamps
    exact.
+16. The ``sequential`` placement's FSDP over ranks (``core/fsdp.py``):
+   a burn-in round and a FedPA round through ``make_fed_round(...,
+   placement="sequential", mesh=...)``, every parameter-shaped state a
+   flat shard, the compute params all-gathered at each local step and the
+   DP kernel pair on each rank's shard, its dots summed over the ranks.
+   (a) The one-layer fp32 cut (9b's settings, 2 clients) through a
+   one-rank NCCL mesh against no mesh: the burn-in round bitwise, the
+   FedPA round within 1e-6 of the largest entry (its coefficients come
+   from the glue, not the reduce kernel's epilogue). (b) The same on two
+   gloo ranks sharing the card (one row of each client a rank), spawned,
+   against the one-process card run and a CPU run made meanwhile (phase
+   4's bound). (c) The full-width fedlm-100m in bf16 with phase 9's
+   FedPA settings cut to 2 clients on two gloo ranks: each rank's peak
+   memory, host ms a round, DP launches (6 each in the FedPA round),
+   params all-gathers and bytes gathered and reduced against the layout's
+   formula, and its state's bytes (master, server momentum, accumulator,
+   ``v_hist``, batch-DP samples) against one process's, half each; the
+   ranks' final params must have equal digests and the losses be finite.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -287,27 +309,34 @@ TRAIN_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
               "--seq-len", "128", "--server-lr", "0.3", "--prefetch-rounds",
               "0"]
 # ... and its fp32 replay on one layer, card against CPU
-# (8 local steps, a sample every step: l = 4 as at 12 steps and a sample
-# every 2, a third fewer local steps for the script's time; its runs on
-# the CPU in phases 9-12 took ~430 s at 12 on the H100 machine)
+# (6 local steps, 2 burn-in steps and a sample every step: l = 4 as at 12
+# steps and a sample every 2, half the local steps for the script's time;
+# its runs on the CPU in phases 9-12 took ~430 s at 12 on the H100
+# machine)
 REPLAY_ARGV = ["--arch", "fedlm-100m", "--algorithm", "fedpa", "--clients",
-               "2", "--num-clients", "64", "--local-steps", "8",
-               "--burn-in-steps", "4", "--steps-per-sample", "1",
+               "2", "--num-clients", "64", "--local-steps", "6",
+               "--burn-in-steps", "2", "--steps-per-sample", "1",
                "--burn-in-rounds", "1", "--rounds", "2", "--batch", "2",
                "--seq-len", "64", "--server-lr", "0.3", "--prefetch-rounds",
                "0"]
+# the local steps of phases 14a and 14b, cut from 12 for the script's
+# time: 2 burn-in steps and a sample every step keep l = 4 (3 DP steps)
+STEPS_CUT = ["--local-steps", "6", "--burn-in-steps", "2",
+             "--steps-per-sample", "1"]
 # phase 14a: the same command on the full-size xlstm-125m, at client lr
 # 0.01: at the default 0.05 (momentum 0.9) its local steps diverge and
 # reach NaN within the first round at full depth; one FedPA round and no
 # burn-in round (cut from 1 + 2 for the script's time: 3 DP launches of
-# each kernel, and the round's host ms includes its warm-up)
+# each kernel, and the round's host ms includes its warm-up) of
+# ``STEPS_CUT``'s local steps
 XLSTM_ARGV = [("xlstm-125m" if a == "fedlm-100m" else a)
               for a in TRAIN_ARGV] + ["--client-lr", "0.01", "--rounds",
-                                      "1", "--burn-in-rounds", "0"]
+                                      "1", "--burn-in-rounds", "0"] \
+    + STEPS_CUT
 # phase 14b: phase 9's command at 8 x 512 tokens a client step, where the
 # activations a recompute frees weigh against the DP's fp32 vectors
 REMAT_ARGV = TRAIN_ARGV + ["--batch", "8", "--seq-len", "512", "--rounds",
-                           "1", "--burn-in-rounds", "0"]
+                           "1", "--burn-in-rounds", "0"] + STEPS_CUT
 
 # phase 10: the population of the full-width FedEP run (cut from 64: the
 # device store holds 2 fp32 vectors of d per client) ...
@@ -365,13 +394,13 @@ FEDLM_DOWN, FEDLM_DENSE = 402_736_132, 402_736_128
 MP_CONNECT_S = 300
 MP_TIMEOUT_S = 600
 # the serving path (gemma3-27b at full width): batch, prompt, generated
-SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 64
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 32
 # phase 13: the other architectures served at full width, bf16: (arch,
 # prompt, generated tokens, repeats cut to or None); the first two
 # profiled
 SERVE_ARCHS = (
-    ("qwen3-moe-30b-a3b", 1024, 32, None),
-    ("recurrentgemma-9b", 3072, 32, None),
+    ("qwen3-moe-30b-a3b", 1024, 16, None),
+    ("recurrentgemma-9b", 3072, 16, None),
     ("internvl2-26b", 512, 16, None),
     ("minitron-4b", 512, 16, None),
     ("musicgen-medium", 512, 16, None),
@@ -461,8 +490,9 @@ def device_ops_per_call(fn, calls: int = 10, tries: int = 3):
 
 #: phase 2's DP cases (C, lp, d, dtype): the main path's shape (the
 #: cohort at ``parallel``), lp 1, the stacks of ``sequential`` (1) and
-#: ``chunked`` chunk 6, a ragged small d, and bf16 inputs. The cases marked
-#: timed also get device and host times.
+#: ``chunked`` chunk 6, a ragged small d, bf16 inputs, the LM paths' d and
+#: the FSDP shard of fedlm-100m over two ranks (phase 16c). The cases
+#: marked timed also get device and host times.
 DP_D = 428_350
 #: d of the LM training path (fedlm-100m's parameter count)
 LM_D = 100_684_032
@@ -472,7 +502,8 @@ DP_CASES = ((16, 4, DP_D, "float32", True), (16, 1, DP_D, "float32", False),
             (1, 4, DP_D, "float32", True), (6, 4, DP_D, "float32", True),
             (3, 4, 1300, "float32", False), (16, 4, DP_D, "bfloat16", True),
             (4, 3, LM_D, "float32", True), (8, 3, LM_D, "float32", True),
-            (4, 3, XLSTM_D, "float32", True))
+            (4, 3, XLSTM_D, "float32", True),
+            (1, 3, LM_D // 2, "float32", True))
 #: the outputs a CUDA graph of timed calls may hold (phase 2)
 GRAPH_BYTES = 4 * 2**30
 #: the ``ops.dp_step`` rows: stacks of 1, 6 and 16 clients
@@ -3075,17 +3106,17 @@ def grad_cuts(seed: int) -> None:
                               repeats=1)
     llama = configs.get_config("llama4-scout-17b-a16e")
     cuts = (
-        ("moe onehot", moe_cfg, 64),
+        ("moe onehot", moe_cfg, 32),
         ("moe sort", configs.replace(moe_cfg, moe=configs.replace(
-            moe_cfg.moe, routing="sort")), 64),
+            moe_cfg.moe, routing="sort")), 32),
         ("llama4 moe", configs.replace(llama, pattern=llama.pattern[-1:],
-                                       repeats=1), 64),
+                                       repeats=1), 32),
         ("rglru, rglru, swa", configs.replace(
-            configs.get_config("recurrentgemma-9b"), repeats=1, tail=()), 64),
+            configs.get_config("recurrentgemma-9b"), repeats=1, tail=()), 32),
         ("audio frontend", configs.replace(
-            configs.get_config("musicgen-medium"), repeats=1), 64),
+            configs.get_config("musicgen-medium"), repeats=1), 32),
         ("vision frontend", configs.replace(
-            configs.get_config("internvl2-26b"), repeats=1), 64),
+            configs.get_config("internvl2-26b"), repeats=1), 32),
         ("slstm, mlstm", configs.replace(configs.get_config("xlstm-125m"),
                                          repeats=1), 128),
     )
@@ -3495,8 +3526,441 @@ def multi_process(card: str, params, seed: int, fedep_records) -> dict:
     return by_run
 
 
+# phase 16: the sequential placement's FSDP over ranks. The one-layer
+# fp32 cut runs REPLAY_ARGV's FedPA settings (2 clients, 2 rows each), the
+# full-width run TRAIN_ARGV's cut to 2 of 64 clients; each one burn-in
+# round and one FedPA round at ``sequential``.
+FSDP_CLIENTS = 2
+
+
+def fsdp_inputs(argv: list, cfg, seed: int):
+    """``(FedConfig, the two rounds' tokens (C, K, B, S + 1))`` of a
+    ``launch.train`` command, cut to ``FSDP_CLIENTS`` clients; the tokens
+    drawn from ``seed``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    args = train.parse_args(argv)
+    fed = dataclasses.replace(train.build_fed(args),
+                              clients_per_round=FSDP_CLIENTS)
+    r = np.random.default_rng(seed)
+    toks = [r.integers(0, cfg.vocab_size, (FSDP_CLIENTS, args.local_steps,
+                                           args.batch, args.seq_len + 1),
+                       dtype=np.int32) for _ in range(2)]
+    return fed, toks
+
+
+@contextlib.contextmanager
+def fsdp_probe(held: dict):
+    """Record, inside the block, the elements of the accumulator, the
+    batch-DP samples and the DP history each FSDP round holds per client
+    (``held[name]``: a set), restoring the functions after."""
+    from repro_torch.algorithms import base, fedpa
+    from repro_torch.core import tree_math as tm
+    from repro_torch.kernels import ops
+
+    saved = (base.FedAlgorithm.accumulate, fedpa.dp_delta,
+             ops.dp_step_sharded)
+
+    def probe(key, fn, size):
+        def wrapped(*a, **k):
+            held.setdefault(key, set()).add(size(*a))
+            return fn(*a, **k)
+        return wrapped
+
+    base.FedAlgorithm.accumulate = probe(
+        "accumulator", saved[0], lambda self, acc, *_: tm.tree_size(acc))
+    fedpa.dp_delta = probe("samples", saved[1],
+                           lambda x0, samples, *_: samples[0].numel())
+    ops.dp_step_sharded = probe("v_hist", saved[2],
+                                lambda u, delta, V, *_: V[0].numel())
+    try:
+        yield held
+    finally:
+        (base.FedAlgorithm.accumulate, fedpa.dp_delta,
+         ops.dp_step_sharded) = saved
+
+
+def fsdp_rounds(cfg, fed, toks, device: str, compute_dtype, seed: int,
+                mesh=None) -> dict:
+    """A burn-in round then a FedPA round of ``make_fed_round`` at
+    ``sequential`` from ``init_params`` at ``seed`` (sharded over ``mesh``
+    when given). Returns per round the whole params after it (gathered),
+    its losses, host ms, peak memory, DP launches and collective traffic;
+    the state's elements a rank holds; and the FSDP layout."""
+    import torch
+
+    from repro_torch.core import collective, sharded_round
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.server import init_server_state
+    from repro_torch.kernels import fedpa_dp
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import get_optimizer
+
+    cuda = torch.device(device).type == "cuda"
+    params = tm.tmap(lambda x: x.to(device), init_params(
+        torch.Generator().manual_seed(seed), cfg, device="cpu"))
+    opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
+    state = init_server_state(params, opt)
+    del params
+    layout = None
+    if mesh is not None:
+        layout = sharded_round.fsdp_layout(cfg, mesh)
+        state = layout.shard_state(state)
+    out = {"rounds": [], "layout": layout}
+    for use_sampling, t in zip((False, True), toks):
+        fn = sharded_round.make_fed_round(
+            cfg, fed, placement="sequential", compute_dtype=compute_dtype,
+            use_sampling=use_sampling, mesh=mesh)
+        fedpa_dp.reset_launches()
+        collective.reset_traffic()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = fn(state, {"tokens": t})
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = dict(ms=ms, launches=dict(fedpa_dp.launches),
+                   traffic=dict(collective.traffic),
+                   losses={k: float(v) for k, v in metrics.items()},
+                   peak=torch.cuda.max_memory_allocated() if cuda else None)
+        if layout is not None:
+            rec.update(master=state.params.numel(),
+                       momentum=state.opt_state["m"].numel())
+        rec["params"] = (layout.gather_state(state).params if layout
+                         else state.params)
+        out["rounds"].append(rec)
+    return out
+
+
+#: phase 16's cases on the two ranks: (b) the one-layer fp32 cut, then
+#: (c) the full width in bf16 (the one-layer case warms the ranks up)
+FSDP_CASES = ("one-layer", "full")
+
+
+def fsdp_case(case: str):
+    """``(cfg, launch.train command, compute dtype)`` of a phase-16 case."""
+    import torch
+
+    from repro_torch import configs
+
+    if case == "full":
+        return configs.get_config("fedlm-100m"), TRAIN_ARGV, torch.bfloat16
+    return (configs.replace(configs.get_config("fedlm-100m"), repeats=1),
+            REPLAY_ARGV, torch.float32)
+
+
+def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
+    """One rank of phase 16b and 16c (a spawned child): two gloo ranks
+    sharing the card on a ``("data",)`` mesh run ``fsdp_rounds`` on each
+    of ``FSDP_CASES``; writes ``out/rank<r>.<case>.json`` (per-round
+    numbers, the elements held, the final params' digest, the case's
+    seconds) and, for the one-layer case, ``.npz`` (both rounds' gathered
+    params)."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.core import collective
+    from repro_torch.core import tree_math as tm
+    from repro_torch.launch.mesh import init_distributed, mesh_from_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"127.0.0.1:{port}", rank, 2, backend="gloo",
+                     device="cuda", timeout=MP_CONNECT_S)
+    try:
+        mesh = mesh_from_config(MeshConfig(shape=(2,), axes=("data",)),
+                                "cuda")
+        torch.cuda.set_device(mesh.device)
+        for case in FSDP_CASES:
+            t0 = time.perf_counter()
+            cfg, argv, dtype = fsdp_case(case)
+            fed, toks = fsdp_inputs(argv, cfg, seed)
+            held = {}
+            with fsdp_probe(held):
+                res = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, mesh)
+            rounds = res["rounds"]
+            base = os.path.join(out, f"rank{rank}.{case}")
+            if case != "full":
+                np.savez(base + ".npz",
+                         **{f"r{i}_{j}": x.cpu().numpy() for i, r in
+                            enumerate(rounds) for j, x in
+                            enumerate(tm.tleaves(r["params"]))})
+            summary = {
+                "rank": rank, "device": str(mesh.device),
+                "n": res["layout"].n, "d": res["layout"].d,
+                "held": {k: sorted(v) for k, v in held.items()},
+                "digest": collective.digest(rounds[-1]["params"]).tolist(),
+                "rounds": [{k: v for k, v in r.items() if k != "params"}
+                           for r in rounds],
+                "seconds": time.perf_counter() - t0}
+            with open(base + ".json", "w") as f:
+                json.dump(summary, f)
+            del res, rounds
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_spawn(seed: int, meanwhile=None):
+    """Phase 16b and 16c's two ranks (spawned children sharing the card);
+    runs ``meanwhile()`` in this process while they work. Returns
+    ``({case: the ranks' summaries}, the one-layer case's params files,
+    meanwhile's result, seconds from the spawn to both exits)``."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=fsdp_rank, args=(r, port, seed, tmp))
+                 for r in (0, 1)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        extra = meanwhile() if meanwhile is not None else None
+        for p in procs:
+            p.join(MP_TIMEOUT_S)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        wall = time.perf_counter() - t0
+        if alive or any(p.exitcode for p in procs):
+            fail(f"fsdp ranks exited {[p.exitcode for p in procs]}")
+        sums = {}
+        for case in FSDP_CASES:
+            sums[case] = []
+            for r in (0, 1):
+                with open(os.path.join(tmp, f"rank{r}.{case}.json")) as f:
+                    sums[case].append(json.load(f))
+        files = [dict(np.load(os.path.join(tmp, f"rank{r}.one-layer.npz")))
+                 for r in (0, 1)]
+    finally:
+        shutil.rmtree(tmp)
+    return sums, files, extra, wall
+
+
+def fsdp_launches(rounds: list) -> dict:
+    """The DP launches of an FSDP run's FedPA round (its last)."""
+    return rounds[-1]["launches"]
+
+
+def fsdp_nccl_one_rank(seed: int):
+    """Phase 16a: the one-layer fp32 cut's rounds with no mesh against the
+    same rounds through a one-rank NCCL mesh: the burn-in round bitwise,
+    the FedPA round within 1e-6 of the largest entry (the sharded step's
+    coefficients come from the glue, not the reduce kernel's epilogue).
+    Returns the DP launches of both FedPA rounds and the run with no
+    mesh."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import tree_math as tm
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, argv, dtype = fsdp_case("one-layer")
+    fed, toks = fsdp_inputs(argv, cfg, seed)
+    ell = (fed.local_steps - fed.burn_in_steps) // fed.steps_per_sample
+    expected = FSDP_CLIENTS * (ell - 1)
+    name = f"{cfg.name} cut to {cfg.num_layers} layer"
+    one = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=MP_CONNECT_S))
+    try:
+        mesh = make_host_mesh("cuda")
+        nccl = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, mesh)
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    first = equal_bitwise(one["rounds"][0]["params"],
+                          nccl["rounds"][0]["params"])
+    want, got = (tm.tleaves(r["rounds"][1]["params"]) for r in (one, nccl))
+    scale = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    calls = [r["traffic"]["calls"] for r in nccl["rounds"]]
+    launches = {f"{name} fp32 sequential, no mesh": fsdp_launches(
+        one["rounds"]), f"{name} fp32 sequential, one-rank nccl fsdp":
+        fsdp_launches(nccl["rounds"])}
+    print(f"fsdp nccl one rank ({name}, d={cfg.param_count():,}, fp32, "
+          f"{FSDP_CLIENTS} clients, a burn-in and a FedPA round at "
+          f"sequential, {mesh.shape} mesh, backend {backend}): NCCL calls "
+          f"per round {calls}; burn-in round bitwise equal to no mesh "
+          f"{first}; FedPA round max abs diff {err:.3g} of largest "
+          f"{scale:.3g}; host ms per round no mesh "
+          f"{[round(r['ms'], 1) for r in one['rounds']]}, one-rank mesh "
+          f"{[round(r['ms'], 1) for r in nccl['rounds']]}; DP launches "
+          f"{launches} (expected {expected} each)", flush=True)
+    if not first or not err <= 1e-6 * scale or not all(calls):
+        fail("fsdp nccl one rank: the mesh run differs from the run with "
+             "no mesh (or made no NCCL call)")
+    for n in launches.values():
+        if any(v != expected for v in n.values()):
+            fail(f"fsdp nccl one rank: DP launches {launches}")
+    return launches, one
+
+
+def fsdp_two_rank_replay(sums, files, one, cpu, cpu_s: float) -> dict:
+    """Phase 16b: the one-layer case on the two gloo ranks (one row of
+    each client a rank) against the one-process card run (16a's) and the
+    CPU run (phase 4's bound). Returns the ranks' DP launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import tree_math as tm
+
+    cfg, argv, _ = fsdp_case("one-layer")
+    fed, _ = fsdp_inputs(argv, cfg, 0)
+    expected = FSDP_CLIENTS * ((fed.local_steps - fed.burn_in_steps)
+                               // fed.steps_per_sample - 1)
+    name = f"{cfg.name} cut to {cfg.num_layers} layer"
+    n_leaves = len(tm.tleaves(one["rounds"][1]["params"]))
+    ranks_equal = all(np.array_equal(files[0][k], files[1][k])
+                      for k in files[0])
+    print(f"fsdp two gloo ranks ({name}, fp32, {FSDP_CLIENTS} clients, one "
+          f"row of each a rank, ('data',) mesh of 2 on one card): "
+          f"{max(s['seconds'] for s in sums):.1f} s a rank, the CPU run "
+          f"meanwhile {cpu_s:.1f} s; ranks' gathered params bitwise equal "
+          f"{ranks_equal}", flush=True)
+    launches = {}
+    for s in sums:
+        print(f"  rank {s['rank']} on {s['device']}: n={s['n']:,} of d="
+              f"{s['d']:,}; host ms per round "
+              f"{[round(r['ms'], 1) for r in s['rounds']]}; losses "
+              f"{[r['losses'] for r in s['rounds']]}; DP launches "
+              f"{fsdp_launches(s['rounds'])}", flush=True)
+        launches[f"{name} fp32 sequential, 2 gloo ranks fsdp: rank "
+                 f"{s['rank']}"] = fsdp_launches(s["rounds"])
+        if any(v != expected for v in fsdp_launches(s["rounds"]).values()):
+            fail(f"fsdp two gloo ranks: rank {s['rank']} DP launches "
+                 f"{fsdp_launches(s['rounds'])}")
+    if not ranks_equal:
+        fail("fsdp two gloo ranks: the ranks' gathered params differ")
+    for i in (0, 1):
+        got = [torch.from_numpy(files[0][f"r{i}_{j}"])
+               for j in range(n_leaves)]
+        params_close(got, one["rounds"][i]["params"],
+                     f"two ranks vs one process on the card, round {i}")
+        params_close(got, cpu["rounds"][i]["params"],
+                     f"two ranks vs the CPU, round {i}")
+    return launches
+
+
+def fsdp_full_width(card: str, sums) -> dict:
+    """Phase 16c: the full-width fedlm-100m (bf16 compute) with
+    TRAIN_ARGV's FedPA settings at ``sequential`` on the two gloo ranks, 2
+    clients (2 of each client's 4 rows a rank), a burn-in and a FedPA
+    round, every parameter-shaped state sharded in halves. Prints each
+    rank's peak memory, host ms, DP launches, bytes gathered and reduced
+    against the layout's formula and its state's bytes against one
+    process's; the ranks' final params must have equal digests and the
+    losses be finite. Returns the DP launches."""
+    from repro_torch.launch import train
+
+    cfg, argv, _ = fsdp_case("full")
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    lp, steps = ell - 1, FSDP_CLIENTS * args.local_steps
+    d = sums[0]["d"]
+    print(f"fsdp two gloo ranks train {cfg.name}: d={d:,}, bf16 compute, "
+          f"{FSDP_CLIENTS} clients of {args.batch} x {args.seq_len} tokens "
+          f"a step ({args.batch // 2} rows a rank), {args.local_steps} "
+          f"local steps (l = {ell}), a burn-in and a FedPA round at "
+          f"sequential on a ('data',) mesh of 2 sharing one card ({card}) "
+          f"over gloo: {max(s['seconds'] for s in sums):.1f} s a rank",
+          flush=True)
+    launches = {}
+    for s in sums:
+        n = s["n"]
+        # the formula: per local step the bf16 shard to the other rank,
+        # and gloo's all-reduce of the padded fp32 gradient (2 (W-1) n)
+        want_params, want_grads = steps * n * 2, steps * 2 * n * 4
+        tr = [r["traffic"] for r in s["rounds"]]
+        state = {"master": s["rounds"][-1]["master"] * 4,
+                 "server momentum": s["rounds"][-1]["momentum"] * 4,
+                 "accumulator": max(s["held"]["accumulator"]) * 4,
+                 "v_hist": max(s["held"]["v_hist"]) * 4,
+                 "samples": max(s["held"]["samples"]) * 4}
+        whole = {"master": d * 4, "server momentum": d * 4,
+                 "accumulator": d * 4, "v_hist": lp * d * 4,
+                 "samples": ell * d * 4}
+        print(f"  rank {s['rank']} on {s['device']}: n={n:,}; peak memory "
+              f"allocated per round "
+              f"{[round(r['peak'] / 2**30, 2) for r in s['rounds']]} GiB; "
+              f"host ms per round "
+              f"{[round(r['ms'], 1) for r in s['rounds']]}; losses "
+              f"{[r['losses'] for r in s['rounds']]}; DP launches in the "
+              f"FedPA round {fsdp_launches(s['rounds'])} (expected "
+              f"{FSDP_CLIENTS * lp} each); per round params all-gathers "
+              f"{[t['param_gathers'] for t in tr]} (expected {steps}), "
+              f"bytes {[t['params'] for t in tr]} (formula {want_params}), "
+              f"grads reduced {[t['grads'] for t in tr]} (formula "
+              f"{want_grads}), staged through the host "
+              f"{[t['staged'] for t in tr]}, host s inside the collectives "
+              f"{[round(t['seconds'], 2) for t in tr]}; state bytes a rank "
+              f"{state} against one process's {whole}; final params "
+              f"digest {s['digest'][:3]}...", flush=True)
+        launches[f"fedlm-100m bf16 sequential, 2 gloo ranks fsdp: rank "
+                 f"{s['rank']}"] = fsdp_launches(s["rounds"])
+        losses = [v for r in s["rounds"] for v in r["losses"].values()]
+        if not all(map(math.isfinite, losses)):
+            fail(f"fsdp full width: rank {s['rank']} losses {losses}")
+        if any(v != FSDP_CLIENTS * lp
+               for v in fsdp_launches(s["rounds"]).values()):
+            fail(f"fsdp full width: rank {s['rank']} DP launches "
+                 f"{fsdp_launches(s['rounds'])}")
+        if any(t["param_gathers"] != steps or t["params"] != want_params
+               or t["grads"] != want_grads for t in tr):
+            fail(f"fsdp full width: rank {s['rank']} traffic {tr}")
+        if any(2 * state[k] != whole[k] for k in state):
+            fail(f"fsdp full width: rank {s['rank']} holds {state}, not "
+                 f"half of {whole}")
+    if sums[0]["digest"] != sums[1]["digest"]:
+        fail("fsdp full width: the ranks' final params differ")
+    return launches
+
+
+def sequential_fsdp(card: str, seed: int) -> dict:
+    """Phase 16 (16a-16c); returns the DP launches of its runs."""
+    import torch
+
+    by_run, one = fsdp_nccl_one_rank(seed)
+    torch.cuda.empty_cache()
+
+    def cpu_run():
+        cfg, argv, dtype = fsdp_case("one-layer")
+        fed, toks = fsdp_inputs(argv, cfg, seed)
+        t0 = time.perf_counter()
+        res = fsdp_rounds(cfg, fed, toks, "cpu", dtype, seed)
+        return res, time.perf_counter() - t0
+
+    sums, files, (cpu, cpu_s), wall = fsdp_spawn(seed, cpu_run)
+    print(f"fsdp ranks: {wall:.1f} s from the spawn to both exits",
+          flush=True)
+    by_run.update(fsdp_two_rank_replay(sums["one-layer"], files, one, cpu,
+                                       cpu_s))
+    by_run.update(fsdp_full_width(card, sums["full"]))
+    return by_run
+
+
 def main() -> int:
-    """Run the fifteen phases; returns the exit code."""
+    """Run the sixteen phases; returns the exit code."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3671,6 +4135,11 @@ def main() -> int:
     # -- phase 15: multi-process training ------------------------------------
     by_run.update(multi_process(card, params, args.seed, fedep_records))
     done(15)
+    torch.cuda.empty_cache()
+
+    # -- phase 16: the sequential placement's FSDP over ranks ----------------
+    by_run.update(sequential_fsdp(card, args.seed))
+    done(16)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -118,6 +118,10 @@ class FedAlgorithm:
     #: Whether clients carry persistent per-client state; a stateful update
     #: takes the stack's state slice and returns ``state_update``.
     stateful: bool = False
+    #: The Sherman-Morrison step of an algorithm that runs the DP:
+    #: ``kernels.ops.dp_step`` when None; an FSDP round sets the sharded
+    #: step before it builds the client update (``core/fsdp.py``).
+    dp_step = None
 
     def __init__(self, fed):
         """Bind the algorithm to a ``FedConfig`` (stored as ``self.fed``)."""

@@ -6,7 +6,10 @@ DP on the flat ``(C, d)`` fp32 samples: each DP step is one launch of each
 CUDA kernel for the whole cohort (``kernels/ops.dp_step``).
 ``fed.streaming_dp=True`` absorbs each window's sample into the online DP
 state as the window closes, so the ``(C, l, d)`` sample buffer never
-exists. Burn-in rounds run the FedAvg regime (Section 5.2).
+exists. Burn-in rounds run the FedAvg regime (Section 5.2). Under FSDP
+(``core/fsdp.py``) the params the update gets are this rank's flat shard,
+so the samples and the DP state are shards too and each DP step is the
+sharded one (``FedAlgorithm.dp_step``).
 """
 from __future__ import annotations
 
@@ -89,7 +92,7 @@ class FedPA(FedAlgorithm):
                 steps_per_sample=fed.steps_per_sample,
                 num_samples=self.num_samples, sample_dtype=self.delta_dtype)
             delta = dp_delta(self._x0(params), res.samples,
-                             fed.shrinkage_rho)
+                             fed.shrinkage_rho, self.dp_step)
             first = (res.burn_in_losses[:, 0] if fed.burn_in_steps
                      else res.sample_losses[:, 0, 0])
             return (tm.unflatten(delta, params, self.delta_dtype), res,
@@ -129,7 +132,8 @@ class FedPA(FedAlgorithm):
                     p, client_opt, s, grad_fn, batches,
                     fed.burn_in_steps + j * fed.steps_per_sample,
                     fed.steps_per_sample, self.delta_dtype)
-                dp = online_dp_update(dp, sample, fed.shrinkage_rho)
+                dp = online_dp_update(dp, sample, fed.shrinkage_rho,
+                                      self.dp_step)
                 if loss_first is None:
                     loss_first = losses[:, 0]
             delta = online_dp_delta(dp, fed.shrinkage_rho)

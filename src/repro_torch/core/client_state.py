@@ -61,8 +61,9 @@ from repro_torch.launch.mesh import rank_device
 #: precedence order (the reference's ``CLIENT_AXES``).
 CLIENT_AXES = ("pod", "data")
 
-#: ROADMAP.md queue-1 item that shards a mesh's other axes (FSDP).
-FSDP_ITEM = "10 part 2"
+#: ROADMAP.md queue-1 item that puts the client store on a mesh whose
+#: other axes are wider than 1 (the stateful algorithms under FSDP).
+FSDP_ITEM = "10 part 3"
 
 
 def _require_unique_ids(client_ids: np.ndarray, op: str) -> None:
@@ -168,8 +169,8 @@ def shard_index(mesh, axes, rank: Optional[int] = None) -> int:
 def rank_of_shard(mesh, axes) -> list:
     """``rank_of_shard[s]``: the rank holding shard ``s`` over ``axes``,
     which must span every rank (each rank one shard); a mesh with other
-    axes wider than 1 would replicate shards across them (FSDP over the
-    model axis, item 10 part 2)."""
+    axes wider than 1 would replicate shards across them (the store under
+    FSDP over the model axis, item 10 part 3)."""
     extent = math.prod(mesh.shape[a] for a in axes)
     if extent != mesh.size:
         raise _not_ported(

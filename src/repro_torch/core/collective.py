@@ -13,7 +13,12 @@ functions on tensors that take the mesh (``launch.mesh.ProcessMesh``).
   * ``exchange_rows`` — an all-to-all of store rows with uneven splits,
     which moves each rank exactly the rows it asked for;
   * ``replicas_equal`` / ``check_replicas`` — a digest of a tree (the
-    server state) on every rank, compared across ranks.
+    server state) on every rank, compared across ranks;
+  * ``all_gather_flat`` / ``reduce_scatter_flat`` / ``all_reduce_small``
+    — the FSDP round's collectives (``core/fsdp.py``): every rank's flat
+    shard gathered into the whole vector, a whole vector summed over the
+    ranks with each rank keeping its shard of the sum, and a small tensor
+    (the DP's dot products, the losses) summed over the ranks.
 
 A mesh without a group (one process) makes each of them the identity; a
 group of one rank still runs its collective, so a one-rank NCCL group
@@ -26,11 +31,17 @@ one card), not a fallback: NCCL groups run on the device tensors.
 
 ``traffic`` counts, for this rank, its collective calls (``calls``), the
 bytes it sent to other ranks as store rows (``rows``), as the accumulator
-(``accumulator``) and as gathered rows and digests (``gathered``), and the
-bytes staged between device and host (``staged``), and the host seconds
-spent inside these functions (``seconds``: on gloo every call blocks
-until its data has moved; NCCL calls return once queued); ``sent_bytes()``
-sums the three kinds sent.
+(``accumulator``), as gathered rows and digests (``gathered``), as its
+params shard (``params``: ``(W - 1) n`` elements per all-gather of an
+``n``-element shard over W ranks), as gradients (``grads``: a
+reduce-scatter of ``W n`` elements sends ``(W - 1) n``; gloo has none, so
+its route all-reduces the whole vector, which a ring does by sending ``2
+(W - 1) n``) and as small sums (``small``: ``(W - 1)`` times the
+tensor's bytes), the bytes staged between device and host (``staged``),
+the host seconds spent inside these functions (``seconds``: on gloo every
+call blocks until its data has moved; NCCL calls return once queued), and
+the calls of the FSDP kinds (``param_gathers``, ``grad_reduces``,
+``small_reduces``); ``sent_bytes()`` sums the kinds sent.
 """
 from __future__ import annotations
 
@@ -47,7 +58,12 @@ from repro_torch.core import tree_math as tm
 #: This rank's collective calls, bytes sent to other ranks by kind, and
 #: bytes staged through the host.
 traffic = {"calls": 0, "rows": 0, "accumulator": 0, "gathered": 0,
-           "staged": 0, "seconds": 0.0}
+           "params": 0, "grads": 0, "small": 0, "staged": 0,
+           "seconds": 0.0, "param_gathers": 0, "grad_reduces": 0,
+           "small_reduces": 0}
+
+#: The kinds of bytes sent to other ranks.
+SENT_KINDS = ("rows", "accumulator", "gathered", "params", "grads", "small")
 
 #: A Mersenne prime: the modulus of the digest's terms.
 _P = 2**31 - 1
@@ -60,7 +76,7 @@ def reset_traffic() -> None:
 
 def sent_bytes() -> int:
     """The bytes this rank has sent to other ranks, of every kind."""
-    return traffic["rows"] + traffic["accumulator"] + traffic["gathered"]
+    return sum(traffic[k] for k in SENT_KINDS)
 
 
 def _timed(fn):
@@ -225,3 +241,79 @@ def check_replicas(mesh, tree, what: str = "server state") -> None:
     if not replicas_equal(mesh, tree):
         raise RuntimeError(f"the ranks' {what} differ (replica digests "
                            f"disagree)")
+
+
+@_timed
+def all_gather_flat(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's 1-D ``x`` (``n`` elements on each) concatenated in rank
+    order: ``(W n,)`` on ``x``'s device, in its dtype; ``x`` itself
+    without a group. NCCL gathers into one tensor on the device; gloo
+    into the chunks of one host tensor (staged for CUDA)."""
+    if mesh is None or mesh.group is None:
+        return x
+    x = x.contiguous().reshape(-1)
+    W = mesh.size
+    if mesh.backend == "nccl":
+        out = torch.empty(W * x.numel(), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=mesh.group)
+    else:
+        staged = _staged(mesh, x)
+        src = _to_host(x) if staged else x
+        out = torch.empty(W * x.numel(), dtype=x.dtype, device=src.device,
+                          pin_memory=staged)
+        dist.all_gather(list(out.chunk(W)), src, group=mesh.group)
+        if staged:
+            out = _from_host(out, x.device)
+    traffic["calls"] += 1
+    traffic["param_gathers"] += 1
+    traffic["params"] += (W - 1) * x.numel() * x.element_size()
+    return out
+
+
+@_timed
+def reduce_scatter_flat(mesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of the sum over ranks of the 1-D ``x`` (``W n``
+    elements on each): the ``n`` elements ``[r n, (r + 1) n)`` of the sum
+    on rank ``r``, on ``x``'s device; ``x`` itself without a group. NCCL
+    reduce-scatters on the device; gloo all-reduces ``x`` in place (on the
+    host, staged for CUDA) and keeps the slice. ``x`` may be
+    overwritten."""
+    if mesh is None or mesh.group is None:
+        return x
+    x = x.reshape(-1)
+    W = mesh.size
+    if x.numel() % W:
+        raise ValueError(f"a vector of {x.numel()} elements does not split "
+                         f"over {W} ranks")
+    n = x.numel() // W
+    lo = mesh.rank * n
+    if mesh.backend == "nccl":
+        out = torch.empty(n, dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=mesh.group)
+        traffic["grads"] += (W - 1) * n * x.element_size()
+    else:
+        staged = _staged(mesh, x)
+        buf = _to_host(x) if staged else x.contiguous()
+        dist.all_reduce(buf, group=mesh.group)
+        out = (_from_host(buf[lo:lo + n], x.device) if staged
+               else buf[lo:lo + n].clone())
+        traffic["grads"] += 2 * (W - 1) * n * x.element_size()
+    traffic["calls"] += 1
+    traffic["grad_reduces"] += 1
+    return out
+
+
+@_timed
+def all_reduce_small(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum over ranks of ``x`` (a few values: the DP's dot products,
+    the losses), as a new tensor on ``x``'s device; ``x`` itself without
+    a group."""
+    if mesh is None or mesh.group is None:
+        return x
+    staged = _staged(mesh, x)
+    buf = _to_host(x.contiguous()) if staged else x.clone()
+    dist.all_reduce(buf, group=mesh.group)
+    traffic["calls"] += 1
+    traffic["small_reduces"] += 1
+    traffic["small"] += (mesh.size - 1) * x.numel() * x.element_size()
+    return _from_host(buf, x.device) if staged else buf

@@ -12,6 +12,10 @@ inside a ``lax.scan``; the port ravels the cohort's parameters into one
 cohort. The recurrences are those of the reference (paper eqs. 21-28),
 with ``a_t = <u_t, v_t>`` taken by conjugacy from the reduce pass, as the
 kernel path of the reference does (``repro/kernels/ops.py:35``).
+``online_dp_update`` and ``dp_delta`` take the step as ``step`` (default
+``ops.dp_step``); an FSDP round passes the sharded step
+(``ops.dp_step_sharded`` bound to its ranks, ``core/fsdp.py``), and the
+vectors are then this rank's shard of every client's.
 """
 from __future__ import annotations
 
@@ -58,12 +62,14 @@ def online_dp_init(x0, ell_max: int) -> DPState:
         x0=x0)
 
 
-def online_dp_update(state: DPState, x_t, rho: float) -> DPState:
+def online_dp_update(state: DPState, x_t, rho: float,
+                     step=None) -> DPState:
     """Absorb one ``(C, d)`` posterior sample per client.
 
-    The first sample only sets the mean; every later one is one
-    ``ops.dp_step``. The new ``v_t`` is written into ``state.v_hist`` in
-    place (the buffer is the state's own, allocated by ``online_dp_init``).
+    The first sample only sets the mean; every later one is one ``step``
+    (``ops.dp_step`` when None). The new ``v_t`` is written into
+    ``state.v_hist`` in place (the buffer is the state's own, allocated by
+    ``online_dp_init``).
     """
     x_t = x_t.to(torch.float32)
     t_new = state.t + 1
@@ -71,7 +77,7 @@ def online_dp_update(state: DPState, x_t, rho: float) -> DPState:
         return state._replace(t=t_new, xbar=x_t,
                               delta_tilde=state.x0 - x_t)
     u = x_t - state.xbar
-    v, delta_tilde, _, c_new = ops.dp_step(
+    v, delta_tilde, _, c_new = (step or ops.dp_step)(
         u, state.delta_tilde, state.v_hist, state.c_hist, t_new, rho)
     state.v_hist[:, state.t - 1] = v
     state.c_hist[:, state.t - 1] = c_new
@@ -87,7 +93,7 @@ def online_dp_delta(state: DPState, rho: float):
     return (1.0 / r) * state.delta_tilde
 
 
-def dp_delta(x0, samples, rho: float):
+def dp_delta(x0, samples, rho: float, step=None):
     """Delta_hat_l from the cohort's stacked posterior samples.
 
     Args:
@@ -95,11 +101,12 @@ def dp_delta(x0, samples, rho: float):
         parameters.
       samples: ``(C, l, d)`` flat samples.
       rho: shrinkage parameter in (0, 1].
+      step: the DP step (``ops.dp_step`` when None).
 
     Returns ``(C, d)`` fp32 Delta_hat_l.
     """
     C, ell, d = samples.shape
     state = online_dp_init(x0.to(torch.float32).expand(C, d), ell)
     for i in range(ell):
-        state = online_dp_update(state, samples[:, i], rho)
+        state = online_dp_update(state, samples[:, i], rho, step)
     return online_dp_delta(state, rho)

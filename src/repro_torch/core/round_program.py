@@ -55,6 +55,17 @@ gathered, so q-FFL's ``z``, the survivor normalisation and the loss means
 are computed over the whole cohort as in one process.
 ``finish_cohort`` runs after the sum, and the server step on every rank on
 the same aggregate keeps the replicas equal.
+
+With ``fsdp`` (a ``core.fsdp.FlatShard``; ``core.sharded_round`` passes it
+for the ``sequential`` placement on a mesh) the cohort does not split:
+every rank runs every client in cohort order, each client on the whole
+mesh. The server state and the accumulator are this rank's flat shards,
+the client update steps on the shard of its iterate (the grads gathered
+and reduced around the batched ``grad_fn``, ``FlatShard.wrap_grad``; the
+DP's dots summed over the ranks), and each rank is handed the whole
+cohort's batches and runs its rows of every client
+(``FlatShard.local_rows``). The weights, the mask and the losses are the
+whole cohort's on every rank, and no accumulator is handed on.
 """
 from __future__ import annotations
 
@@ -126,6 +137,9 @@ class _CohortCtx(NamedTuple):
     #: it or None, the rank of the shard after it or None, the rank of the
     #: last shard); None without a mesh
     split: Optional[tuple] = None
+    #: the FSDP layout (``core.fsdp.FlatShard``) of a sequential round
+    #: sharded over ranks; None otherwise
+    fsdp: object = None
 
 
 def _budget_masked(grad_fn: Callable) -> Callable:
@@ -251,6 +265,8 @@ def _run_cohort(ctx: _CohortCtx, state: ServerState, client_batches,
     stateless)."""
     params = state.params
     device = tm.tleaves(params)[0].device
+    if ctx.fsdp is not None:
+        client_batches = ctx.fsdp.local_rows(client_batches)
     batches = to_device(client_batches, device)
     cstates = (to_device(client_states, device) if ctx.stateful else None)
     n = tm.tleaves(batches)[0].shape[0]     # this rank's rows
@@ -323,7 +339,7 @@ def make_cohort_program(grad_fn: Callable, fed, *,
                         client_opt: Optional[Optimizer] = None,
                         server_opt: Optional[Optimizer] = None,
                         wrap_client: Optional[Callable] = None,
-                        mesh=None, spmd_axes=None) -> Callable:
+                        mesh=None, spmd_axes=None, fsdp=None) -> Callable:
     """Build ``cohort_fn(state, client_batches, client_weights=None,
     survivor_mask=None) -> (agg, {"loss_first", "loss_last"})``.
 
@@ -362,8 +378,19 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     ``survivor_mask`` the whole cohort's, and every rank returns the same
     aggregate and losses. A host store's slice cannot split over more than
     one rank (``ValueError``).
+
+    ``fsdp`` (a ``core.fsdp.FlatShard``, at ``sequential`` only, without
+    ``mesh``) runs the round sharded over the layout's ranks: ``state``
+    and ``agg`` are this rank's flat shards, ``client_batches`` the whole
+    cohort's (each rank takes its rows of every client).
     """
     alg = resolve_algorithm(fed, use_sampling)
+    place = resolve_placement(fed, placement)
+    if fsdp is not None and (place != "sequential" or mesh is not None
+                             or alg.stateful):
+        raise ValueError(
+            f"fsdp shards a stateless sequential round over its own ranks; "
+            f"got placement {place!r}, mesh {mesh}, algorithm {alg.name!r}")
     eff = alg.fed
     client_opt = client_opt or get_optimizer(eff.client_opt, eff.client_lr,
                                              eff.client_momentum)
@@ -372,6 +399,9 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     grad = batched_grad(grad_fn)
     if eff.min_local_steps:
         grad = _budget_masked(grad)
+    if fsdp is not None:
+        grad = fsdp.wrap_grad(grad)
+        alg.dp_step = fsdp.dp_step
     client_update = alg.make_client_update(grad, client_opt)
     if wrap_client is not None:
         client_update = wrap_client(client_update)
@@ -389,10 +419,9 @@ def make_cohort_program(grad_fn: Callable, fed, *,
                 f"client_state_placement='device' for the stateful "
                 f"{alg.name!r}: the host store's slice is one process's")
     ctx = _CohortCtx(alg=alg, client_update=client_update,
-                     stateful=alg.stateful, fed=fed,
-                     place=resolve_placement(fed, placement),
+                     stateful=alg.stateful, fed=fed, place=place,
                      chunk_size=chunk_size, server_opt=server_opt,
-                     mesh=mesh, split=split)
+                     mesh=mesh, split=split, fsdp=fsdp)
 
     if ctx.stateful and fed.client_state_placement == "device":
         def cohort_fn(state: ServerState, client_batches,
@@ -455,7 +484,7 @@ def make_round_program(grad_fn: Callable, fed, *,
                        client_opt: Optional[Optimizer] = None,
                        server_opt: Optional[Optimizer] = None,
                        wrap_client: Optional[Callable] = None,
-                       mesh=None, spmd_axes=None) -> Callable:
+                       mesh=None, spmd_axes=None, fsdp=None) -> Callable:
     """Build ``round_fn(state, client_batches, client_weights=None,
     survivor_mask=None) -> (new_state, {"loss_first", "loss_last"})``: the
     cohort stage then the server stage (see ``make_cohort_program``). The
@@ -468,13 +497,14 @@ def make_round_program(grad_fn: Callable, fed, *,
     new_store_state)``: gather, clients, CAS scatter (in place, with the
     survivor mask as its write mask, so a dropped client's state does not
     land) and server step, with no host sync. ``mesh`` / ``spmd_axes``
-    split the cohort over ranks as in ``make_cohort_program``.
+    split the cohort over ranks, and ``fsdp`` shards a sequential round's
+    state over ranks, as in ``make_cohort_program``.
     """
     cohort_fn = make_cohort_program(
         grad_fn, fed, placement=placement, chunk_size=chunk_size,
         use_sampling=use_sampling, client_opt=client_opt,
         server_opt=server_opt, wrap_client=wrap_client, mesh=mesh,
-        spmd_axes=spmd_axes)
+        spmd_axes=spmd_axes, fsdp=fsdp)
     server_fn = make_server_program(fed, server_opt=server_opt,
                                     use_sampling=use_sampling)
     stateful = resolve_algorithm(fed, use_sampling).stateful

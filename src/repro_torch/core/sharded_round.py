@@ -14,16 +14,22 @@ sharding hooks of the TPU mesh:
 Here ``parallel`` and ``chunked`` take a ``mesh`` (``launch.mesh``): the
 cohort's rows split over its ranks, each rank runs its rows and folds
 them onto the accumulator the rank before it hands on (``round_program``):
-the only cross-client collective, as in the reference. The
-``sequential`` placement's FSDP over ranks (parameter-shaped state
-sharded over data x model, a bf16 all-gather at each local step) is
-ROADMAP.md queue 1, item 10 part 2: a ``sequential`` round on a mesh of
-more than one rank raises
-``NotImplementedError`` naming it. On one rank every sharding hook is the
-identity: ``fsdp_constrain`` and ``tp_constrain`` (the reference's
-``prepare_params``, ``constrain_accum``, ``finalize_params`` and the
-payload constraint) place nothing, so they are left out. What stays of the
-sequential placement's client wrapper is its cast of the master params to
+the only cross-client collective, as in the reference. ``sequential`` on
+a ``mesh`` runs FSDP over its ranks (``core/fsdp.py``) for FedAvg and
+FedPA: every rank runs every client, each client's batch rows split over
+the mesh's data axes, and every parameter-shaped state (the fp32 master,
+the server optimizer state, the accumulator, the client iterate and its
+moments, the IASG samples and the DP vectors) is this rank's flat shard,
+with one all-gather of the compute-dtype params at each local step. Its
+round takes and returns the sharded ``ServerState``: the layout (``fsdp_layout``) shards a whole
+state (``shard_state``) and gathers it back (``gather_state``). Compute
+is not split over ``model`` (the reference's ``tp_constrain`` computes on
+tensor-parallel params: ROADMAP.md queue 1, item 10 part 4), and the other
+algorithms at ``sequential`` on more than one rank raise naming item 10
+part 3. Without a mesh every sharding hook is the identity (the
+reference's ``prepare_params``, ``constrain_accum``, ``finalize_params``
+and the payload constraint place nothing), so they are left out. Either
+way the sequential placement's client wrapper casts the master params to
 ``compute_dtype`` before the client update: its clients step on params in
 the compute dtype, as the reference's do.
 The program structure and the client math live in
@@ -37,12 +43,21 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.algorithms import get_algorithm
 from repro_torch.configs.base import FedConfig, ModelConfig, _not_ported
+from repro_torch.core import fsdp
 from repro_torch.core import tree_math as tm
 from repro_torch.core.round_program import (make_cohort_program,
                                             make_round_program,
                                             make_server_program)
+from repro_torch.models.model import init_params
 from repro_torch.models.steps import lm_grad_fn
+
+
+def fsdp_layout(cfg: ModelConfig, mesh) -> fsdp.FlatShard:
+    """The flat FSDP layout of ``cfg``'s params over ``mesh``'s ranks
+    (``core.fsdp.FlatShard``; the params' shapes from the meta device)."""
+    return fsdp.FlatShard(init_params(None, cfg, device="meta"), mesh)
 
 
 def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
@@ -58,17 +73,22 @@ def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
                              spmd_axes=spmd_axes)
     if placement != "sequential":
         raise ValueError(f"unknown placement {placement!r}")
-    if mesh is not None and mesh.size > 1:
-        raise _not_ported("the sequential placement's FSDP over a mesh of "
-                          "ranks", "10 part 2")
+    if mesh is not None:
+        name = get_algorithm(fed).name
+        if name in fsdp.ALGORITHMS:
+            kw["fsdp"] = fsdp_layout(cfg, mesh)
+        elif mesh.size > 1:
+            raise _not_ported(f"{name!r} at the sequential placement's FSDP "
+                              f"over a mesh of ranks", fsdp.NEXT_ITEM)
 
     def wrap_client(client_update):
         def cast_client_update(master_params, batches, *extra):
             """One client on the master params cast to the compute dtype
-            (the reference's all-gather boundary, without the gather).
-            ``extra`` — a stateful algorithm's client-state slice and the
-            broadcast extras (SCAFFOLD's ``c_i`` and ``c``, FedEP's sites)
-            — passes uncast: that state stays fp32."""
+            (the reference's all-gather boundary; under FSDP the cast
+            shard, gathered at each local step). ``extra`` — a stateful
+            algorithm's client-state slice and the broadcast extras
+            (SCAFFOLD's ``c_i`` and ``c``, FedEP's sites) — passes uncast:
+            that state stays fp32."""
             return client_update(tm.tcast(master_params, compute_dtype),
                                  batches, *extra)
 
@@ -97,9 +117,14 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     ``vmap(grad)`` (``models.model.recompute``), as the reference's
     default does; the port's default is ``"none"``, since its rounds are
     bound by the host's launches and the recompute adds device ops.
-    ``"dots"`` raises (``models.model.forward``). ``mesh`` splits the
-    cohort's rows over its ranks (``client_batches`` are then this rank's
-    rows), over the client axes of ``spmd_axes`` when given.
+    ``"dots"`` raises (``models.model.forward``). At ``parallel`` and
+    ``chunked`` a ``mesh`` splits the cohort's rows over its ranks
+    (``client_batches`` are then this rank's rows), over the client axes
+    of ``spmd_axes`` when given. At ``sequential`` a ``mesh`` shards the
+    round's state over its ranks (FedAvg and FedPA; the module's
+    docstring): ``server_state`` is then this rank's shard
+    (``fsdp_layout(cfg, mesh).shard_state``), ``client_batches`` the
+    whole cohort's, and the new state comes back sharded.
     """
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
                                   q_chunk, remat, use_sampling, chunk_size,

@@ -197,36 +197,52 @@ def _launch_map(plan, w, s, u, delta, V, rows):
     return vout, dout
 
 
-def dp_reduce(u, delta, V):
+def _rows_of(plan: _Plan, rows) -> int:
+    """The history rows a call reads: all ``lp`` when None."""
+    if rows is None:
+        return plan.lp
+    if not 1 <= rows <= plan.lp:
+        raise ValueError(f"rows must be in [1, {plan.lp}], got {rows}")
+    return rows
+
+
+def dp_reduce(u, delta, V, rows=None):
     """Reduce pass of one DP step, per client c:
     ``dots[c,k] = <V[c,k], u[c]>``, ``uu[c] = <u[c],u[c]>``,
     ``ud[c] = <u[c],delta[c]>``.
 
     u, delta: (C, d); V: (C, lp, d); one dtype, fp32 or bf16. Returns
-    fp32 ``(dots (C, lp), uu (C,), ud (C,))``.
+    fp32 ``(dots (C, lp), uu (C,), ud (C,))``. ``rows`` reads only the
+    history rows ``k < rows`` (the live rows of a DP step) and gives 0
+    for the dots of the rest; on the CPU the twin reads them all (the
+    DP's dead rows hold zeros).
     """
     if not u.is_cuda and build.on_cpu(u, delta, V):
         return ref.dp_reduce_ref(u, delta, V)
     plan = _plan_of(u, delta, V)
-    dots = torch.empty(plan.C, plan.lp, dtype=torch.float32,
-                       device=plan.device)
+    rows = _rows_of(plan, rows)
+    dots = (torch.empty if rows == plan.lp else torch.zeros)(
+        plan.C, plan.lp, dtype=torch.float32, device=plan.device)
     uu = torch.empty(plan.C, dtype=torch.float32, device=plan.device)
     ud = torch.empty(plan.C, dtype=torch.float32, device=plan.device)
-    _launch_reduce(plan, u, delta, V, plan.lp,
+    _launch_reduce(plan, u, delta, V, rows,
                    (dots.data_ptr(), uu.data_ptr(), ud.data_ptr(), None))
     return dots, uu, ud
 
 
-def dp_map(w, s, u, delta, V):
+def dp_map(w, s, u, delta, V, rows=None):
     """Map pass of one DP step, per client c:
     ``v[c] = u[c] - sum_k w[c,k] V[c,k]``, ``delta'[c] = delta[c] - s[c] v[c]``.
 
     w: (C, lp) fp32; s: (C,) fp32; u, delta: (C, d); V: (C, lp, d) (fp32 or
-    bf16, one dtype). Returns ``(v, delta')`` in the input dtype.
+    bf16, one dtype). Returns ``(v, delta')`` in the input dtype. ``rows``
+    reads only the history rows ``k < rows`` (their ``w`` must be 0
+    beyond); on the CPU the twin reads them all.
     """
     if not u.is_cuda and build.on_cpu(w, s, u, delta, V):
         return ref.dp_map_ref(w, s, u, delta, V)
     plan = _plan_of(u, delta, V)
+    rows = _rows_of(plan, rows)
     if w.device != plan.device or s.device != plan.device:
         raise ValueError(f"kernels take tensors on one CUDA device or all on "
                          f"the CPU, got w on {w.device}, s on {s.device}, u "
@@ -237,8 +253,7 @@ def dp_map(w, s, u, delta, V):
     if w.dtype != torch.float32 or s.dtype != torch.float32:
         raise TypeError(f"w and s must be float32; got {w.dtype}, {s.dtype}")
     w, s = w.contiguous(), s.contiguous()
-    return _launch_map(plan, w.data_ptr(), s.data_ptr(), u, delta, V,
-                       plan.lp)
+    return _launch_map(plan, w.data_ptr(), s.data_ptr(), u, delta, V, rows)
 
 
 def dp_step(u, delta, V, c_hist, t: int, rho: float):

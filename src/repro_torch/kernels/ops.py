@@ -8,6 +8,13 @@ the reduce pass gives every dot the step needs and, in its epilogue, the
 step's coefficients (``ref.dp_coeffs``); the map pass reads them where the
 reduce left them and writes ``v_t`` and ``Delta~_t``. CPU tensors go to the
 plain twins (``fedpa_dp.dp_step`` dispatches on the device).
+
+``dp_step_sharded`` is the step of a vector sharded over ranks (the FSDP
+round, ``core/fsdp.py``): each dot is a sum over the ranks' shards, so the
+reduce kernel gives this shard's partial dots, they are summed across the
+ranks, and the coefficients (``dp_coeffs``, the glue of the reference's
+``kernels/ops.py::dp_step``) come from the sums before the map kernel runs
+on the shard.
 """
 from __future__ import annotations
 
@@ -28,6 +35,50 @@ def dp_step(u, delta, V, c_hist, t: int, rho: float):
     rows (one launch of each kernel on CUDA) for the whole cohort.
     """
     return fedpa_dp.dp_step(u, delta, V, c_hist, t, rho)
+
+
+def dp_coeffs(dots, uu, ud, c_hist, t: int, rho: float):
+    """The scalars of one DP step from its dots, per client: the combine
+    weights ``w`` (``(C, lp)``, rows ``k >= t-1`` masked to 0), the map's
+    ``scale``, ``a = <u,u> - sum_k w_k dots_k`` (``<u, v>`` by conjugacy)
+    and the new history coefficient ``c_new``, each ``(C,)`` (fp32, the
+    formulas of the fused step's epilogue)."""
+    lp = c_hist.shape[-1]
+    live = torch.arange(lp, device=c_hist.device) < (t - 1)
+    w = torch.where(live, c_hist * dots, torch.zeros_like(dots))
+    g = (t - 1.0) * rho / t
+    a = uu - (w * dots).sum(-1)
+    den = 1.0 + g * a
+    return w, (1.0 + g * (t * ud - a) / den) / t, a, g / den
+
+
+def dp_partials(u, delta, V, rows=None):
+    """This shard's reduce pass packed for one all-reduce: ``(C, lp + 2)``
+    fp32 rows ``[dots | <u,u> | <u,delta>]`` (one ``dp_reduce`` launch
+    over the first ``rows`` history rows on the card)."""
+    dots, uu, ud = fedpa_dp.dp_reduce(u, delta, V, rows)
+    return torch.cat([dots, uu[:, None], ud[:, None]], dim=1)
+
+
+def dp_step_sharded(u, delta, V, c_hist, t: int, rho: float, *,
+                    all_reduce):
+    """One DP step on this rank's shard of every vector: ``u``, ``delta``
+    ``(C, n)`` and ``V`` ``(C, lp, n)`` hold elements ``[r n, (r+1) n)``
+    of the whole vectors (zero padding included). The partial dots of
+    ``dp_partials`` go through ``all_reduce`` (a sum over the ranks), the
+    coefficients come from the sums (``dp_coeffs``) and ``dp_map`` writes
+    this shard of ``v_t`` and ``Delta~_t``: one launch of each kernel on
+    the card, reading only the live history rows. Shapes and returns as
+    ``dp_step``; ``a`` and ``c_new`` are the same on every rank."""
+    if not isinstance(t, int) or t < 2:
+        raise ValueError(f"t must be a host int >= 2, got {t!r}")
+    lp = V.shape[1]
+    rows = min(lp, t - 1)
+    part = all_reduce(dp_partials(u, delta, V, rows))
+    w, scale, a, c_new = dp_coeffs(part[:, :lp], part[:, lp],
+                                   part[:, lp + 1], c_hist, t, rho)
+    v, delta_new = fedpa_dp.dp_map(w, scale, u, delta, V, rows)
+    return v, delta_new, a, c_new
 
 
 def dp_delta_flat(x0, samples, *, rho: float):

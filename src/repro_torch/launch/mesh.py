@@ -138,6 +138,17 @@ class ProcessMesh:
             r //= n
         return {ax: out[ax] for ax in self.axis_names}
 
+    def data_slot(self, rank: Optional[int] = None) -> Tuple[int, int]:
+        """``(extent, index)`` of ``rank`` (default: this process's) over
+        the client axes ``("pod", "data")``: a client's batch rows split
+        into ``extent`` parts and the rank takes part ``index``; ranks
+        that differ only along ``"model"`` take the same part."""
+        coords, extent, index = self.coords(rank), 1, 0
+        for ax, n in zip(self.axis_names, self.sizes):
+            if ax in ("pod", "data"):
+                extent, index = extent * n, index * n + coords[ax]
+        return extent, index
+
 
 def _world() -> Tuple[int, int, Optional[object]]:
     """``(size, rank, group)`` of the default group, or one process."""

@@ -48,16 +48,21 @@ def _entry(rank: int, world: int, port: int, target, args) -> None:
         torch.distributed.destroy_process_group()
 
 
-def run_group(target, world: int, args=(), timeout: float = 45.0) -> None:
-    """Run ``target(rank, *args)`` on each rank of a ``world``-rank gloo
-    group of spawned children; raises unless every child exits 0 within
-    ``timeout`` seconds (the stragglers are killed)."""
+def start_group(target, world: int, args=()):
+    """Start ``target(rank, *args)`` on each rank of a ``world``-rank gloo
+    group of spawned children; returns the children for ``join_group``."""
     ctx = mp.get_context("spawn")
     port = free_port()
     procs = [ctx.Process(target=_entry, args=(r, world, port, target, args))
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def join_group(procs, timeout: float = 45.0) -> None:
+    """Join the children of ``start_group``; raises unless every child
+    exits 0 within ``timeout`` seconds (the stragglers are killed)."""
     deadline = datetime.datetime.now() + datetime.timedelta(seconds=timeout)
     try:
         for p in procs:
@@ -72,6 +77,13 @@ def run_group(target, world: int, args=(), timeout: float = 45.0) -> None:
     if alive or any(codes):
         raise RuntimeError(f"ranks exited with {codes} "
                            f"({len(alive)} killed at the deadline)")
+
+
+def run_group(target, world: int, args=(), timeout: float = 45.0) -> None:
+    """Run ``target(rank, *args)`` on each rank of a ``world``-rank gloo
+    group of spawned children; raises unless every child exits 0 within
+    ``timeout`` seconds (the stragglers are killed)."""
+    join_group(start_group(target, world, args), timeout)
 
 
 # -- the population-sharding matrix's problem --------------------------------
@@ -175,3 +187,104 @@ def rank_cases(rank: int, out_dir: str, cases: dict) -> None:
                                for b in tm.tleaves(dev["buffers"])),
                  **{f"buf_{j}": v for j, v in
                     enumerate(tm.tleaves(local["buffers"]))})
+
+
+# -- the FSDP round's cases ---------------------------------------------------
+
+def nest(flat: dict) -> dict:
+    """``{"a/b": x}`` -> ``{"a": {"b": x}}`` (a params tree saved by
+    path)."""
+    out: dict = {}
+    for path, x in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = x
+    return out
+
+
+def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
+    """A rank of the FSDP test (``tests/test_torch_fsdp_round.py``): the
+    smoke fedlm-100m on a ``("data", "model")`` mesh of ``shape``, a
+    FedAvg burn-in round then a FedPA round (fp32 compute), with batch and
+    with streaming DP, from ``out_dir/inputs.npz`` (numpy params by path,
+    the tokens of both rounds, the ``FedConfig`` kwargs). Writes
+    ``<out_dir>/<dp>.rank<r>.npz``: the gathered params after each round
+    (``r<i>/<path>``), the losses, this rank's traffic in each round, and
+    the element counts of every parameter-shaped tensor it held (master,
+    server momentum, accumulator, iterate, samples, ``v_hist``)."""
+    import json
+
+    from repro_torch import configs
+    from repro_torch.algorithms import base, fedpa
+    from repro_torch.configs.base import FedConfig, MeshConfig
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.core import collective, fsdp, sharded_round
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.server import init_server_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import mesh_from_config
+    from repro_torch.optim import get_optimizer
+
+    inputs = np.load(os.path.join(out_dir, "inputs.npz"))
+    params = nest({k[2:]: inputs[k] for k in inputs.files
+                   if k.startswith("p/")})
+    kw = json.loads(str(inputs["round_kw"]))
+    mesh = mesh_from_config(MeshConfig(shape=tuple(shape),
+                                       axes=("data", "model")), "cpu")
+    cfg = configs.get_smoke("fedlm-100m")
+    held = {k: set() for k in ("accumulator", "iterate", "samples",
+                               "v_hist")}
+
+    def probe(key, fn, shape_of):
+        def wrapped(*a, **k):
+            held[key].add(shape_of(*a))
+            return fn(*a, **k)
+        return wrapped
+
+    # every tensor shape the round hands to these is recorded
+    base.FedAlgorithm.accumulate = probe(
+        "accumulator", base.FedAlgorithm.accumulate,
+        lambda self, acc, *_: tm.tree_size(acc))
+    wrap_grad = fsdp.FlatShard.wrap_grad
+
+    def probed_wrap_grad(self, grad_fn):
+        step = wrap_grad(self, grad_fn)
+
+        def probed(shard, batch):
+            held["iterate"].add(shard.numel())
+            return step(shard, batch)
+
+        return probed
+
+    fsdp.FlatShard.wrap_grad = probed_wrap_grad
+    fedpa.dp_delta = probe("samples", fedpa.dp_delta,
+                           lambda x0, samples, *_: samples[0, 0].numel())
+    ops.dp_step_sharded = probe("v_hist", ops.dp_step_sharded,
+                                lambda u, delta, V, *_: V[0, 0].numel())
+    for dp in ("batch", "streaming"):
+        fed = FedConfig(**kw, streaming_dp=dp == "streaming")
+        opt = get_optimizer(fed.server_opt, fed.server_lr,
+                            fed.server_momentum)
+        layout = sharded_round.fsdp_layout(cfg, mesh)
+        state = layout.shard_state(init_server_state(
+            lm_params_from_jax(params, "cpu"), opt))
+        out = {"n": layout.n, "d": layout.d}
+        for r, use_sampling in enumerate((False, True)):
+            fn = sharded_round.make_fed_round(
+                cfg, fed, placement="sequential", compute_dtype=torch.float32,
+                q_chunk=8, use_sampling=use_sampling, mesh=mesh)
+            collective.reset_traffic()
+            state, metrics = fn(state, {"tokens": inputs[f"tokens{r}"]})
+            for k, v in collective.traffic.items():
+                out[f"r{r}/traffic/{k}"] = v
+            for k, v in metrics.items():
+                out[f"r{r}/{k}"] = float(v)
+            out[f"r{r}/master"] = state.params.numel()
+            out[f"r{r}/momentum"] = state.opt_state["m"].numel()
+            for path, leaf in fsdp._paths(layout.gather_state(state).params):
+                out[f"r{r}/{path}"] = leaf.numpy()
+        for k, v in held.items():
+            out[f"held/{k}"] = np.array(sorted(v))
+        np.savez(os.path.join(out_dir, f"{dp}.rank{rank}.npz"), **out)

@@ -318,6 +318,49 @@ def test_dp_kernels_and_step_at_sequential_and_chunk_shapes(C, d, pad):
     assert fedpa_dp.launches["dp_map"] == before["dp_map"] + 2
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,W,t", [(1, 2, 2), (1, 3, 4), (3, 4, 3)])
+def test_sharded_dp_step_on_the_card(C, W, t):
+    """The FSDP round's DP step (``ops.dp_step_sharded``) on W shards of a
+    padded vector on the card, each reading only the live history rows,
+    the partials summed by hand: the shards put together against the
+    twins' step on the whole vector; the dead rows' dots are 0; one launch
+    of each kernel per shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lp, d, rho = 3, 428_350, 0.01
+    n = -(-d // W)
+    g = torch.Generator(device="cuda").manual_seed(C * 100 + W * 10 + t)
+    u, delta = (torch.randn(C, d, device="cuda", generator=g)
+                for _ in range(2))
+    V = torch.randn(C, lp, d, device="cuda", generator=g)
+    V[:, t - 1:] = 0.0
+    c_hist = 0.01 * torch.rand(C, lp, device="cuda", generator=g)
+
+    def shards(x):
+        x = torch.nn.functional.pad(x, (0, W * n - d))
+        return [x[..., k * n:(k + 1) * n].contiguous() for k in range(W)]
+
+    parts = list(zip(shards(u), shards(delta), shards(V)))
+    before = dict(fedpa_dp.launches)
+    partials = [ops.dp_partials(*p, rows=min(lp, t - 1)) for p in parts]
+    assert all(bool((q[:, t - 1:lp] == 0).all()) for q in partials)
+    total = sum(partials)
+    out = [ops.dp_step_sharded(*p, c_hist, t, rho, all_reduce=lambda _: total)
+           for p in parts]
+    want = ref.dp_step_ref(u, delta, V, c_hist, t, rho)
+    for k in (0, 1):
+        got = torch.cat([o[k] for o in out], dim=-1)[..., :d]
+        tol = 1e-4 * max(want[k].abs().max().item(), 1.0)
+        torch.testing.assert_close(got, want[k], rtol=1e-4, atol=tol)
+    for o in out:
+        for k in (2, 3):
+            torch.testing.assert_close(o[k], out[0][k], rtol=0, atol=0)
+            torch.testing.assert_close(o[k], want[k], rtol=1e-4, atol=0)
+    assert fedpa_dp.launches["dp_reduce"] == before["dp_reduce"] + 2 * W
+    assert fedpa_dp.launches["dp_map"] == before["dp_map"] + W
+
+
 def _lsq_sim(device, placement, chunk):
     """FedPA on a 4-client least-squares problem: 12 local steps, 4
     burn-in, windows of 2 (l = 4, so 3 DP steps per client)."""

@@ -1,9 +1,11 @@
 """The port's LM training path against the JAX package on the same inputs:
 the training forward, the cross entropy, the loss and its grads, the
 plain-autograd step, one FedAvg (burn-in) and one FedPA round of the
-smoke fedlm-100m through ``make_fed_round`` at ``parallel`` and
-``chunked``, and one FedEP and one SCAFFOLD round from the same numpy
-client states (the host store's slice) and server control variate.
+smoke fedlm-100m through ``make_fed_round`` at ``parallel``, ``chunked``
+and ``sequential`` (the one-process baseline of
+``tests/test_torch_fsdp_round.py``), and one FedEP and one SCAFFOLD
+round from the same numpy client states (the host store's slice) and
+server control variate.
 
 Parameters are numpy arrays at the JAX init's shapes, converted with
 ``convert.lm_params_from_jax``, so both packages run the same weights.
@@ -275,7 +277,7 @@ def _jax_rounds(placement):
     return out
 
 
-@pytest.mark.parametrize("placement", ["parallel", "chunked"])
+@pytest.mark.parametrize("placement", ["parallel", "chunked", "sequential"])
 def test_make_fed_round_vs_jax(placement):
     tcfg = configs.get_smoke(ARCH)
     fed = FedConfig(**ROUND_KW)
