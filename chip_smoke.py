@@ -230,23 +230,40 @@
    store put together from the ranks within phase 4's bound, stamps
    exact.
 16. The ``sequential`` placement's FSDP over ranks (``core/fsdp.py``):
-   a burn-in round and a FedPA round through ``make_fed_round(...,
-   placement="sequential", mesh=...)``, every parameter-shaped state a
-   flat shard, the compute params all-gathered at each local step and the
-   DP kernel pair on each rank's shard, its dots summed over the ranks.
-   (a) The one-layer fp32 cut (9b's settings, 2 clients) through a
-   one-rank NCCL mesh against no mesh: the burn-in round bitwise, the
-   FedPA round within 1e-6 of the largest entry (its coefficients come
-   from the glue, not the reduce kernel's epilogue). (b) The same on two
-   gloo ranks sharing the card (one row of each client a rank), spawned,
+   rounds through ``make_fed_round(..., placement="sequential",
+   mesh=...)``, every parameter-shaped state a flat shard (the client
+   stores' rows included), the compute params all-gathered at each
+   gradient and the DP kernel pair on each rank's shard, its dots summed
+   over the ranks. (a) The one-layer fp32 cut (9b's settings, 2 clients)
+   through a one-rank NCCL mesh against no mesh, a burn-in and a FedPA
+   round: the burn-in round bitwise, the FedPA round within 1e-6 of the
+   largest entry (its coefficients come from the glue, not the reduce
+   kernel's epilogue). (b) The same on two gloo ranks sharing the card
+   (one row of each client a rank), spawned, then one round of each
+   other algorithm from the burn-in state (fedpa_precision, fedprox,
+   mime, scaffold on the host store, fedep and fedlora with the identity
+   codec on the device store, each store made for the layout): each
    against the one-process card run and a CPU run made meanwhile (phase
-   4's bound). (c) The full-width fedlm-100m in bf16 with phase 9's
-   FedPA settings cut to 2 clients on two gloo ranks: each rank's peak
+   4's bound, params and SCAFFOLD's ``c``), the ranks equal by digest
+   (params, ``c``, client states), DP launches 6 of each kernel a rank
+   for the three DP algorithms and 0 for the rest, a params all-gather
+   per gradient (fedprox, mime and scaffold take 2 of the 6 local steps:
+   12 gathers a round for MIME, 4 for the other two, 12 for the DP
+   algorithms). (c) The full-width fedlm-100m in bf16 with phase 9's
+   FedPA settings, STEPS_CUT's local steps and 2 clients on the two gloo
+   ranks: each rank's peak
    memory, host ms a round, DP launches (6 each in the FedPA round),
    params all-gathers and bytes gathered and reduced against the layout's
    formula, and its state's bytes (master, server momentum, accumulator,
    ``v_hist``, batch-DP samples) against one process's, half each; the
    ranks' final params must have equal digests and the losses be finite.
+   (e) One FedEP round at full width from 16c's state on the same ranks
+   (a ``("data", "model")`` mesh of 1 x 2: 16c's shards, all of a
+   client's rows on each rank), 2 of 16 clients' sites in a device store
+   element-sharded over the ranks: each rank's host ms, peak memory, store
+   bytes against ``16 x 2 x n x 4``, gathers and bytes by kind, 6 launches
+   of each DP kernel; then the same round in one process on the card,
+   after the ranks exit, whose params the ranks' meet to phase 4's bound.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -3528,9 +3545,33 @@ def multi_process(card: str, params, seed: int, fedep_records) -> dict:
 
 # phase 16: the sequential placement's FSDP over ranks. The one-layer
 # fp32 cut runs REPLAY_ARGV's FedPA settings (2 clients, 2 rows each), the
-# full-width run TRAIN_ARGV's cut to 2 of 64 clients; each one burn-in
-# round and one FedPA round at ``sequential``.
+# full-width run TRAIN_ARGV's with STEPS_CUT's local steps, cut to 2 of 64
+# clients; each one burn-in round and one FedPA round at ``sequential``.
+# 16b then runs one round of each other algorithm from the one-layer
+# burn-in state, 16e one FedEP round at full width from 16c's state.
 FSDP_CLIENTS = 2
+#: 16b's other algorithms: (name, FedConfig changes). SCAFFOLD steps with
+#: plain SGD on the host store's slice, FedEP and FedLoRA (identity codec,
+#: error feedback) on the device store; each store is made for the layout.
+#: The three without the DP take the first 2 of the 6 local steps (cut for
+#: the script's time: each local step stages its gathers through the host,
+#: MIME's three a step)
+FSDP_ALGOS = (
+    ("fedpa_precision", dict(algorithm="fedpa_precision")),
+    ("fedprox", dict(algorithm="fedprox", local_steps=2)),
+    ("mime", dict(algorithm="mime", local_steps=2)),
+    ("scaffold", dict(algorithm="scaffold", client_opt="sgd",
+                      local_steps=2)),
+    ("fedep", dict(algorithm="fedep", client_state_placement="device")),
+    ("fedlora", dict(algorithm="fedlora", client_state_placement="device",
+                     payload_codec="none", error_feedback=True)),
+)
+#: the algorithms of FSDP_ALGOS whose round runs the DP
+FSDP_DP_ALGOS = ("fedpa_precision", "fedep", "fedlora")
+#: 16e: FedEP's population on the full-width ranks (each rank's device
+#: store holds 2 fp32 vectors of its n elements a client) and the
+#: cohort's ids
+FSDP_STORE_CLIENTS, FSDP_STORE_IDS = 16, (5, 12)
 
 
 def fsdp_inputs(argv: list, cfg, seed: int):
@@ -3584,19 +3625,43 @@ def fsdp_probe(held: dict):
          ops.dp_step_sharded) = saved
 
 
+def timed_round(fn, cuda: bool) -> tuple:
+    """``(fn()'s result, host ms, peak memory allocated or None, DP
+    launches, collective traffic)`` of one round, the counters zeroed
+    first."""
+    import torch
+
+    from repro_torch.core import collective
+    from repro_torch.kernels import fedpa_dp
+
+    fedpa_dp.reset_launches()
+    collective.reset_traffic()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() if cuda else None,
+            dict(fedpa_dp.launches), dict(collective.traffic))
+
+
 def fsdp_rounds(cfg, fed, toks, device: str, compute_dtype, seed: int,
                 mesh=None) -> dict:
     """A burn-in round then a FedPA round of ``make_fed_round`` at
     ``sequential`` from ``init_params`` at ``seed`` (sharded over ``mesh``
     when given). Returns per round the whole params after it (gathered),
     its losses, host ms, peak memory, DP launches and collective traffic;
-    the state's elements a rank holds; and the FSDP layout."""
+    the state's elements a rank holds; the FSDP layout; and the (sharded)
+    states after the burn-in round (``burn_state``) and after both
+    (``state``)."""
     import torch
 
-    from repro_torch.core import collective, sharded_round
+    from repro_torch.core import sharded_round
     from repro_torch.core import tree_math as tm
     from repro_torch.core.server import init_server_state
-    from repro_torch.kernels import fedpa_dp
     from repro_torch.models.model import init_params
     from repro_torch.optim import get_optimizer
 
@@ -3615,60 +3680,128 @@ def fsdp_rounds(cfg, fed, toks, device: str, compute_dtype, seed: int,
         fn = sharded_round.make_fed_round(
             cfg, fed, placement="sequential", compute_dtype=compute_dtype,
             use_sampling=use_sampling, mesh=mesh)
-        fedpa_dp.reset_launches()
-        collective.reset_traffic()
-        if cuda:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, metrics = fn(state, {"tokens": t})
-        if cuda:
-            torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        rec = dict(ms=ms, launches=dict(fedpa_dp.launches),
-                   traffic=dict(collective.traffic),
+        (state, metrics), ms, peak, launches, traffic = timed_round(
+            lambda: fn(state, {"tokens": t}), cuda)
+        rec = dict(ms=ms, launches=launches, traffic=traffic,
                    losses={k: float(v) for k, v in metrics.items()},
-                   peak=torch.cuda.max_memory_allocated() if cuda else None)
+                   peak=peak)
         if layout is not None:
             rec.update(master=state.params.numel(),
                        momentum=state.opt_state["m"].numel())
         rec["params"] = (layout.gather_state(state).params if layout
                          else state.params)
         out["rounds"].append(rec)
+        if not use_sampling:
+            out["burn_state"] = state
+    out["state"] = state
     return out
 
 
-#: phase 16's cases on the two ranks: (b) the one-layer fp32 cut, then
-#: (c) the full width in bf16 (the one-layer case warms the ranks up)
-FSDP_CASES = ("one-layer", "full")
+def fsdp_algo_round(cfg, fed, tokens, device: str, compute_dtype, state,
+                    layout=None, mesh=None, num_clients: int = FSDP_CLIENTS,
+                    ids=None, whole_states: bool = True) -> dict:
+    """One round of ``fed``'s algorithm (``make_fed_round`` at
+    ``sequential``) from ``state`` (this rank's shard under ``layout``,
+    through FSDP over ``mesh``) on the first ``fed.local_steps`` steps of
+    ``tokens`` (``(C, K, B, S + 1)``):
+    SCAFFOLD's ``c`` starts at zero, a stateful algorithm's clients from a
+    zero store of ``num_clients`` made for the layout, in the placement
+    ``fed`` names, the cohort ``ids`` (default the first C). Returns the
+    round's host ms, peak memory, DP launches, traffic and losses, the
+    store's bytes, and the whole params after it (gathered), SCAFFOLD's
+    ``c`` and, with ``whole_states``, the cohort's new client states."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import get_algorithm
+    from repro_torch.core import sharded_round
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.client_state import make_client_store
+
+    alg = get_algorithm(fed)
+    ids = np.arange(tokens.shape[0]) if ids is None else np.asarray(ids)
+    if fed.algorithm == "scaffold":
+        state = state._replace(algo_state=alg.init_algo_state(state.params))
+    fn = sharded_round.make_fed_round(cfg, fed, placement="sequential",
+                                      compute_dtype=compute_dtype, mesh=mesh)
+    args, store = (), None
+    device_store = fed.client_state_placement == "device"
+    if alg.stateful:
+        store = make_client_store(fed.client_state_placement, num_clients,
+                                  device=device, fsdp=layout)
+        store.ensure(alg.init_client_state(state.params))
+        args = ((store.device_state(), store.prepare_ids(ids))
+                if device_store else (store.gather(ids)[0],))
+    batches = {"tokens": tokens[:, :fed.local_steps]}
+    res, ms, peak, launches, traffic = timed_round(
+        lambda: fn(state, batches, None, *args),
+        torch.device(device).type == "cuda")
+    state, metrics = res[:2]
+    rec = dict(ms=ms, peak=peak, launches=launches, traffic=traffic,
+               losses={k: float(v) for k, v in metrics.items()},
+               store_bytes=store.nbytes if store is not None else 0)
+    whole = layout.gather_state(state) if layout is not None else state
+    rec["params"] = whole.params
+    rec["c"] = whole.algo_state if fed.algorithm == "scaffold" else None
+    rec["states"] = None
+    if alg.stateful and whole_states:
+        new = (tm.tmap(lambda b: b[torch.as_tensor(ids, device=b.device)],
+                       res[2]["buffers"]) if device_store else res[2])
+        rec["states"] = layout.gather_rows(new) if layout is not None \
+            else new
+    return rec
 
 
 def fsdp_case(case: str):
-    """``(cfg, launch.train command, compute dtype)`` of a phase-16 case."""
+    """``(cfg, launch.train command, compute dtype)`` of a phase-16 case:
+    the one-layer fp32 cut (16a, 16b) or the full width (16c, 16e)."""
     import torch
 
     from repro_torch import configs
 
     if case == "full":
-        return configs.get_config("fedlm-100m"), TRAIN_ARGV, torch.bfloat16
+        return (configs.get_config("fedlm-100m"), TRAIN_ARGV + STEPS_CUT,
+                torch.bfloat16)
     return (configs.replace(configs.get_config("fedlm-100m"), repeats=1),
             REPLAY_ARGV, torch.float32)
 
 
+def fsdp_summary(rank: int, mesh, rec: dict, seconds: float) -> dict:
+    """The JSON-ready numbers of one rank's round (``fsdp_algo_round``'s
+    or one of ``fsdp_rounds``'), with the digests of what it gathered."""
+    from repro_torch.core import collective
+
+    out = {"rank": rank, "device": str(mesh.device), "seconds": seconds}
+    out.update({k: rec[k] for k in ("ms", "peak", "launches", "traffic",
+                                    "losses", "store_bytes") if k in rec})
+    for k in ("params", "c", "states"):
+        if rec.get(k) is not None:
+            out[f"digest_{k}"] = collective.digest(rec[k]).tolist()
+    return out
+
+
 def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
-    """One rank of phase 16b and 16c (a spawned child): two gloo ranks
-    sharing the card on a ``("data",)`` mesh run ``fsdp_rounds`` on each
-    of ``FSDP_CASES``; writes ``out/rank<r>.<case>.json`` (per-round
-    numbers, the elements held, the final params' digest, the case's
-    seconds) and, for the one-layer case, ``.npz`` (both rounds' gathered
-    params)."""
+    """One rank of phase 16b, 16c and 16e (a spawned child): two gloo
+    ranks sharing the card on a ``("data",)`` mesh. 16b: ``fsdp_rounds``
+    on the one-layer cut, then ``fsdp_algo_round`` of each of
+    ``FSDP_ALGOS`` from its burn-in state; 16c: ``fsdp_rounds`` at full
+    width; 16e: a FedEP round from 16c's state with a device store of
+    ``FSDP_STORE_CLIENTS``. Writes ``out/rank<r>.<case>.json`` (numbers,
+    the elements held, digests, seconds) for the cases ``one-layer``,
+    ``full`` and ``fedep-full`` and per algorithm ``rank<r>.algos.json``;
+    rank 0 also writes the one-layer params (``one-layer.npz``, both
+    rounds, and ``algos.npz``, each algorithm's params and ``c``), 16c's
+    whole state (``full-state.pt``) and 16e's params
+    (``fedep-full.pt``)."""
     sys.path.insert(0, str(SRC))
+    import dataclasses
+
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch.configs.base import MeshConfig
-    from repro_torch.core import collective
+    from repro_torch.core import collective, sharded_round
     from repro_torch.core import tree_math as tm
     from repro_torch.launch.mesh import init_distributed, mesh_from_config
 
@@ -3676,50 +3809,110 @@ def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     init_distributed(f"127.0.0.1:{port}", rank, 2, backend="gloo",
                      device="cuda", timeout=MP_CONNECT_S)
-    try:
-        mesh = mesh_from_config(MeshConfig(shape=(2,), axes=("data",)),
-                                "cuda")
-        torch.cuda.set_device(mesh.device)
-        for case in FSDP_CASES:
-            t0 = time.perf_counter()
-            cfg, argv, dtype = fsdp_case(case)
-            fed, toks = fsdp_inputs(argv, cfg, seed)
-            held = {}
-            with fsdp_probe(held):
-                res = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, mesh)
-            rounds = res["rounds"]
-            base = os.path.join(out, f"rank{rank}.{case}")
-            if case != "full":
-                np.savez(base + ".npz",
-                         **{f"r{i}_{j}": x.cpu().numpy() for i, r in
-                            enumerate(rounds) for j, x in
-                            enumerate(tm.tleaves(r["params"]))})
-            summary = {
-                "rank": rank, "device": str(mesh.device),
+
+    def write(case, summary):
+        with open(os.path.join(out, f"rank{rank}.{case}.json"), "w") as f:
+            json.dump(summary, f)
+
+    def rounds_summary(res, held, t0):
+        rounds = res["rounds"]
+        return {"rank": rank, "device": str(mesh.device),
                 "n": res["layout"].n, "d": res["layout"].d,
                 "held": {k: sorted(v) for k, v in held.items()},
                 "digest": collective.digest(rounds[-1]["params"]).tolist(),
                 "rounds": [{k: v for k, v in r.items() if k != "params"}
                            for r in rounds],
                 "seconds": time.perf_counter() - t0}
-            with open(base + ".json", "w") as f:
-                json.dump(summary, f)
-            del res, rounds
-            torch.cuda.empty_cache()
+
+    try:
+        mesh = mesh_from_config(MeshConfig(shape=(2,), axes=("data",)),
+                                "cuda")
+        torch.cuda.set_device(mesh.device)
+        # -- 16b: the one-layer cut, then the other algorithms ------------
+        t0 = time.perf_counter()
+        cfg, argv, dtype = fsdp_case("one-layer")
+        fed, toks = fsdp_inputs(argv, cfg, seed)
+        held = {}
+        with fsdp_probe(held):
+            res = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, mesh)
+        if rank == 0:
+            np.savez(os.path.join(out, "one-layer.npz"),
+                     **{f"r{i}_{j}": x.cpu().numpy() for i, r in
+                        enumerate(res["rounds"]) for j, x in
+                        enumerate(tm.tleaves(r["params"]))})
+        write("one-layer", rounds_summary(res, held, t0))
+        algos, arrays = {}, {}
+        for name, change in FSDP_ALGOS:
+            t0 = time.perf_counter()
+            rec = fsdp_algo_round(cfg, dataclasses.replace(fed, **change),
+                                  toks[1], "cuda", dtype, res["burn_state"],
+                                  res["layout"], mesh)
+            algos[name] = fsdp_summary(rank, mesh, rec,
+                                       time.perf_counter() - t0)
+            if rank == 0:
+                for k in ("params", "c"):
+                    if rec[k] is not None:
+                        arrays.update({f"{name}_{k}_{j}": x.cpu().numpy()
+                                       for j, x in
+                                       enumerate(tm.tleaves(rec[k]))})
+            del rec
+        if rank == 0:
+            np.savez(os.path.join(out, "algos.npz"), **arrays)
+        write("algos", algos)
+        del res, arrays
+        torch.cuda.empty_cache()
+        # -- 16c: the full width, FedAvg then FedPA -----------------------
+        t0 = time.perf_counter()
+        cfg, argv, dtype = fsdp_case("full")
+        fed, toks = fsdp_inputs(argv, cfg, seed)
+        held = {}
+        with fsdp_probe(held):
+            res = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, mesh)
+        write("full", rounds_summary(res, held, t0))
+        for r in res["rounds"]:
+            del r["params"]
+        # -- 16e: FedEP from 16c's state, 16 clients' sites a rank, on a
+        # ("data", "model") mesh of 1 x 2: the same shards, every rank on
+        # all of a client's rows (split, the halves' bf16 gradients round
+        # before their sum and the round leaves phase 4's bound)
+        whole = res["layout"].gather_state(res["state"])
+        if rank == 0:
+            torch.save({"params": whole.params, "opt_state": whole.opt_state,
+                        "round": whole.round},
+                       os.path.join(out, "full-state.pt"))
+        del whole
+        mesh = mesh_from_config(MeshConfig(shape=(1, 2),
+                                           axes=("data", "model")), "cuda")
+        layout = sharded_round.fsdp_layout(cfg, mesh)
+        t0 = time.perf_counter()
+        rec = fsdp_algo_round(
+            cfg, dataclasses.replace(fed, **dict(FSDP_ALGOS)["fedep"]),
+            toks[1], "cuda", dtype, res["state"], layout, mesh,
+            num_clients=FSDP_STORE_CLIENTS, ids=FSDP_STORE_IDS,
+            whole_states=False)
+        summary = fsdp_summary(rank, mesh, rec, time.perf_counter() - t0)
+        summary["n"] = res["layout"].n
+        write("fedep-full", summary)
+        if rank == 0:
+            torch.save(rec["params"], os.path.join(out, "fedep-full.pt"))
     finally:
         dist.destroy_process_group()
 
 
 def fsdp_spawn(seed: int, meanwhile=None):
-    """Phase 16b and 16c's two ranks (spawned children sharing the card);
-    runs ``meanwhile()`` in this process while they work. Returns
-    ``({case: the ranks' summaries}, the one-layer case's params files,
-    meanwhile's result, seconds from the spawn to both exits)``."""
+    """Phase 16b, 16c and 16e's two ranks (spawned children sharing the
+    card); runs ``meanwhile()`` in this process while they work. Returns
+    ``({case: the ranks' summaries}, {name: rank 0's arrays},
+    meanwhile's result, seconds from the spawn to both exits)``; the
+    arrays are the one-layer rounds' params (``one-layer``), each
+    algorithm's (``algos``), 16c's whole state (``full-state``) and 16e's
+    params (``fedep-full``), on the host."""
     import multiprocessing as mp
     import shutil
     import tempfile
 
     import numpy as np
+    import torch
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
     try:
@@ -3741,13 +3934,16 @@ def fsdp_spawn(seed: int, meanwhile=None):
         if alive or any(p.exitcode for p in procs):
             fail(f"fsdp ranks exited {[p.exitcode for p in procs]}")
         sums = {}
-        for case in FSDP_CASES:
+        for case in ("one-layer", "algos", "full", "fedep-full"):
             sums[case] = []
             for r in (0, 1):
                 with open(os.path.join(tmp, f"rank{r}.{case}.json")) as f:
                     sums[case].append(json.load(f))
-        files = [dict(np.load(os.path.join(tmp, f"rank{r}.one-layer.npz")))
-                 for r in (0, 1)]
+        files = {k: dict(np.load(os.path.join(tmp, f"{k}.npz")))
+                 for k in ("one-layer", "algos")}
+        files.update({k: torch.load(os.path.join(tmp, f"{k}.pt"),
+                                    map_location="cpu")
+                      for k in ("full-state", "fedep-full")})
     finally:
         shutil.rmtree(tmp)
     return sums, files, extra, wall
@@ -3816,10 +4012,26 @@ def fsdp_nccl_one_rank(seed: int):
     return launches, one
 
 
+def fsdp_algos_one_process(cfg, fed, toks, device: str, dtype,
+                           burn_state) -> dict:
+    """``fsdp_algo_round`` of each of ``FSDP_ALGOS`` in one process (no
+    mesh) from ``burn_state``: ``{name: its record}``."""
+    import dataclasses
+
+    return {name: fsdp_algo_round(cfg, dataclasses.replace(fed, **change),
+                                  toks[1], device, dtype, burn_state)
+            for name, change in FSDP_ALGOS}
+
+
 def fsdp_two_rank_replay(sums, files, one, cpu, cpu_s: float) -> dict:
     """Phase 16b: the one-layer case on the two gloo ranks (one row of
     each client a rank) against the one-process card run (16a's) and the
-    CPU run (phase 4's bound). Returns the ranks' DP launches."""
+    CPU run (phase 4's bound): the burn-in and FedPA rounds, then each of
+    ``FSDP_ALGOS``' rounds from the burn-in state (params and SCAFFOLD's
+    ``c``; the ranks' params, ``c`` and client states equal by digest;
+    DP launches 6 of each kernel for the DP algorithms, 0 for the rest; a
+    params all-gather per gradient, ``3K`` a client for MIME). Returns the
+    ranks' DP launches and the one-process card run's."""
     import numpy as np
     import torch
 
@@ -3830,16 +4042,18 @@ def fsdp_two_rank_replay(sums, files, one, cpu, cpu_s: float) -> dict:
     expected = FSDP_CLIENTS * ((fed.local_steps - fed.burn_in_steps)
                                // fed.steps_per_sample - 1)
     name = f"{cfg.name} cut to {cfg.num_layers} layer"
+    rounds, algos = sums["one-layer"], sums["algos"]
+    first = files["one-layer"]
     n_leaves = len(tm.tleaves(one["rounds"][1]["params"]))
-    ranks_equal = all(np.array_equal(files[0][k], files[1][k])
-                      for k in files[0])
+    ranks_equal = rounds[0]["digest"] == rounds[1]["digest"]
     print(f"fsdp two gloo ranks ({name}, fp32, {FSDP_CLIENTS} clients, one "
           f"row of each a rank, ('data',) mesh of 2 on one card): "
-          f"{max(s['seconds'] for s in sums):.1f} s a rank, the CPU run "
-          f"meanwhile {cpu_s:.1f} s; ranks' gathered params bitwise equal "
-          f"{ranks_equal}", flush=True)
+          f"{max(s['seconds'] for s in rounds):.1f} s a rank for the "
+          f"burn-in and FedPA rounds, the CPU run meanwhile {cpu_s:.1f} s; "
+          f"ranks' gathered params equal by digest {ranks_equal}",
+          flush=True)
     launches = {}
-    for s in sums:
+    for s in rounds:
         print(f"  rank {s['rank']} on {s['device']}: n={s['n']:,} of d="
               f"{s['d']:,}; host ms per round "
               f"{[round(r['ms'], 1) for r in s['rounds']]}; losses "
@@ -3853,24 +4067,63 @@ def fsdp_two_rank_replay(sums, files, one, cpu, cpu_s: float) -> dict:
     if not ranks_equal:
         fail("fsdp two gloo ranks: the ranks' gathered params differ")
     for i in (0, 1):
-        got = [torch.from_numpy(files[0][f"r{i}_{j}"])
+        got = [torch.from_numpy(first[f"r{i}_{j}"])
                for j in range(n_leaves)]
         params_close(got, one["rounds"][i]["params"],
                      f"two ranks vs one process on the card, round {i}")
         params_close(got, cpu["rounds"][i]["params"],
                      f"two ranks vs the CPU, round {i}")
+    for alg, change in FSDP_ALGOS:
+        per = [s[alg] for s in algos]
+        want = expected if alg in FSDP_DP_ALGOS else 0
+        K = change.get("local_steps", fed.local_steps)
+        gathers = FSDP_CLIENTS * K * (3 if alg == "mime" else 1)
+        equal = all(per[0][k] == per[1][k] for k in per[0]
+                    if k.startswith("digest_"))
+        got_gathers = [s["traffic"]["param_gathers"] for s in per]
+        print(f"fsdp two gloo ranks {alg} ({name}, one round from the "
+              f"burn-in state): ranks equal by digest (params, c, client "
+              f"states) {equal}; per rank host ms "
+              f"{[round(s['ms'], 1) for s in per]}, DP launches "
+              f"{[s['launches'] for s in per]} (expected {want} each), "
+              f"params all-gathers {got_gathers} (expected {gathers}), "
+              f"losses {per[0]['losses']} ({K} local steps); one "
+              f"process on the card {one['algos'][alg]['ms']:.1f} ms",
+              flush=True)
+        if not equal:
+            fail(f"fsdp two gloo ranks {alg}: the ranks differ")
+        for s in per:
+            launches[f"{name} fp32 sequential {alg}, 2 gloo ranks fsdp: "
+                     f"rank {s['rank']}"] = s["launches"]
+            if (any(v != want for v in s["launches"].values())
+                    or s["traffic"]["param_gathers"] != gathers):
+                fail(f"fsdp two gloo ranks {alg}: rank {s['rank']} DP "
+                     f"launches {s['launches']}, gathers "
+                     f"{s['traffic']['param_gathers']}")
+        launches[f"{name} fp32 sequential {alg}, no mesh"] = \
+            one["algos"][alg]["launches"]
+        for k in ("params", "c"):
+            if one["algos"][alg][k] is None:
+                continue
+            got = [torch.from_numpy(files["algos"][f"{alg}_{k}_{j}"])
+                   for j in range(len(tm.tleaves(one["algos"][alg][k])))]
+            params_close(got, one["algos"][alg][k],
+                         f"{alg} {k}: two ranks vs one process on the card")
+            params_close(got, cpu["algos"][alg][k],
+                         f"{alg} {k}: two ranks vs the CPU")
     return launches
 
 
 def fsdp_full_width(card: str, sums) -> dict:
     """Phase 16c: the full-width fedlm-100m (bf16 compute) with
-    TRAIN_ARGV's FedPA settings at ``sequential`` on the two gloo ranks, 2
-    clients (2 of each client's 4 rows a rank), a burn-in and a FedPA
-    round, every parameter-shaped state sharded in halves. Prints each
-    rank's peak memory, host ms, DP launches, bytes gathered and reduced
-    against the layout's formula and its state's bytes against one
-    process's; the ranks' final params must have equal digests and the
-    losses be finite. Returns the DP launches."""
+    TRAIN_ARGV's FedPA settings and STEPS_CUT's local steps at
+    ``sequential`` on the two gloo ranks, 2 clients (2 of each client's 4
+    rows a rank), a burn-in and a FedPA round, every parameter-shaped
+    state sharded in halves. Prints each rank's peak memory, host ms, DP
+    launches, bytes gathered and reduced against the layout's formula and
+    its state's bytes against one process's; the ranks' final params must
+    have equal digests and the losses be finite. Returns the DP
+    launches."""
     from repro_torch.launch import train
 
     cfg, argv, _ = fsdp_case("full")
@@ -3936,26 +4189,116 @@ def fsdp_full_width(card: str, sums) -> dict:
     return launches
 
 
+def fsdp_full_fedep(card: str, sums, files, seed: int) -> dict:
+    """Phase 16e: one FedEP round of the full-width fedlm-100m (bf16) on
+    the two gloo ranks from 16c's state, the device store of
+    ``FSDP_STORE_CLIENTS`` clients element-sharded over them, on a
+    ``("data", "model")`` mesh of 1 x 2 (16c's shards, every rank on all
+    of a client's rows: with the rows split, the halves' bf16 gradients
+    round before their fp32 sum and the params leave phase 4's bound of
+    one process). Prints each
+    rank's host ms, peak memory, store bytes against ``C x 2 x n x 4``,
+    gathers and bytes by kind, DP launches (6 each); then the same round
+    in one process on the card from 16c's gathered state (run here, after
+    the ranks exited), whose params the ranks' must meet to phase 4's
+    bound. Returns the DP launches."""
+    import dataclasses
+
+    from repro_torch.core.server import ServerState
+    from repro_torch.launch import train
+
+    cfg, argv, dtype = fsdp_case("full")
+    fed, toks = fsdp_inputs(argv, cfg, seed)
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    steps = FSDP_CLIENTS * args.local_steps
+    expected = FSDP_CLIENTS * (ell - 1)
+    print(f"fsdp two gloo ranks fedep {cfg.name}: bf16, clients "
+          f"{list(FSDP_STORE_IDS)} of a device store of "
+          f"{FSDP_STORE_CLIENTS} element-sharded over the 2 ranks, one "
+          f"round from 16c's state on a ('data', 'model') mesh of 1 x 2 "
+          f"(all {args.batch} rows of a client on each rank) on one card "
+          f"({card}): "
+          f"{max(s['seconds'] for s in sums):.1f} s a rank", flush=True)
+    launches = {}
+    for s in sums:
+        n = s["n"]
+        want_store = FSDP_STORE_CLIENTS * 2 * n * 4
+        t = s["traffic"]
+        print(f"  rank {s['rank']} on {s['device']}: n={n:,}; host ms "
+              f"{s['ms']:.1f}; peak memory allocated "
+              f"{s['peak'] / 2**30:.2f} GiB; store bytes {s['store_bytes']:,}"
+              f" (formula {want_store:,}); params all-gathers "
+              f"{t['param_gathers']} (expected {steps}), bytes {t['params']}"
+              f" (formula {steps * n * 2}), grads reduced {t['grads']} "
+              f"(formula {steps * 2 * n * 4}), small sums {t['small']} in "
+              f"{t['small_reduces']} calls, staged {t['staged']}, host s "
+              f"inside the collectives {t['seconds']:.2f}; DP launches "
+              f"{s['launches']} (expected {expected} each); losses "
+              f"{s['losses']}", flush=True)
+        launches[f"fedlm-100m bf16 sequential fedep, 2 gloo ranks fsdp: "
+                 f"rank {s['rank']}"] = s["launches"]
+        if (s["store_bytes"] != want_store
+                or any(v != expected for v in s["launches"].values())
+                or t["param_gathers"] != steps
+                or t["params"] != steps * n * 2
+                or not all(map(math.isfinite, s["losses"].values()))):
+            fail(f"fsdp full fedep: rank {s['rank']} {s}")
+    if sums[0]["digest_params"] != sums[1]["digest_params"]:
+        fail("fsdp full fedep: the ranks' params differ")
+    saved = files["full-state"]
+    state = ServerState(_to_cuda(saved["params"]),
+                        _to_cuda(saved["opt_state"]), saved["round"], ())
+    rec = fsdp_algo_round(
+        cfg, dataclasses.replace(fed, **dict(FSDP_ALGOS)["fedep"]), toks[1],
+        "cuda", dtype, state, num_clients=FSDP_STORE_CLIENTS,
+        ids=FSDP_STORE_IDS,
+        whole_states=False)
+    launches["fedlm-100m bf16 sequential fedep, no mesh"] = rec["launches"]
+    print(f"  one process on the card: host ms {rec['ms']:.1f}; peak "
+          f"{rec['peak'] / 2**30:.2f} GiB; store bytes "
+          f"{rec['store_bytes']:,}; DP launches {rec['launches']}",
+          flush=True)
+    params_close(files["fedep-full"], rec["params"],
+                 "fedep full width: two ranks vs one process on the card")
+    return launches
+
+
+def _to_cuda(tree):
+    """A saved tree's tensors on the card (other leaves as they are)."""
+    import torch
+
+    from repro_torch.core import tree_math as tm
+
+    return tm.tmap(lambda x: x.to("cuda") if isinstance(x, torch.Tensor)
+                   else x, tree)
+
+
 def sequential_fsdp(card: str, seed: int) -> dict:
-    """Phase 16 (16a-16c); returns the DP launches of its runs."""
+    """Phase 16 (16a-16c, 16e); returns the DP launches of its runs."""
     import torch
 
     by_run, one = fsdp_nccl_one_rank(seed)
+    cfg, argv, dtype = fsdp_case("one-layer")
+    fed, toks = fsdp_inputs(argv, cfg, seed)
+    one["algos"] = fsdp_algos_one_process(cfg, fed, toks, "cuda", dtype,
+                                          one["burn_state"])
     torch.cuda.empty_cache()
 
     def cpu_run():
-        cfg, argv, dtype = fsdp_case("one-layer")
-        fed, toks = fsdp_inputs(argv, cfg, seed)
         t0 = time.perf_counter()
         res = fsdp_rounds(cfg, fed, toks, "cpu", dtype, seed)
+        res["algos"] = fsdp_algos_one_process(cfg, fed, toks, "cpu", dtype,
+                                              res["burn_state"])
         return res, time.perf_counter() - t0
 
     sums, files, (cpu, cpu_s), wall = fsdp_spawn(seed, cpu_run)
     print(f"fsdp ranks: {wall:.1f} s from the spawn to both exits",
           flush=True)
-    by_run.update(fsdp_two_rank_replay(sums["one-layer"], files, one, cpu,
-                                       cpu_s))
+    by_run.update(fsdp_two_rank_replay(sums, files, one, cpu, cpu_s))
+    del one, cpu
     by_run.update(fsdp_full_width(card, sums["full"]))
+    by_run.update(fsdp_full_fedep(card, sums["fedep-full"], files, seed))
     return by_run
 
 

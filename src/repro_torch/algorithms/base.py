@@ -118,10 +118,11 @@ class FedAlgorithm:
     #: Whether clients carry persistent per-client state; a stateful update
     #: takes the stack's state slice and returns ``state_update``.
     stateful: bool = False
-    #: The Sherman-Morrison step of an algorithm that runs the DP:
-    #: ``kernels.ops.dp_step`` when None; an FSDP round sets the sharded
-    #: step before it builds the client update (``core/fsdp.py``).
-    dp_step = None
+    #: The FSDP layout (``core.fsdp.FlatShard``) of a round whose
+    #: parameter-shaped tensors are this rank's flat shards; None
+    #: otherwise. The round sets it before it builds the client update
+    #: and the server step.
+    layout = None
 
     def __init__(self, fed):
         """Bind the algorithm to a ``FedConfig`` (stored as ``self.fed``)."""
@@ -150,6 +151,24 @@ class FedAlgorithm:
     def num_samples(self) -> int:
         """Posterior samples per client per round (0 for non-sampling)."""
         return 0
+
+    @property
+    def dp_step(self):
+        """The Sherman-Morrison step of an algorithm that runs the DP:
+        None (``kernels.ops.dp_step``), or under a layout its sharded step,
+        whose dot products are summed over the ranks."""
+        return None if self.layout is None else self.layout.dp_step
+
+    def param_total(self, tree):
+        """``(fp32 sum, element count)`` over all d parameters of a
+        params-shaped tree: a plain sum, or under a layout its
+        ``param_total`` (this rank's shard without the padding, summed
+        over the ranks)."""
+        if self.layout is not None:
+            return self.layout.param_total(tree)
+        leaves = tm.tleaves(tree)
+        return (sum(x.to(torch.float32).sum() for x in leaves),
+                sum(x.numel() for x in leaves))
 
     def burn_algorithm(self) -> "FedAlgorithm":
         """Algorithm run during the first ``fed.burn_in_rounds`` rounds."""

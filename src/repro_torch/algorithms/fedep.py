@@ -14,7 +14,9 @@ on the card each DP step runs the CUDA kernels ``dp_reduce`` / ``dp_map``
 for the stack. The payload IS the damped site, aggregated by
 ``fedpa_precision``'s precision-weighted mean ``num / den``; with ``alpha
 = 1`` and no history the two coincide. Burn-in rounds run the stateless
-FedAvg regime and leave the sites untouched.
+FedAvg regime and leave the sites untouched. Under FSDP a site is this
+rank's ``(n,)`` shards of ``num`` and ``den``, in the store and in the
+payload; nothing reads a whole leaf.
 """
 from __future__ import annotations
 

@@ -22,6 +22,13 @@ next participation; ``fed.error_feedback=False`` drops the state. The
 client update runs on a stack of clients, so the residuals in and out are
 the stack's ``(C, ...)`` slice and the codec reads each client's shape
 from the unstacked params (``compression.base``).
+
+Under FSDP only the identity codec runs (precision-weighted FedPA plus
+the residual, all elementwise on the shard, the residual a ``(n,)``
+store row): the ``lowrank`` sketch multiplies whole rows of a matrix
+leaf and the ``int8`` scale is a max over a client's whole payload, and a
+flat shard cuts leaves anywhere (``core.sharded_round`` refuses them on
+more than one rank, ROADMAP.md item 10 part 3b).
 """
 from __future__ import annotations
 

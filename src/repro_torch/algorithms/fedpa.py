@@ -9,7 +9,7 @@ state as the window closes, so the ``(C, l, d)`` sample buffer never
 exists. Burn-in rounds run the FedAvg regime (Section 5.2). Under FSDP
 (``core/fsdp.py``) the params the update gets are this rank's flat shard,
 so the samples and the DP state are shards too and each DP step is the
-sharded one (``FedAlgorithm.dp_step``).
+sharded one (``FedAlgorithm.dp_step``, from the round's layout).
 """
 from __future__ import annotations
 

@@ -8,6 +8,12 @@ precision-weighted averaging, delta = sum_i w_i P_i delta_i / sum_i w_i
 P_i, in the linear ``{num, den}`` accumulator; the ratio is taken once in
 ``finalize``. With a staleness discount, sharply determined coordinates
 are discounted harder: ``discount ** clip(P / mean(P))`` per parameter.
+
+Under FSDP (``core/fsdp.py``) every map here is elementwise on the
+shard; the mean precision is the one reduction over all d parameters
+(``FedAlgorithm.param_total``: the padding past d, whose precision is
+``1 / rho_l`` and not 0, left out, the partial sums added over the
+ranks).
 """
 from __future__ import annotations
 
@@ -106,9 +112,9 @@ class FedPAPrecision(FedPA):
         coordinate. None (the synchronous round) leaves it undiscounted."""
         pseudo_grad = self.finalize(agg)
         if discount is not None:
-            den = tm.tleaves(agg["den"])
-            total = sum(x.to(torch.float32).sum() for x in den)
-            count = sum(x.numel() for x in den)
+            # over exactly the d parameters: under FSDP the padding's
+            # precision is 1 / rho_l, not 0 (``param_total`` leaves it out)
+            total, count = self.param_total(agg["den"])
             mean_prec = torch.clamp(total / count, min=_EPS)
             d = torch.as_tensor(discount, dtype=torch.float32,
                                 device=mean_prec.device)

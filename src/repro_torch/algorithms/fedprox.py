@@ -3,7 +3,10 @@
 
 Each client minimizes f_i(theta) + (mu/2) ||theta - theta_0||^2: MAP
 inference against an isotropic Gaussian prior centred at the server
-iterate, a pure client-side override of the FedAvg template.
+iterate, a pure client-side override of the FedAvg template. Under FSDP
+the round wraps ``grad_fn`` first (``FlatShard.wrap_grad``: the gathered
+params' gradient, reduced onto this rank's shard), and the proximal term
+is added to that shard: elementwise, as on a whole tree.
 """
 from __future__ import annotations
 

@@ -4,7 +4,10 @@
 Clients mix a FROZEN server momentum into every local step plus an
 SVRG-style control variate. The server ships its momentum buffer with the
 params (the ``broadcast`` hook), read through the optimizer's ``momentum``
-accessor (zeros for momentum-free server optimizers).
+accessor (zeros for momentum-free server optimizers). Under FSDP the
+momentum is this rank's shard of the server state, and each client calls
+``grad_fn`` 3K times (the anchor pass, then ``g(theta_k)`` and
+``g(theta_0)`` each step): 3K params all-gathers and gradient reduces.
 """
 from __future__ import annotations
 

@@ -13,7 +13,10 @@ mean_i(dc_i)``.
 The correction is applied to the cohort-batched gradient of
 ``round_program.batched_grad`` (``(C, ...)`` gradients and ``c_i``, ``c``
 unstacked), not inside a per-client ``vmap`` as the reference does. SCAFFOLD
-runs no DP: its path has no kernel of its own.
+runs no DP: its path has no kernel of its own. Under FSDP ``c`` is one
+more ``(n,)`` shard of the server state (``FlatShard.shard_state``), and
+``c_i``, ``dc`` and the server's ``c += scale * dc`` are elementwise on
+the shards.
 """
 from __future__ import annotations
 

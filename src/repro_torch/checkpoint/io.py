@@ -23,6 +23,12 @@ reference's way: each rank writes only the rows it owns as
 ``latest_sharded_checkpoint`` skips a step whose set is incomplete, and
 ``restore_store_sharded`` loads the shard whose rows match the rank's, or,
 when the topology changed, reads every shard and concatenates them.
+
+A server state in the FSDP flat layout (``core/fsdp.py``: one ``(n,)``
+shard of the params' ravel a rank) is not a tree of whole leaves, and no
+writer takes it: both raise naming ROADMAP.md's item for FSDP
+checkpoints (``fsdp.CHECKPOINT_ITEM``), as a store made for the layout
+does (``core/client_state.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +40,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.configs.base import _not_ported
+from repro_torch.core import fsdp
 
 #: dtypes npz stores as they are (the reference's list); others widen.
 _NPZ_DTYPES = ("float64", "float32", "float16", "int64", "int32", "int16",
@@ -121,6 +130,9 @@ def _pack_leaves(state: Any):
     """``state`` -> (the arrays npz stores, the path/dtype manifest)."""
     arrays, manifest = {}, []
     for i, (path, leaf) in enumerate(leaves_with_paths(state)):
+        if fsdp.in_flat_layout(leaf):
+            raise _not_ported(f"a checkpoint of {path}, a shard in the FSDP "
+                              f"flat layout", fsdp.CHECKPOINT_ITEM)
         arr, dtype = _to_array(leaf)
         key = f"leaf_{i}"
         arrays[key] = arr

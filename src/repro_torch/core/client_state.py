@@ -42,6 +42,15 @@ updated row back on its owner only, with the gather-time stamps and the
 write mask, the drop count summed over the ranks. ``local_state_dict`` /
 ``load_local_state_dict`` checkpoint the rows a rank owns; ``state_dict``
 refuses on a multi-process mesh.
+
+Element sharding (the ``sequential`` placement's FSDP, ``core/fsdp.py``):
+a store made for an FSDP layout (``fsdp=layout``) holds every client's
+row of this rank's ``n`` elements, ``(N, n)`` buffers from the layout's
+shard template (``alg.init_client_state(sharded_state.params)``). Every
+rank runs every client with the same ids and stamps, so the population
+does not split, every rank takes the same CAS decisions, and the gather
+and scatter are the unsharded ones. Its rows are not a checkpoint's whole
+trees: its state dicts refuse (``fsdp.CHECKPOINT_ITEM``).
 """
 from __future__ import annotations
 
@@ -55,15 +64,18 @@ import torch
 from repro_torch.configs.base import _not_ported
 from repro_torch.core import collective
 from repro_torch.core import tree_math as tm
+from repro_torch.core.fsdp import CHECKPOINT_ITEM
 from repro_torch.launch.mesh import rank_device
 
 #: Mesh axis names that may carry the population / client dimension, in
 #: precedence order (the reference's ``CLIENT_AXES``).
 CLIENT_AXES = ("pod", "data")
 
-#: ROADMAP.md queue-1 item that puts the client store on a mesh whose
-#: other axes are wider than 1 (the stateful algorithms under FSDP).
-FSDP_ITEM = "10 part 3"
+#: ROADMAP.md queue-1 item that computes over the ``model`` axis: a
+#: population split over a mesh whose other axes are wider than 1 would
+#: replicate each shard over them (the ``parallel`` placement has no
+#: tensor parallelism yet).
+MODEL_AXIS_ITEM = "10 part 4"
 
 
 def _require_unique_ids(client_ids: np.ndarray, op: str) -> None:
@@ -169,13 +181,14 @@ def shard_index(mesh, axes, rank: Optional[int] = None) -> int:
 def rank_of_shard(mesh, axes) -> list:
     """``rank_of_shard[s]``: the rank holding shard ``s`` over ``axes``,
     which must span every rank (each rank one shard); a mesh with other
-    axes wider than 1 would replicate shards across them (the store under
-    FSDP over the model axis, item 10 part 3)."""
+    axes wider than 1 would replicate shards across them (compute over the
+    model axis, item 10 part 4; under FSDP the store is element-sharded
+    instead and splits no population)."""
     extent = math.prod(mesh.shape[a] for a in axes)
     if extent != mesh.size:
         raise _not_ported(
             f"a mesh {mesh.shape} whose axes {tuple(axes)} cover {extent} of "
-            f"its {mesh.size} ranks", FSDP_ITEM)
+            f"its {mesh.size} ranks", MODEL_AXIS_ITEM)
     out = [0] * extent
     for r in range(mesh.size):
         out[shard_index(mesh, axes, r)] = r
@@ -237,11 +250,14 @@ class BaseClientStateStore(abc.ABC):
     #: Whether the class takes a ``mesh`` (population sharding).
     shardable = False
 
-    def __init__(self, num_clients: int):
-        """Create an empty store for a population of ``num_clients``."""
+    def __init__(self, num_clients: int, fsdp=None):
+        """Create an empty store for a population of ``num_clients``; with
+        ``fsdp`` (a ``core.fsdp.FlatShard``) its rows are this rank's
+        ``(n,)`` shards of each client's state."""
         if num_clients <= 0:
             raise ValueError(f"num_clients must be >= 1, got {num_clients}")
         self.num_clients = num_clients
+        self.fsdp = fsdp
         self._buffers = None              # tree of (N, ...) arrays
 
     @property
@@ -251,10 +267,34 @@ class BaseClientStateStore(abc.ABC):
 
     def ensure(self, template):
         """Allocate the zeroed ``(num_clients, ...)`` buffers from one
-        client's state template (idempotent; the leaves' dtypes kept)."""
+        client's state template (idempotent; the leaves' dtypes kept). A
+        store made for an FSDP layout takes the shard template: every
+        leaf ``(n,)``."""
+        if self.fsdp is not None:
+            bad = [tuple(np.shape(x)) for x in tm.tleaves(template)
+                   if tuple(np.shape(x)) != (self.fsdp.n,)]
+            if bad:
+                raise ValueError(
+                    f"a store for an FSDP layout takes this rank's shard "
+                    f"template, leaves ({self.fsdp.n},); got {bad}")
         if self._buffers is None:
             self._buffers = self._allocate(template)
         return self
+
+    def _refuse_flat(self, op: str) -> None:
+        """A store of FSDP shards holds no client's whole state."""
+        if self.fsdp is not None:
+            raise _not_ported(f"{type(self).__name__}.{op} of a store in "
+                              f"the FSDP flat layout", CHECKPOINT_ITEM)
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the buffers (0 before ``ensure``), stamps aside."""
+        if self._buffers is None:
+            return 0
+        return sum(b.nbytes if isinstance(b, np.ndarray)
+                   else b.numel() * b.element_size()
+                   for b in tm.tleaves(self._buffers))
 
     def _require_initialized(self):
         if self._buffers is None:
@@ -299,9 +339,10 @@ class BaseClientStateStore(abc.ABC):
 class ClientStateStore(BaseClientStateStore):
     """Per-client persistent state: dense host buffers + write stamps."""
 
-    def __init__(self, num_clients: int):
-        """Create an empty host store for ``num_clients`` clients."""
-        super().__init__(num_clients)
+    def __init__(self, num_clients: int, fsdp=None):
+        """Create an empty host store for ``num_clients`` clients (rows of
+        FSDP shards with ``fsdp``)."""
+        super().__init__(num_clients, fsdp)
         self._stamps = np.zeros(num_clients, np.int64)
 
     def _allocate(self, template):
@@ -360,10 +401,12 @@ class ClientStateStore(BaseClientStateStore):
     def state_dict(self):
         """The dense buffers + int64 write stamps (the store's own arrays)."""
         self._require_initialized()
+        self._refuse_flat("state_dict")
         return {"buffers": self._buffers, "stamps": self._stamps}
 
     def load_state_dict(self, state) -> "ClientStateStore":
         """Restore from either store's :meth:`state_dict` (copied)."""
+        self._refuse_flat("load_state_dict")
         stamps = self._check_restore_stamps(state)
         self._buffers = tm.tmap(lambda b: np.array(_host(b)),
                                 state["buffers"])
@@ -493,24 +536,33 @@ class DeviceClientStateStore(BaseClientStateStore):
     ``population_spec``'s): this rank's buffers hold rows ``[row_offset,
     row_offset + rows)`` of the padded population on the mesh's device,
     ``gather`` / ``scatter`` take and give this rank's cohort rows, and
-    checkpoints go through :meth:`local_state_dict`.
+    checkpoints go through :meth:`local_state_dict`. With ``fsdp`` instead
+    every client's row of this rank's FSDP shard sits on the layout's
+    mesh device (the module's docstring).
     """
 
     shardable = True
 
     def __init__(self, num_clients: int, *, device=None, mesh=None,
-                 population_spec=None):
+                 population_spec=None, fsdp=None):
         """Create an empty store for ``num_clients`` clients on ``device``
         (with a ``mesh``: its device), population-sharded over ``mesh``
-        per ``population_spec`` (default: the mesh's client axes)."""
+        per ``population_spec`` (default: the mesh's client axes), or
+        element-sharded for the FSDP layout ``fsdp`` (on its mesh's
+        device)."""
         # core.round builds its engine from this module: import late
         from repro_torch.core.round import resolve_device  # noqa: PLC0415
-        super().__init__(num_clients)
+        super().__init__(num_clients, fsdp)
         if mesh is None and population_spec is not None:
             raise ValueError("population_spec requires a mesh")
+        if fsdp is not None and mesh is not None:
+            raise ValueError("an FSDP store splits no population: pass "
+                             "fsdp or mesh, not both")
         self.mesh = mesh
         self.layout = population_layout(mesh, num_clients, population_spec)
         if mesh is None:
+            if device is None and fsdp is not None and fsdp.mesh is not None:
+                device = fsdp.mesh.device
             self.device = resolve_device(device)
             self.rows, self.row_offset = num_clients, 0
         else:
@@ -643,6 +695,7 @@ class DeviceClientStateStore(BaseClientStateStore):
         and any layout. On a multi-process mesh no rank holds every row:
         use :meth:`local_state_dict` there."""
         self._require_initialized()
+        self._refuse_flat("state_dict")
         if self.mesh is not None and self.mesh.size > 1:
             raise RuntimeError(
                 "state_dict() needs every row addressable; on a "
@@ -653,6 +706,7 @@ class DeviceClientStateStore(BaseClientStateStore):
     def load_state_dict(self, state) -> "DeviceClientStateStore":
         """Restore from either store's :meth:`state_dict` (the whole
         population; each rank keeps its own rows, re-padded)."""
+        self._refuse_flat("load_state_dict")
         stamps = self._check_restore_stamps(state)
         return self._load_rows(state["buffers"], stamps, 0)
 
@@ -662,6 +716,7 @@ class DeviceClientStateStore(BaseClientStateStore):
         ``row_offset`` its position in the population; feed both to
         ``checkpoint.save_checkpoint_shard``."""
         self._require_initialized()
+        self._refuse_flat("local_state_dict")
         live = self._live()
         state = {"buffers": tm.tmap(
                      lambda b: b[:live].detach().to("cpu", copy=True).numpy(),
@@ -675,6 +730,7 @@ class DeviceClientStateStore(BaseClientStateStore):
         file): the rows of ``[row_offset, row_offset + rows)`` that this
         rank owns are loaded, its other rows zeroed (stamps 0, -1 on
         padding). An unsharded store needs the whole population."""
+        self._refuse_flat("load_local_state_dict")
         stamps = _host(state["stamps"]).astype(np.int64)
         rows = stamps.shape[0]
         if row_offset < 0 or row_offset + rows > self.num_clients:
@@ -734,18 +790,27 @@ register_store("device", DeviceClientStateStore)
 
 
 def make_client_store(placement: str, num_clients: int, *, device=None,
-                      mesh=None, population_spec=None
+                      mesh=None, population_spec=None, fsdp=None
                       ) -> BaseClientStateStore:
     """The store for a ``client_state_placement`` value; ``device`` places
-    the device store (default ``cuda``). ``mesh`` / ``population_spec``
-    shard the population; only a store class that is ``shardable`` (the
-    device store) takes them."""
+    the device store (default ``cuda``, or the FSDP layout's device).
+    ``mesh`` / ``population_spec`` shard the population; only a store
+    class that is ``shardable`` (the device store) takes them. ``fsdp`` (a
+    ``core.fsdp.FlatShard``) makes either store hold this rank's FSDP
+    shard of every client's state."""
     try:
         cls = STORES[placement]
     except KeyError:
         raise ValueError(
             f"unknown client_state_placement {placement!r}; "
             f"known: {tuple(STORES)}") from None
+    if fsdp is not None:
+        if mesh is not None:
+            raise ValueError("an FSDP store splits no population: pass "
+                             "fsdp or mesh, not both")
+        if cls.shardable:
+            return cls(num_clients, device=device, fsdp=fsdp)
+        return cls(num_clients, fsdp=fsdp)
     if mesh is not None:
         if not cls.shardable:
             raise ValueError(

@@ -32,6 +32,15 @@ host operands to global arrays for a multi-process run, has no
 counterpart: the port has no global arrays, and each rank's operands are
 its own host arrays and tensors on its device.
 
+Under the ``sequential`` placement's FSDP (``make_fed_round_split(...,
+mesh=)``) the loop is the same on every rank: the server state is this
+rank's shard, the store is element-sharded (``make_client_store(...,
+fsdp=layout)``: every client's row of this rank's elements), and every
+rank runs every client with the same ids and stamps, so every rank takes
+the same CAS decisions. The staleness discount reaches the server stage
+on the shards: ``fedpa_precision``'s per-parameter discount through its
+mean precision summed over the ranks, SCAFFOLD's ``dc`` elementwise.
+
 A dispatched cohort runs eagerly: on the CPU it is done when ``_dispatch``
 returns, on the GPU its kernels are queued on the stream ahead of the
 server update that follows, so it reads the params it was dispatched

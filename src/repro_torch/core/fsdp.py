@@ -30,14 +30,31 @@ loss. The DP's dot products are sums over the shards
 (``kernels.ops.dp_step_sharded``). Every collective runs outside
 ``torch.func``: the wrapper sits around the cohort-batched ``grad_fn``.
 
+Every algorithm runs on the shards. The stateful ones keep their state
+in the same layout: SCAFFOLD's server control variate is one more ``(n,)``
+shard of the ``ServerState`` (``shard_state``), and a client store built
+for the layout (``core.client_state.make_client_store(..., fsdp=)``) holds
+every client's row of this rank's ``n`` elements, ``(N, n)``: every rank
+runs every client, so the population does not split. The broadcast extras
+(MIME's frozen server momentum, SCAFFOLD's ``c``), the payloads and the
+accumulator are shards as well, and every map on them is elementwise. The
+one reduction over the whole parameter vector, ``fedpa_precision``'s mean
+precision under a staleness discount, goes through ``param_total``: the
+sum of this rank's real elements (the zero padding past ``d`` is not
+neutral there: a padded coordinate's precision is ``1 / rho_l``),
+all-reduced over the ranks, over a count of ``d``. A payload codec other
+than the identity cannot run on a flat shard (``NEXT_ITEM``).
+
 Leaves are matched by their key paths, so a tree built in another key
 order (the JAX package's sorted one) shards to the same elements. Without
 a mesh, or on a mesh of one rank, the layout is the identity (``n = d``)
 and a collective moves no data to another rank (a one-rank group still
-makes its calls).
+makes its calls). A server state or a store in the flat layout is not a
+checkpoint's tree: ``checkpoint.io`` refuses both (``CHECKPOINT_ITEM``).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable
 
 import torch
@@ -46,19 +63,48 @@ from torch.utils import _pytree as pytree
 from repro_torch.core import collective
 from repro_torch.kernels import ops
 
-#: The algorithms an FSDP round runs; the rest are ROADMAP.md queue 1,
-#: ``NEXT_ITEM``.
-ALGORITHMS = ("fedavg", "fedpa")
-#: The item that ports the other algorithms and the client store under
-#: FSDP (``fedpa_precision``, ``fedprox``, ``mime``, ``scaffold``,
-#: ``fedep``, ``fedlora``).
-NEXT_ITEM = "10 part 3"
+#: The algorithms an FSDP round runs: all of the port's.
+ALGORITHMS = ("fedavg", "fedpa", "fedpa_precision", "fedprox", "mime",
+              "scaffold", "fedep", "fedlora")
+#: ROADMAP.md queue 1's item for what is still missing under FSDP: a
+#: payload codec other than the identity (FedLoRA's ``lowrank`` sketch
+#: multiplies whole rows of a matrix leaf, ``int8``'s scale is a max over
+#: the whole payload; a flat shard cuts leaves at arbitrary elements).
+NEXT_ITEM = "10 part 3b"
+#: The item for checkpoints of a state in the flat layout.
+CHECKPOINT_ITEM = "10 part 3c"
+
+#: ``id -> weakref`` of every tensor of a server state in the flat layout
+#: (``shard_state``'s, and each server step's under a layout): what
+#: ``in_flat_layout`` recognises.
+_FLAT: dict = {}
 
 
 def _paths(tree) -> list:
     """``(key path, leaf)`` pairs in the tree's flatten order."""
     return [(pytree.keystr(k), x)
             for k, x in pytree.tree_flatten_with_path(tree)[0]]
+
+
+def mark_flat(tree):
+    """Record every tensor of ``tree`` as held in the flat layout (until
+    it is freed); returns ``tree``."""
+    for x in pytree.tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            k = id(x)
+
+            def forget(ref, k=k):
+                if _FLAT.get(k) is ref:
+                    del _FLAT[k]
+
+            _FLAT[k] = weakref.ref(x, forget)
+    return tree
+
+
+def in_flat_layout(x) -> bool:
+    """Whether ``x`` is a tensor of a server state in the flat layout."""
+    ref = _FLAT.get(id(x))
+    return ref is not None and ref() is x
 
 
 class FlatShard:
@@ -97,7 +143,7 @@ class FlatShard:
         """Elements ``[lo, hi)`` of the flat ravel of ``tree`` (padding past
         ``d`` is zero), keeping each leaf's first ``lead_dims`` axes:
         ``(*lead, hi - lo)`` in ``dtype``."""
-        leaves = self._leaves(tree)
+        leaves = [torch.as_tensor(x) for x in self._leaves(tree)]
         lead = tuple(leaves[0].shape[:lead_dims])
         out = torch.zeros(*lead, hi - lo, dtype=dtype,
                           device=leaves[0].device)
@@ -126,9 +172,15 @@ class FlatShard:
         dtype = dtype or shard.dtype
         flat = collective.all_gather_flat(self.mesh,
                                           shard.to(dtype).reshape(-1))
+        return self._unravel(flat.reshape(*lead, -1))
+
+    def _unravel(self, rows: torch.Tensor):
+        """The params tree of a ``(*lead, W n)`` ravel, ``lead`` kept on
+        every leaf (the padding dropped)."""
+        lead = tuple(rows.shape[:-1])
         out, off = [], 0
         for k, shape in zip(self.sizes, self.shapes):
-            out.append(flat[off:off + k].reshape(*lead, *shape))
+            out.append(rows[..., off:off + k].reshape(*lead, *shape))
             off += k
         return pytree.tree_unflatten(out, pytree.tree_structure(
             self.template))
@@ -146,6 +198,23 @@ class FlatShard:
     def mean_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over ranks of a small tensor (the losses)."""
         return collective.all_reduce_small(self.mesh, x) / self.W
+
+    @property
+    def real(self) -> int:
+        """How many of this rank's ``n`` elements are parameters: ``n``,
+        but fewer on the last rank when ``W`` does not divide ``d`` (the
+        rest is padding), none past it."""
+        return max(0, min(self.n, self.d - self.lo))
+
+    def param_total(self, shard: torch.Tensor):
+        """``(fp32 sum, count)`` over every parameter of a params-shaped
+        ``shard`` (``(..., n)``): this rank's real elements summed, the
+        padding left out, the partial sums all-reduced over the ranks; the
+        count covers exactly the ``d`` parameters of each leading row."""
+        part = shard[..., :self.real].to(torch.float32).sum()
+        lead = shard.numel() // self.n
+        return (collective.all_reduce_small(self.mesh, part.reshape(1))[0],
+                lead * self.d)
 
     # -- the round's hooks ----------------------------------------------------
     def wrap_grad(self, grad_fn: Callable) -> Callable:
@@ -190,16 +259,22 @@ class FlatShard:
                     for k, v in batches.items()}
         return take(batches)
 
-    # -- server state ---------------------------------------------------------
-    def _is_full(self, x) -> bool:
+    # -- server state and client states --------------------------------------
+    def _is_full(self, x, lead_dims: int = 0) -> bool:
+        """Whether ``x`` is a whole params-shaped tree (with ``lead_dims``
+        leading axes on every leaf; tensors or numpy arrays)."""
         pairs = _paths(x)
         return (len(pairs) == len(self.paths)
-                and all(isinstance(v, torch.Tensor) for _, v in pairs)
-                and dict((p, tuple(v.shape)) for p, v in pairs)
+                and all(hasattr(v, "shape") for _, v in pairs)
+                and dict((p, tuple(v.shape[lead_dims:])) for p, v in pairs)
                 == dict(zip(self.paths, self.shapes)))
 
     def _is_shard(self, x) -> bool:
         return isinstance(x, torch.Tensor) and tuple(x.shape) == (self.n,)
+
+    def _is_rows(self, x) -> bool:
+        return (isinstance(x, torch.Tensor) and x.dim() == 2
+                and x.shape[-1] == self.n)
 
     def _map(self, obj, pred, fn):
         """``fn`` on every part of ``obj`` (nested dicts, tuples, lists)
@@ -214,19 +289,50 @@ class FlatShard:
 
     def shard_state(self, state):
         """A whole ``ServerState`` -> this rank's sharded one: the params
-        and every params-shaped part of the optimizer state as ``(n,)``
-        fp32 shards. ``algo_state`` must be empty (FedAvg, FedPA)."""
-        if state.algo_state not in ((), None):
-            raise ValueError("an FSDP round's state has no algo_state")
-        return state._replace(
-            params=self.shard_tree(state.params),
-            opt_state=self._map(state.opt_state, self._is_full,
-                                self.shard_tree))
+        and every params-shaped part of the optimizer state and of
+        ``algo_state`` (SCAFFOLD's server control variate) as ``(n,)``
+        fp32 shards, matched by key path."""
+        return mark_flat(state._replace(**{
+            k: self._map(getattr(state, k), self._is_full, self.shard_tree)
+            for k in ("params", "opt_state", "algo_state")}))
 
     def gather_state(self, state):
         """The sharded ``ServerState`` -> the whole one on every rank (one
         all-gather per params-shaped part)."""
-        return state._replace(
-            params=self.gather_tree(state.params),
-            opt_state=self._map(state.opt_state, self._is_shard,
-                                self.gather_tree))
+        return state._replace(**{
+            k: self._map(getattr(state, k), self._is_shard, self.gather_tree)
+            for k in ("params", "opt_state", "algo_state")})
+
+    def shard_rows(self, tree):
+        """This rank's ``(C, n)`` rows of every stacked ``(C, ...)``
+        params-shaped part of ``tree`` (a store slice, or a dict of them
+        such as FedEP's sites; tensors or numpy), each in its own dtype."""
+        def rows(x):
+            x0 = torch.as_tensor(self._leaves(x)[0])
+            return self._pack(x, self.lo, self.lo + self.n, 1, x0.dtype)
+
+        return self._map(tree, lambda x: self._is_full(x, 1), rows)
+
+    def gather_rows(self, tree):
+        """``shard_rows``'s inverse on every rank: each ``(C, n)`` part of
+        ``tree`` -> the stacked whole ``(C, ...)`` tree (one all-gather
+        each)."""
+        def whole(x):
+            C = x.shape[0]
+            flat = collective.all_gather_flat(self.mesh, x.reshape(-1))
+            return self._unravel(flat.reshape(self.W, C, self.n)
+                                 .transpose(0, 1).reshape(C, -1))
+
+        return self._map(tree, self._is_rows, whole)
+
+    def check_rows(self, cstates) -> None:
+        """``ValueError`` unless every leaf of a cohort's client states is
+        a ``(C, n)`` row of this layout (a store made for whole trees
+        hands whole rows)."""
+        for x in pytree.tree_leaves(cstates):
+            if not self._is_rows(x):
+                raise ValueError(
+                    f"a client state of shape {tuple(x.shape)} under an "
+                    f"FSDP round: the store's rows must be this rank's "
+                    f"(C, {self.n}) shards (make_client_store(..., "
+                    f"fsdp=layout))")

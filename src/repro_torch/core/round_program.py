@@ -59,13 +59,20 @@ the same aggregate keeps the replicas equal.
 With ``fsdp`` (a ``core.fsdp.FlatShard``; ``core.sharded_round`` passes it
 for the ``sequential`` placement on a mesh) the cohort does not split:
 every rank runs every client in cohort order, each client on the whole
-mesh. The server state and the accumulator are this rank's flat shards,
-the client update steps on the shard of its iterate (the grads gathered
-and reduced around the batched ``grad_fn``, ``FlatShard.wrap_grad``; the
-DP's dots summed over the ranks), and each rank is handed the whole
-cohort's batches and runs its rows of every client
-(``FlatShard.local_rows``). The weights, the mask and the losses are the
-whole cohort's on every rank, and no accumulator is handed on.
+mesh. Every parameter-shaped thing the round handles is this rank's flat
+shard, ``(n,)`` or ``(C, n)``: the server state (SCAFFOLD's ``c``
+included), the broadcast extras (MIME's frozen server momentum, SCAFFOLD's
+``c``), a stateful algorithm's client states (the host store's slice and
+the device store's rows, both made for the layout), the payloads and the
+accumulator. The client update steps on the shard of its iterate (the
+grads gathered and reduced around the batched ``grad_fn``,
+``FlatShard.wrap_grad``; the DP's dots summed over the ranks), and each
+rank is handed the whole cohort's batches and runs its rows of every
+client (``FlatShard.local_rows``). The weights, the mask, the ids and the
+losses are the whole cohort's on every rank, so every rank takes the same
+CAS decisions, and no accumulator is handed on. The server stage takes
+the layout too: its one reduction over all of d (``fedpa_precision``'s
+mean precision) sums over the ranks (``FedAlgorithm.param_total``).
 """
 from __future__ import annotations
 
@@ -79,6 +86,7 @@ from repro_torch.core import collective
 from repro_torch.core import tree_math as tm
 from repro_torch.core.client_state import (cohort_ranks, device_gather,
                                            device_scatter)
+from repro_torch.core.fsdp import mark_flat
 from repro_torch.core.server import ServerState, normalized_weights
 from repro_torch.optim import Optimizer, get_optimizer
 
@@ -269,6 +277,8 @@ def _run_cohort(ctx: _CohortCtx, state: ServerState, client_batches,
         client_batches = ctx.fsdp.local_rows(client_batches)
     batches = to_device(client_batches, device)
     cstates = (to_device(client_states, device) if ctx.stateful else None)
+    if ctx.fsdp is not None and ctx.stateful:
+        ctx.fsdp.check_rows(cstates)
     n = tm.tleaves(batches)[0].shape[0]     # this rank's rows
     W, shard, prev, after, last = ctx.split or (1, 0, None, None, None)
     C = n * W
@@ -380,17 +390,17 @@ def make_cohort_program(grad_fn: Callable, fed, *,
     one rank (``ValueError``).
 
     ``fsdp`` (a ``core.fsdp.FlatShard``, at ``sequential`` only, without
-    ``mesh``) runs the round sharded over the layout's ranks: ``state``
-    and ``agg`` are this rank's flat shards, ``client_batches`` the whole
-    cohort's (each rank takes its rows of every client).
+    ``mesh``) runs the round sharded over the layout's ranks: ``state``,
+    the client states (a store made for the layout) and ``agg`` are this
+    rank's flat shards, ``client_batches``, the weights and the ids the
+    whole cohort's (each rank takes its rows of every client).
     """
     alg = resolve_algorithm(fed, use_sampling)
     place = resolve_placement(fed, placement)
-    if fsdp is not None and (place != "sequential" or mesh is not None
-                             or alg.stateful):
+    if fsdp is not None and (place != "sequential" or mesh is not None):
         raise ValueError(
-            f"fsdp shards a stateless sequential round over its own ranks; "
-            f"got placement {place!r}, mesh {mesh}, algorithm {alg.name!r}")
+            f"fsdp shards a sequential round over its own ranks; got "
+            f"placement {place!r}, mesh {mesh}")
     eff = alg.fed
     client_opt = client_opt or get_optimizer(eff.client_opt, eff.client_lr,
                                              eff.client_momentum)
@@ -401,7 +411,7 @@ def make_cohort_program(grad_fn: Callable, fed, *,
         grad = _budget_masked(grad)
     if fsdp is not None:
         grad = fsdp.wrap_grad(grad)
-        alg.dp_step = fsdp.dp_step
+        alg.layout = fsdp
     client_update = alg.make_client_update(grad, client_opt)
     if wrap_client is not None:
         client_update = wrap_client(client_update)
@@ -460,19 +470,23 @@ def make_cohort_program(grad_fn: Callable, fed, *,
 
 
 def make_server_program(fed, *, server_opt: Optional[Optimizer] = None,
-                        use_sampling: bool = True) -> Callable:
+                        use_sampling: bool = True, fsdp=None) -> Callable:
     """Build ``server_fn(state, agg, discount=None) -> new_state``: finalize
     the cohort aggregate into the pseudo-gradient and take one
     server-optimizer step (the algorithm's ``server_update``).
     ``discount`` is the async engine's staleness discount; the
-    synchronous round passes None."""
+    synchronous round passes None. Under ``fsdp`` (the cohort stage's
+    layout) ``state`` and ``agg`` are this rank's shards, a reduction over
+    all of d sums over the ranks, and the new state is in the layout."""
     alg = resolve_algorithm(fed, use_sampling)
+    alg.layout = fsdp
     server_opt = server_opt or get_optimizer(fed.server_opt, fed.server_lr,
                                              fed.server_momentum)
 
     @torch.no_grad()
     def server_fn(state: ServerState, agg, discount=None):
-        return alg.server_update(state, agg, server_opt, discount)
+        new_state = alg.server_update(state, agg, server_opt, discount)
+        return new_state if fsdp is None else mark_flat(new_state)
 
     return server_fn
 
@@ -506,7 +520,7 @@ def make_round_program(grad_fn: Callable, fed, *,
         server_opt=server_opt, wrap_client=wrap_client, mesh=mesh,
         spmd_axes=spmd_axes, fsdp=fsdp)
     server_fn = make_server_program(fed, server_opt=server_opt,
-                                    use_sampling=use_sampling)
+                                    use_sampling=use_sampling, fsdp=fsdp)
     stateful = resolve_algorithm(fed, use_sampling).stateful
 
     if stateful and fed.client_state_placement == "device":

@@ -15,18 +15,24 @@ Here ``parallel`` and ``chunked`` take a ``mesh`` (``launch.mesh``): the
 cohort's rows split over its ranks, each rank runs its rows and folds
 them onto the accumulator the rank before it hands on (``round_program``):
 the only cross-client collective, as in the reference. ``sequential`` on
-a ``mesh`` runs FSDP over its ranks (``core/fsdp.py``) for FedAvg and
-FedPA: every rank runs every client, each client's batch rows split over
-the mesh's data axes, and every parameter-shaped state (the fp32 master,
-the server optimizer state, the accumulator, the client iterate and its
-moments, the IASG samples and the DP vectors) is this rank's flat shard,
-with one all-gather of the compute-dtype params at each local step. Its
-round takes and returns the sharded ``ServerState``: the layout (``fsdp_layout``) shards a whole
-state (``shard_state``) and gathers it back (``gather_state``). Compute
-is not split over ``model`` (the reference's ``tp_constrain`` computes on
-tensor-parallel params: ROADMAP.md queue 1, item 10 part 4), and the other
-algorithms at ``sequential`` on more than one rank raise naming item 10
-part 3. Without a mesh every sharding hook is the identity (the
+a ``mesh`` runs FSDP over its ranks (``core/fsdp.py``) for every
+algorithm: every rank runs every client, each client's batch rows split
+over the mesh's data axes, and every parameter-shaped state (the fp32
+master, the server optimizer state, SCAFFOLD's server control variate,
+the accumulator and the payloads, the broadcast extras, the client
+iterate and its moments, the IASG samples and the DP vectors, and the
+per-client states in a store made for the layout) is this rank's flat
+shard, with one all-gather of the compute-dtype params at each gradient
+(MIME takes three a local step). Its round takes and returns the sharded
+``ServerState``: the layout (``fsdp_layout``) shards a whole state
+(``shard_state``) and gathers it back (``gather_state``), and a store's
+rows with ``shard_rows`` / ``gather_rows``. Both stages take the layout,
+so ``make_fed_round_split`` runs under FSDP too. Compute is not split over
+``model`` (the reference's ``tp_constrain`` computes on tensor-parallel
+params: ROADMAP.md queue 1, item 10 part 4), and a FedLoRA payload codec
+other than the identity at ``sequential`` on more than one rank raises
+naming item 10 part 3b (``fsdp.NEXT_ITEM``): on one rank it runs on the
+whole tree. Without a mesh every sharding hook is the identity (the
 reference's ``prepare_params``, ``constrain_accum``, ``finalize_params``
 and the payload constraint place nothing), so they are left out. Either
 way the sequential placement's client wrapper casts the master params to
@@ -74,12 +80,14 @@ def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
     if placement != "sequential":
         raise ValueError(f"unknown placement {placement!r}")
     if mesh is not None:
-        name = get_algorithm(fed).name
-        if name in fsdp.ALGORITHMS:
+        alg = get_algorithm(fed)
+        if not alg.supports_codec or alg.codec.is_identity:
             kw["fsdp"] = fsdp_layout(cfg, mesh)
         elif mesh.size > 1:
-            raise _not_ported(f"{name!r} at the sequential placement's FSDP "
-                              f"over a mesh of ranks", fsdp.NEXT_ITEM)
+            raise _not_ported(f"{alg.name!r} with payload codec "
+                              f"{fed.payload_codec!r} at the sequential "
+                              f"placement's FSDP over a mesh of ranks",
+                              fsdp.NEXT_ITEM)
 
     def wrap_client(client_update):
         def cast_client_update(master_params, batches, *extra):
@@ -121,9 +129,11 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     ``chunked`` a ``mesh`` splits the cohort's rows over its ranks
     (``client_batches`` are then this rank's rows), over the client axes
     of ``spmd_axes`` when given. At ``sequential`` a ``mesh`` shards the
-    round's state over its ranks (FedAvg and FedPA; the module's
-    docstring): ``server_state`` is then this rank's shard
-    (``fsdp_layout(cfg, mesh).shard_state``), ``client_batches`` the
+    round's state over its ranks (the module's docstring):
+    ``server_state`` is then this rank's shard (``fsdp_layout(cfg,
+    mesh).shard_state``), a stateful algorithm's client states this
+    rank's rows (``shard_rows``, or a store made with
+    ``make_client_store(..., fsdp=layout)``), ``client_batches`` the
     whole cohort's, and the new state comes back sharded.
     """
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
@@ -145,7 +155,8 @@ def make_fed_round_split(cfg: ModelConfig, fed: FedConfig, *,
                                   q_chunk, remat, use_sampling, chunk_size,
                                   mesh, spmd_axes)
     return (make_cohort_program(grad_fn, fed, **kw),
-            make_server_program(fed, use_sampling=use_sampling))
+            make_server_program(fed, use_sampling=use_sampling,
+                                fsdp=kw.get("fsdp")))
 
 
 def default_placement(cfg: ModelConfig,

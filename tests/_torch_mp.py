@@ -213,7 +213,10 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
     ``<out_dir>/<dp>.rank<r>.npz``: the gathered params after each round
     (``r<i>/<path>``), the losses, this rank's traffic in each round, and
     the element counts of every parameter-shaped tensor it held (master,
-    server momentum, accumulator, iterate, samples, ``v_hist``)."""
+    server momentum, accumulator, iterate, samples, ``v_hist``). Then one
+    ``algo_round`` of each algorithm of the inputs' ``algo_kw``
+    (``<name>.rank<r>.npz``) and, when the inputs name one, the
+    ``engine_run`` (``engine.rank<r>.npz``)."""
     import json
 
     from repro_torch import configs
@@ -288,3 +291,173 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
         for k, v in held.items():
             out[f"held/{k}"] = np.array(sorted(v))
         np.savez(os.path.join(out_dir, f"{dp}.rank{rank}.npz"), **out)
+    for name, algo_kw in json.loads(str(inputs["algo_kw"])).items():
+        np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
+                 **algo_round(algo_kw, inputs, mesh))
+    if "engine_kw" in inputs.files:
+        np.savez(os.path.join(out_dir, f"engine.rank{rank}.npz"),
+                 **engine_run(json.loads(str(inputs["engine_kw"])), inputs,
+                              mesh))
+
+
+def _tree(inputs, prefix: str):
+    """The tensors saved under ``prefix/`` of ``inputs``, nested by path
+    (None when there are none)."""
+    from repro_torch.convert import params_from_jax
+
+    flat = {k[len(prefix) + 1:]: inputs[k] for k in inputs.files
+            if k.startswith(prefix + "/")}
+    return params_from_jax(nest(flat), "cpu") if flat else None
+
+
+def _flat(tree, prefix: str) -> dict:
+    """``{prefix/path: numpy}`` of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v.detach().cpu().numpy()
+    return out
+
+
+def algo_round(kw: dict, inputs, mesh=None) -> dict:
+    """One round of the FSDP test's other algorithms: the smoke fedlm-100m
+    at ``sequential`` (fp32 compute) from ``inputs``' params (``p/``) and
+    the algorithm's starting state (SCAFFOLD's ``c`` under ``c/``, MIME's
+    server momentum under ``m/``, the clients' states under
+    ``cs/<algorithm>/``), with ``tokens1``; through FSDP over ``mesh``'s
+    ranks when given, else in one process. A stateful algorithm's client
+    states go through the store ``kw`` places (the device store's rows
+    loaded first). Returns ``{params/<path>, c/<path>, states/<path>}``
+    (gathered whole), the losses, this rank's traffic (``traffic/<kind>``)
+    and the elements it held (``held/<what>``: the params, ``c``, MIME's
+    broadcast momentum, a client state row, the store's rows)."""
+    from repro_torch import configs
+    from repro_torch.algorithms import get_algorithm, mime
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import collective, sharded_round
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.client_state import make_client_store
+    from repro_torch.core.server import init_server_state
+    from repro_torch.optim import get_optimizer
+
+    cfg = configs.get_smoke("fedlm-100m")
+    fed = FedConfig(**kw)
+    alg = get_algorithm(fed)
+    opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
+    state = init_server_state(_tree(inputs, "p"), opt, algorithm=alg)
+    if fed.algorithm == "scaffold":
+        state = state._replace(algo_state=_tree(inputs, "c"))
+    if fed.algorithm == "mime":
+        state = state._replace(opt_state={"step": 0,
+                                          "m": _tree(inputs, "m")})
+    layout = None if mesh is None else sharded_round.fsdp_layout(cfg, mesh)
+    if layout is not None:
+        state = layout.shard_state(state)
+    held = {"params": tm.tree_size(state.params)}
+    if fed.algorithm == "scaffold":
+        held["c"] = tm.tree_size(state.algo_state)
+    seen = []
+    broadcast = mime.Mime.broadcast
+
+    def probed(self, st, server_opt):
+        out = broadcast(self, st, server_opt)
+        seen.append(tm.tree_size(out))
+        return out
+
+    mime.Mime.broadcast = probed
+    fn = sharded_round.make_fed_round(
+        cfg, fed, placement="sequential", compute_dtype=torch.float32,
+        q_chunk=8, mesh=mesh)
+    ids = np.arange(fed.clients_per_round)
+    args, store = (), None
+    if alg.stateful:
+        cstates = _tree(inputs, f"cs/{fed.algorithm}")
+        if layout is not None:
+            cstates = layout.shard_rows(cstates)
+        held["row"] = tm.tleaves(cstates)[0][0].numel()
+        args = (cstates,)
+        if fed.client_state_placement == "device":
+            store = make_client_store("device", ids.shape[0], device="cpu",
+                                      fsdp=layout)
+            store.ensure(alg.init_client_state(state.params))
+            store.scatter(ids, cstates)
+            args = (store.device_state(), store.prepare_ids(ids))
+            held["store_rows"] = [
+                (b.shape[0], b[0].numel())
+                for b in tm.tleaves(store.device_state()["buffers"])]
+    collective.reset_traffic()
+    try:
+        res = fn(state, {"tokens": inputs["tokens1"]}, None, *args)
+    finally:
+        mime.Mime.broadcast = broadcast
+    state, metrics = res[:2]
+    if seen:
+        held["momentum"] = seen[0]
+    out = {f"traffic/{k}": v for k, v in collective.traffic.items()}
+    out.update({f"held/{k}": np.asarray(v) for k, v in held.items()})
+    out.update({k: float(v) for k, v in metrics.items()})
+    if layout is not None:
+        state = layout.gather_state(state)
+    out.update(_flat(state.params, "params"))
+    if fed.algorithm == "scaffold":
+        out.update(_flat(state.algo_state, "c"))
+    if alg.stateful:
+        new = res[2]["buffers"] if store is not None else res[2]
+        if layout is not None:
+            new = layout.gather_rows(new)
+        out.update(_flat(new, "states"))
+    return out
+
+
+def engine_run(kw: dict, inputs, mesh=None) -> dict:
+    """The FSDP test's ``RoundEngine`` run: ``kw``'s stateful algorithm
+    (FedEP) on the device store for ``inputs["engine_ids"]`` cohorts at
+    window ``kw["max_staleness"] + 1`` (the stale rounds discounted), from
+    ``inputs``' params and zero states, the tokens ``engine_tokens``;
+    through FSDP over ``mesh``'s ranks when given. Returns the gathered
+    params (``params/<path>``), the store's rows gathered
+    (``states/<path>``), each record's ``state_drops`` and
+    ``staleness``."""
+    from repro_torch import configs
+    from repro_torch.algorithms import get_algorithm
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import sharded_round
+    from repro_torch.core.client_state import make_client_store
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.core.server import init_server_state
+    from repro_torch.data.prefetch import Cohort
+    from repro_torch.optim import get_optimizer
+
+    cfg = configs.get_smoke("fedlm-100m")
+    fed = FedConfig(**kw)
+    alg = get_algorithm(fed)
+    opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
+    state = init_server_state(_tree(inputs, "p"), opt, algorithm=alg)
+    layout = None if mesh is None else sharded_round.fsdp_layout(cfg, mesh)
+    if layout is not None:
+        state = layout.shard_state(state)
+    cohort_fn, server_fn = sharded_round.make_fed_round_split(
+        cfg, fed, placement="sequential", compute_dtype=torch.float32,
+        q_chunk=8, mesh=mesh)
+    ids, toks = inputs["engine_ids"], inputs["engine_tokens"]
+    store = make_client_store("device", int(ids.max()) + 1, device="cpu",
+                              fsdp=layout)
+    store.ensure(alg.init_client_state(state.params))
+    engine = RoundEngine(cohort_fn, server_fn,
+                         max_staleness=fed.max_staleness,
+                         staleness_discount=fed.staleness_discount,
+                         client_store=store, stateful=True)
+    state, history = engine.run(
+        state, lambda t: Cohort(t, ids[t], {"tokens": toks[t]}), len(ids))
+    if layout is not None:
+        state = layout.gather_state(state)
+    rows = store.device_state()["buffers"]
+    if layout is not None:
+        rows = layout.gather_rows(rows)
+    out = {"state_drops": np.array([h["state_drops"] for h in history]),
+           "staleness": np.array([h["staleness"] for h in history])}
+    out.update(_flat(state.params, "params"))
+    out.update(_flat(rows, "states"))
+    return out

@@ -3,31 +3,45 @@
 one-process round, on gloo ranks spawned on the CPU.
 
 Every case is ``tests/test_torch_lm_train.py``'s round: the smoke
-fedlm-100m, a FedAvg burn-in round then a FedPA round (fp32 compute), 2
-clients with 2 batch rows each. One spawned group per mesh
-(``_torch_mp.fsdp_rank``) runs batch and streaming DP and writes what each
-rank found; the module's fixture starts both groups, computes the JAX
-rounds and the one-process rounds meanwhile, then joins the groups within
-a deadline, and the tests only compare.
+fedlm-100m, fp32 compute, 2 clients with 2 batch rows each. One spawned
+group per mesh (``_torch_mp.fsdp_rank``) runs a FedAvg burn-in round then
+a FedPA round with batch and streaming DP, then one round of each other
+algorithm (``ALGO_KW``), and on the 1 x 2 mesh a ``RoundEngine`` run;
+it writes what each rank found. The module's fixture starts both groups,
+computes the JAX rounds and the one-process rounds meanwhile, then joins
+the groups within a deadline, and the tests only compare.
 
 * 2 x 2 ``("data", "model")`` mesh, 4 ranks: each data rank takes one
   row of each client, the model ranks the same row. The gathered params
   and the losses after each round equal JAX's one-device ``sequential``
   round (the batch-DP run, which both DP forms equal) and the port's
   one-process one, at ``test_make_fed_round_vs_jax``'s tolerances (rtol
-  1e-5, atol 1e-6 after the burn-in round and 1e-5 after the FedPA
+  1e-5, atol 1e-6 after a round without the DP and 1e-5 after a DP
   round: the grads are means of per-row means here, summed over ranks in
-  fp32); every rank holds ``ceil(d / 4)`` elements of each
-  parameter-shaped tensor.
-* 1 x 2, 2 ranks: the batch does not split, so only the DP's dot
-  products, summed over the two shards, differ from one process: within
-  1e-6 of the one-process params' largest entry.
-* Collectives: one params all-gather per local step per client, and the
-  bytes of each kind by the layout's formula.
+  fp32). SCAFFOLD's control variates are ``(theta_0 - theta_K) / (K
+  lr)``: they carry the params' absolute error times ``1 / (K lr)``, so
+  their atol is the params' over ``K lr``. FedEP and SCAFFOLD also equal
+  the JAX package's round from the same client states
+  (``test_stateful_fed_round_vs_jax``'s tolerances). Every rank holds
+  ``ceil(d / 4)`` elements of each parameter-shaped tensor.
+* 1 x 2, 2 ranks: the batch does not split, so each rank computes the
+  one-process gradient and the mean over the two ranks is exact (``g +
+  g`` and the halving round nothing). Without the DP (FedProx, MIME,
+  SCAFFOLD) every other step is elementwise, so the rounds equal one
+  process's bit for bit (run with the ranks' thread count, one); with
+  the DP only its dot products, summed over the two shards, differ:
+  within 1e-6 of each leaf's largest entry, the losses bitwise. The
+  engine run (FedEP, window 2) takes the same CAS decisions as one
+  process, its stale rounds discounted through the sharded mean
+  precision.
+* Collectives: one params all-gather per gradient (``K`` a client, ``3K``
+  for MIME), and the bytes of each kind by the layout's formula.
 
 Without a group: the sharded DP step over simulated shards against
 ``ref.dp_step_ref``, the glue against ``ref.dp_coeffs``, the mesh's data
-slot, and the refusals.
+slot, ``fedpa_precision``'s discounted server step over three simulated
+shards (the padding left out of its mean precision), the layout of the
+state and of client rows by key path, and the refusals.
 """
 import json
 import math
@@ -40,15 +54,22 @@ import torch
 
 import _torch_mp as mpt
 from test_torch_lm_train import (ARCH, F32, ROUND_KW, ROUND_TOKENS,
-                                 _fedlm_params, _jax_rounds)
+                                 STATEFUL_KW, _fedlm_params, _jax_leaves,
+                                 _jax_rounds, _jax_stateful_round,
+                                 _stateful_inputs, _tokens)
 from repro_torch import configs
+from repro_torch.algorithms import algorithm_names, get_algorithm
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs.base import FedConfig
 from repro_torch.convert import lm_params_from_jax
-from repro_torch.core import fsdp, sharded_round
+from repro_torch.core import collective, fsdp, sharded_round
 from repro_torch.core import tree_math as tm
+from repro_torch.core.client_state import make_client_store
 from repro_torch.core.server import init_server_state
+from repro_torch.core.shrinkage import rho_l
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.models.model import init_params
 from repro_torch.optim import get_optimizer
 
 #: mesh name -> ("data", "model") extents
@@ -58,6 +79,31 @@ DPS = ("batch", "streaming")
 ATOLS = (1e-6, 1e-5)
 #: seconds the groups may take after the parent's own work
 JOIN_S = 150.0
+#: One round of each other algorithm from ``_fedlm_params`` with
+#: ``ROUND_TOKENS[1]``: SCAFFOLD on the host store's slice, FedEP and
+#: FedLoRA (identity codec, error feedback) on the device store. The
+#: starting states are ``_stateful_inputs``' draws (SCAFFOLD's also give
+#: MIME its server momentum and FedLoRA its residuals).
+ALGO_KW = {
+    "fedpa_precision": dict(ROUND_KW, algorithm="fedpa_precision"),
+    "fedprox": dict(ROUND_KW, algorithm="fedprox"),
+    "mime": dict(ROUND_KW, algorithm="mime"),
+    "scaffold": STATEFUL_KW["scaffold"],
+    "fedep": dict(STATEFUL_KW["fedep"], client_state_placement="device"),
+    "fedlora": dict(ROUND_KW, algorithm="fedlora",
+                    client_state_placement="device"),
+}
+#: the algorithms whose round runs the DP
+DP_ALGOS = ("fedpa_precision", "fedep", "fedlora")
+#: The 1 x 2 mesh's ``RoundEngine`` run: FedEP at window 2 over 3 clients,
+#: 3 rounds whose cohorts overlap, so the CAS drops the second round's
+#: write of client 1 and the third's of client 2; the stale rounds are
+#: discounted
+ENGINE_KW = dict(STATEFUL_KW["fedep"], client_state_placement="device",
+                 async_rounds=True, max_staleness=1, staleness_discount=0.9,
+                 burn_in_rounds=0)
+ENGINE_IDS = np.array([[0, 1], [1, 2], [0, 2]])
+ENGINE_TOKENS = _tokens((3, 2, 8, 2, 17), seed=30)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -99,26 +145,56 @@ def _one_process(dp: str):
     return out
 
 
+def _inputs(engine: bool) -> dict:
+    """A group's ``inputs.npz``: the params (``p/``), both rounds' tokens,
+    the ``FedConfig`` kwargs, each other algorithm's kwargs and starting
+    states (``c/``, ``m/``, ``cs/<algorithm>/``), and with ``engine`` the
+    engine run's."""
+    stack, c = _stateful_inputs("scaffold")
+    sites, _ = _stateful_inputs("fedep")
+    trees = {"p": _fedlm_params(), "c": c, "m": c, "cs/scaffold": stack,
+             "cs/fedep": sites, "cs/fedlora": stack}
+    out = dict(round_kw=json.dumps(ROUND_KW), algo_kw=json.dumps(ALGO_KW),
+               tokens0=ROUND_TOKENS[0], tokens1=ROUND_TOKENS[1])
+    for prefix, tree in trees.items():
+        out.update({f"{prefix}/{k}": v for k, v in _by_path(tree).items()})
+    if engine:
+        out.update(engine_kw=json.dumps(ENGINE_KW), engine_ids=ENGINE_IDS,
+                   engine_tokens=ENGINE_TOKENS)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """``{"jax": ..., "one": {dp: ...}, mesh: {dp: [rank npz]}}``."""
+    """``{"jax": ..., "jax_state": {alg: ...}, "one": {dp: ...},
+    "one_algo": {alg: ...}, "one_engine": ..., mesh: {dp or alg or
+    "engine": [rank npz]}}``."""
     groups = {}
     for name, shape in MESHES.items():
         out = str(tmp_path_factory.mktemp(f"fsdp_{name}"))
-        np.savez(os.path.join(out, "inputs.npz"),
-                 round_kw=json.dumps(ROUND_KW),
-                 tokens0=ROUND_TOKENS[0], tokens1=ROUND_TOKENS[1],
-                 **{f"p/{k}": v for k, v in
-                    _by_path(_fedlm_params()).items()})
+        np.savez(os.path.join(out, "inputs.npz"), **_inputs(name == "1x2"))
         groups[name] = (out, math.prod(shape),
                         mpt.start_group(mpt.fsdp_rank, math.prod(shape),
                                         (out, shape)))
     found = {"jax": _jax_rounds("sequential"),
+             "jax_state": {a: _jax_stateful_round(a)
+                           for a in ("fedep", "scaffold")},
              "one": {dp: _one_process(dp) for dp in DPS}}
+    inputs = np.load(os.path.join(groups["1x2"][0], "inputs.npz"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)      # the ranks' own count
+    try:
+        found["one_algo"] = {a: mpt.algo_round(kw, inputs)
+                             for a, kw in ALGO_KW.items()}
+        found["one_engine"] = mpt.engine_run(ENGINE_KW, inputs)
+    finally:
+        torch.set_num_threads(threads)
     for name, (out, world, procs) in groups.items():
         mpt.join_group(procs, JOIN_S)
-        found[name] = {dp: [dict(np.load(os.path.join(
-            out, f"{dp}.rank{r}.npz"))) for r in range(world)] for dp in DPS}
+        cases = [*DPS, *ALGO_KW] + (["engine"] if name == "1x2" else [])
+        found[name] = {case: [dict(np.load(os.path.join(
+            out, f"{case}.rank{r}.npz"))) for r in range(world)]
+            for case in cases}
     return found
 
 
@@ -283,24 +359,158 @@ def test_layout_shards_and_gathers_by_path():
         assert torch.equal(dict(fsdp._paths(back))[path], x)
 
 
-def _state():
-    fed = FedConfig(**ROUND_KW)
+def _state(kw=ROUND_KW):
+    fed = FedConfig(**kw)
     opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
     return init_server_state(lm_params_from_jax(_fedlm_params(), "cpu"),
-                             opt)
+                             opt, algorithm=get_algorithm(fed))
 
 
-@pytest.mark.parametrize("algorithm", ["scaffold", "fedprox",
-                                       "fedpa_precision"])
-def test_fsdp_refuses_other_algorithms(algorithm):
-    mesh = ProcessMesh(("data",), (2,), 0, torch.device("cpu"))
-    kw = dict(ROUND_KW, algorithm=algorithm)
+def _params_of(got: dict, prefix: str) -> dict:
+    """``{key: array}`` of a run's entries under ``prefix/``."""
+    return {k: v for k, v in got.items() if k.startswith(prefix + "/")}
+
+
+def _trees(got: dict) -> dict:
+    """A run's gathered params, ``c`` and client states."""
+    return {k: v for p in ("params", "c", "states")
+            for k, v in _params_of(got, p).items()}
+
+
+def _c_atol(atol: float) -> float:
+    """A SCAFFOLD control variate's atol from the params': ``c`` is
+    ``(theta_0 - theta_K) / (K lr)`` plus exact terms."""
+    kw = ALGO_KW["scaffold"]
+    return atol / (kw["local_steps"] * kw["client_lr"])
+
+
+@pytest.mark.parametrize("algorithm", sorted(ALGO_KW))
+def test_fsdp_2x2_algorithm_equals_one_process(runs, algorithm):
+    want = runs["one_algo"][algorithm]
+    atol = 1e-5 if algorithm in DP_ALGOS else 1e-6
+    first = runs["2x2"][algorithm][0]
+    assert _trees(want).keys() == _trees(first).keys()
+    for got in runs["2x2"][algorithm]:
+        for k in ("loss_first", "loss_last"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
+        for k, w in _trees(want).items():
+            scaffold_cv = algorithm == "scaffold" and k.split("/")[0] in (
+                "c", "states")
+            np.testing.assert_allclose(
+                got[k], w, rtol=1e-5,
+                atol=_c_atol(atol) if scaffold_cv else atol, err_msg=k)
+            np.testing.assert_array_equal(got[k], first[k], err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("algorithm", ["fedep", "scaffold"])
+def test_fsdp_stateful_round_vs_jax(runs, mesh, algorithm):
+    """The params, SCAFFOLD's ``c`` and the clients' new states, gathered
+    back, against the JAX package's round from the same states, at
+    ``test_stateful_fed_round_vs_jax``'s tolerances."""
+    want_params, want_c, want_states, want_metrics = runs["jax_state"][
+        algorithm]
+    kw = ALGO_KW[algorithm]
+    theta = dict(_jax_leaves(_fedlm_params()))
+    delta_scale = kw["local_steps"] * kw["client_lr"]
+    for got in runs[mesh][algorithm]:
+        for k, v in want_metrics.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5)
+        for prefix, want, of_delta in (
+                ("params", want_params, False), ("c", want_c, True),
+                ("states", want_states, algorithm == "scaffold")):
+            assert len(_params_of(got, prefix)) == len(want)
+            for path, w in want:
+                key = "/".join([prefix] + [k.strip("'") for k in
+                                           path.strip("[]").split("][")])
+                if of_delta:
+                    np.testing.assert_allclose(
+                        got[key], w, rtol=1e-5,
+                        atol=1e-5 * np.abs(theta[path]).max() / delta_scale,
+                        err_msg=key)
+                else:
+                    np.testing.assert_allclose(
+                        got[key], w, rtol=1e-5,
+                        atol=1e-5 * np.abs(w).max(), err_msg=key)
+
+
+@pytest.mark.parametrize("algorithm", sorted(ALGO_KW))
+def test_fsdp_1x2_algorithm_within_one_process(runs, algorithm):
+    """The losses bitwise (the local steps are the one-process steps);
+    the trees bitwise without the DP, within 1e-6 of each leaf's largest
+    entry with it."""
+    want = runs["one_algo"][algorithm]
+    for got in runs["1x2"][algorithm]:
+        for k in ("loss_first", "loss_last"):
+            np.testing.assert_array_equal(got[k], want[k])
+        for k, w in _trees(want).items():
+            if algorithm in DP_ALGOS:
+                np.testing.assert_allclose(got[k], w, rtol=0,
+                                           atol=1e-6 * np.abs(w).max(),
+                                           err_msg=k)
+            else:
+                np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("algorithm", sorted(ALGO_KW))
+def test_fsdp_algorithm_state_shards(runs, mesh, algorithm):
+    """Each rank holds ``ceil(d / W)`` elements of the params and of each
+    parameter-shaped state: ``c``, a client's row (``c_i``, the sites,
+    the residual), MIME's broadcast momentum and the store's rows."""
+    W = math.prod(MESHES[mesh])
+    n = -(-1_312_256 // W)
+    want = {"params": n}
     if algorithm == "scaffold":
-        kw.update(client_opt="sgd")
-    with pytest.raises(NotImplementedError, match="10 part 3"):
-        sharded_round.make_fed_round(configs.get_smoke(ARCH),
-                                     FedConfig(**kw), placement="sequential",
-                                     compute_dtype=F32, mesh=mesh)
+        want.update(c=n, row=n)
+    if algorithm == "mime":
+        want.update(momentum=n)
+    if algorithm in ("fedep", "fedlora"):
+        want.update(row=n)
+    for got in runs[mesh][algorithm]:
+        held = {k.split("/")[1]: v for k, v in got.items()
+                if k.startswith("held/")}
+        rows = held.pop("store_rows", None)
+        assert {k: int(v) for k, v in held.items()} == want
+        if algorithm in ("fedep", "fedlora"):
+            C = ALGO_KW[algorithm]["clients_per_round"]
+            assert rows.tolist() == [[C, n]] * (
+                2 if algorithm == "fedep" else 1)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("algorithm", sorted(ALGO_KW))
+def test_fsdp_algorithm_gathers_per_client(runs, mesh, algorithm):
+    """One params all-gather and one gradient reduce per gradient: ``K``
+    a client, ``3K`` for MIME (the anchor pass, then ``g(theta_k)`` and
+    ``g(theta_0)`` each step), each gather the shard to ``W - 1`` ranks."""
+    W = math.prod(MESHES[mesh])
+    kw = ALGO_KW[algorithm]
+    C, K = kw["clients_per_round"], kw["local_steps"]
+    per = C * K * (3 if algorithm == "mime" else 1)
+    for got in runs[mesh][algorithm]:
+        n = int(got["held/params"])
+        assert got["traffic/param_gathers"] == per
+        assert got["traffic/grad_reduces"] == per
+        assert got["traffic/params"] == per * (W - 1) * n * 4
+        assert got["traffic/grads"] == per * 2 * (W - 1) * n * 4
+
+
+def test_fsdp_engine_window_2_equals_one_process(runs):
+    """FedEP through ``RoundEngine`` at window 2 on the 1 x 2 mesh: the
+    same staleness and CAS drops as one process, the params and the
+    store's rows gathered back within 1e-6 of each leaf's largest entry
+    (the DP's dots summed over the shards)."""
+    want = runs["one_engine"]
+    assert want["state_drops"].tolist() == [0, 1, 1]
+    assert want["staleness"].tolist() == [0, 1, 1]
+    for got in runs["1x2"]["engine"]:
+        for k in ("state_drops", "staleness"):
+            np.testing.assert_array_equal(got[k], want[k])
+        for k, w in _trees(want).items():
+            np.testing.assert_allclose(got[k], w, rtol=0,
+                                       atol=1e-6 * np.abs(w).max(),
+                                       err_msg=k)
 
 
 def test_fsdp_refuses_rows_that_do_not_divide():
@@ -316,3 +526,166 @@ def test_fsdp_refuses_rows_that_do_not_divide():
     tokens = np.zeros((2, 8, 3, 17), np.int32)
     with pytest.raises(ValueError, match="do not split evenly"):
         fn(state, {"tokens": tokens})
+
+
+def _meshes(W: int):
+    return [ProcessMesh(("data",), (W,), r, torch.device("cpu"))
+            for r in range(W)]
+
+
+@pytest.mark.parametrize("pad", ["round", "garbage"])
+def test_fedpa_precision_discount_over_three_shards(pad, monkeypatch):
+    """``fedpa_precision``'s discounted server step on 3 simulated shards
+    of the smoke params (d = 1,312,256, n = 437,419, one padded element)
+    equals the one-process step: the mean precision sums exactly the d
+    parameters, over the ranks. The padding holds what a sharded round
+    leaves there (``1 / rho_l``: zero samples, zero variance) or garbage;
+    either way it stays out of the mean."""
+    kw = ALGO_KW["fedpa_precision"]
+    fed = FedConfig(**kw)
+    opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
+    state = _state(kw)
+    r = np.random.default_rng(7)
+    agg = {"num": tm.tmap(lambda p: torch.from_numpy(
+               r.normal(size=p.shape).astype(np.float32)), state.params),
+           "den": tm.tmap(lambda p: torch.from_numpy(
+               (np.abs(r.normal(size=p.shape)) + 0.5).astype(np.float32)),
+               state.params)}
+    want = get_algorithm(fed).server_update(state, agg, opt, 0.8)
+    template = init_params(None, configs.get_smoke(ARCH), device="meta")
+    layouts = [fsdp.FlatShard(template, m) for m in _meshes(3)]
+    d, n = layouts[0].d, layouts[0].n
+    assert (d, n, 3 * n - d) == (1_312_256, 437_419, 1)
+    fill = (1.0 / float(rho_l(3, fed.shrinkage_rho)) if pad == "round"
+            else 1e30)
+    aggs = [{k: lay.shard_tree(v) for k, v in agg.items()}
+            for lay in layouts]
+    aggs[-1]["den"][layouts[-1].real:] = fill
+    parts = []
+    monkeypatch.setattr(collective, "all_reduce_small",
+                        lambda mesh, x: parts.append(x) or x)
+    totals = [lay.param_total(a["den"]) for lay, a in zip(layouts, aggs)]
+    assert all(count == d for _, count in totals)
+    total = sum(parts)
+    whole = sum(x.sum() for x in tm.tleaves(agg["den"]))
+    torch.testing.assert_close(total[0], whole, rtol=1e-6, atol=0)
+    monkeypatch.setattr(collective, "all_reduce_small",
+                        lambda mesh, x: total)
+    got = []
+    for lay, a in zip(layouts, aggs):
+        alg = get_algorithm(fed)
+        alg.layout = lay
+        got.append(alg.server_update(lay.shard_state(state), a, opt, 0.8))
+    one = fsdp.FlatShard(template)
+    for part in (lambda s: s.params, lambda s: s.opt_state["m"]):
+        flat = torch.cat([part(g) for g in got])[:d]
+        torch.testing.assert_close(flat, one.shard_tree(part(want)),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def _small_template():
+    return {"b": torch.zeros(3, 2, device="meta"),
+            "a": {"y": torch.zeros(5, device="meta"),
+                  "x": torch.zeros(1, device="meta")}}
+
+
+def _small_tree(start: float, lead=()):
+    """A tree shaped like ``_small_template`` (plus ``lead`` axes) in the
+    JAX package's sorted key order, counting up from ``start``."""
+    k = math.prod(lead)
+    vals = torch.arange(start, start + 12 * k).reshape(*lead, 12)
+    return {"a": {"x": vals[..., 0:1], "y": vals[..., 1:6]},
+            "b": vals[..., 6:12].reshape(*lead, 3, 2)}
+
+
+def test_layout_shards_and_gathers_state_by_path():
+    """``shard_state`` of a state whose params, momentum and
+    ``algo_state`` are in another key order, over 5 simulated ranks: each
+    part's shards put together are its ravel in the template's order, the
+    shards are marked as the flat layout's; ``gather_state`` gives the
+    trees back."""
+    state = init_server_state(_small_tree(1.0), get_optimizer("sgdm", 0.1))
+    state = state._replace(opt_state={"step": 3, "m": _small_tree(20.0)},
+                           algo_state=_small_tree(40.0))
+    shards = [fsdp.FlatShard(_small_template(), m).shard_state(state)
+              for m in _meshes(5)]
+    for part, start in ((lambda s: s.params, 1.0),
+                        (lambda s: s.opt_state["m"], 20.0),
+                        (lambda s: s.algo_state, 40.0)):
+        flat = torch.cat([part(s) for s in shards])
+        order = (6, 7, 8, 9, 10, 11, 1, 2, 3, 4, 5, 0)
+        assert flat.tolist() == [start + i for i in order] + [0.0] * 3
+        assert all(fsdp.in_flat_layout(part(s)) for s in shards)
+    assert shards[0].opt_state["step"] == 3
+    assert not fsdp.in_flat_layout(state.params["b"])
+    one = fsdp.FlatShard(_small_template())
+    whole = one.shard_state(state)
+    back = one.gather_state(whole)
+    for got, want in ((back.params, state.params),
+                      (back.opt_state["m"], state.opt_state["m"]),
+                      (back.algo_state, state.algo_state)):
+        for path, x in fsdp._paths(want):
+            assert torch.equal(dict(fsdp._paths(got))[path], x)
+
+
+def test_layout_shards_and_gathers_client_rows_by_path():
+    """``shard_rows`` of stacked client states (a dict of two
+    params-shaped stacks, numpy, in another key order) over 5 simulated
+    ranks: each row's shards put together are its ravel; ``gather_rows``
+    gives the stacks back."""
+    sites = {"num": _small_tree(1.0, (2,)), "den": _small_tree(50.0, (2,))}
+    host = tm.tmap(lambda x: x.numpy(), sites)
+    rows = [fsdp.FlatShard(_small_template(), m).shard_rows(host)
+            for m in _meshes(5)]
+    for key, start in (("num", 1.0), ("den", 50.0)):
+        flat = torch.cat([r[key] for r in rows], dim=-1)
+        assert flat.shape == (2, 15)
+        for c in (0, 1):
+            s = start + 12 * c
+            assert flat[c].tolist() == [s + i for i in (6, 7, 8, 9, 10, 11,
+                                                        1, 2, 3, 4, 5, 0)
+                                        ] + [0.0] * 3
+    one = fsdp.FlatShard(_small_template())
+    back = one.gather_rows(one.shard_rows(sites))
+    for key in sites:
+        for path, x in fsdp._paths(sites[key]):
+            assert torch.equal(dict(fsdp._paths(back[key]))[path], x)
+
+
+def test_fsdp_runs_every_algorithm():
+    assert sorted(fsdp.ALGORITHMS) == sorted(algorithm_names())
+
+
+@pytest.mark.parametrize("codec", ["lowrank", "int8", "lowrank+int8"])
+def test_fsdp_refuses_fedlora_codecs(codec):
+    """A codec other than the identity cannot run on a flat shard (the
+    sketch multiplies whole rows of a matrix, the int8 scale is a max over
+    the whole payload): item 10 part 3b."""
+    mesh = ProcessMesh(("data",), (2,), 0, torch.device("cpu"))
+    fed = FedConfig(**dict(ALGO_KW["fedlora"], payload_codec=codec))
+    for split in (sharded_round.make_fed_round,
+                  sharded_round.make_fed_round_split):
+        with pytest.raises(NotImplementedError, match="10 part 3b"):
+            split(configs.get_smoke(ARCH), fed, placement="sequential",
+                  compute_dtype=F32, mesh=mesh)
+
+
+@pytest.mark.parametrize("what", ["server state", "store"])
+def test_fsdp_checkpoints_refused(tmp_path, what):
+    """Neither a server state in the flat layout nor a store made for it
+    is written as if it were whole: item 10 part 3c."""
+    mesh = ProcessMesh(("data",), (2,), 1, torch.device("cpu"))
+    layout = sharded_round.fsdp_layout(configs.get_smoke(ARCH), mesh)
+    state = layout.shard_state(_state(ALGO_KW["scaffold"]))
+    with pytest.raises(NotImplementedError, match="10 part 3c"):
+        if what == "server state":
+            ckpt_io.save_checkpoint(str(tmp_path), {"server": state}, 1)
+        else:
+            store = make_client_store("device", 3, device="cpu",
+                                      fsdp=layout)
+            store.ensure(get_algorithm(FedConfig(**ALGO_KW["fedep"]))
+                         .init_client_state(state.params))
+            assert tuple(store.device_state()["buffers"]["num"].shape) == (
+                3, layout.n)
+            ckpt_io.save_store_sharded(str(tmp_path), store, 1)
+    assert not os.listdir(tmp_path)
