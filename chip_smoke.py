@@ -242,14 +242,17 @@
    (one row of each client a rank), spawned, then one round of each
    other algorithm from the burn-in state (fedpa_precision, fedprox,
    mime, scaffold on the host store, fedep and fedlora with the identity
-   codec on the device store, each store made for the layout): each
-   against the one-process card run and a CPU run made meanwhile (phase
-   4's bound, params and SCAFFOLD's ``c``), the ranks equal by digest
-   (params, ``c``, client states), DP launches 6 of each kernel a rank
-   for the three DP algorithms and 0 for the rest, a params all-gather
-   per gradient (fedprox, mime and scaffold take 2 of the 6 local steps:
-   12 gathers a round for MIME, 4 for the other two, 12 for the DP
-   algorithms). (c) The full-width fedlm-100m in bf16 with phase 9's
+   codec on the device store, then fedlora with ``lowrank+int8`` and with
+   ``int8``, error feedback on the device store, each store made for the
+   layout): each against the one-process card run and a CPU run made
+   meanwhile (phase 4's bound, params and SCAFFOLD's ``c``), the ranks
+   equal by digest (params, ``c``, client states), DP launches 6 of each
+   kernel a rank for the five DP algorithms and 0 for the rest, a params
+   all-gather per gradient (fedprox, mime and scaffold take 2 of the 6
+   local steps: 12 gathers a round for MIME, 4 for the other two, 12 for
+   the DP algorithms); the two int8 rounds count their codes flipped
+   against one process on the card and against the CPU (a code more
+   than one apart fails) and their wire bytes a client. (c) The full-width fedlm-100m in bf16 with phase 9's
    FedPA settings, STEPS_CUT's local steps and 2 clients on the two gloo
    ranks: each rank's peak
    memory, host ms a round, DP launches (6 each in the FedPA round),
@@ -264,6 +267,17 @@
    bytes against ``16 x 2 x n x 4``, gathers and bytes by kind, 6 launches
    of each DP kernel; then the same round in one process on the card,
    after the ranks exit, whose params the ranks' meet to phase 4's bound.
+   (f) One FedLoRA ``lowrank+int8`` round (rank 4, error feedback, a
+   device store of the 2 clients) at full width from 16c's state on the
+   same 1 x 2 mesh: each rank's host ms, peak memory, wire bytes a client
+   (``round_bytes``' 903,144), the codec's all-reduces and bytes against
+   the formula, 6 launches of each DP kernel; then the same round in one
+   process on the card (phase 4's bound, the codes flipped counted).
+   (g) FSDP checkpoints: each rank writes 16f's new server state with
+   ``save_checkpoint_fsdp`` and reads it back bitwise, as it does 16b's
+   FedEP store; after the ranks exit this process restores both at W = 1
+   on the card, bitwise equal to the state the ranks gathered and to the
+   store's rows put together (``gather_rows``).
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -3548,7 +3562,8 @@ def multi_process(card: str, params, seed: int, fedep_records) -> dict:
 # full-width run TRAIN_ARGV's with STEPS_CUT's local steps, cut to 2 of 64
 # clients; each one burn-in round and one FedPA round at ``sequential``.
 # 16b then runs one round of each other algorithm from the one-layer
-# burn-in state, 16e one FedEP round at full width from 16c's state.
+# burn-in state, 16e one FedEP round and 16f one FedLoRA round at full
+# width from 16c's state, and 16g checks the FSDP checkpoints they write.
 FSDP_CLIENTS = 2
 #: 16b's other algorithms: (name, FedConfig changes). SCAFFOLD steps with
 #: plain SGD on the host store's slice, FedEP and FedLoRA (identity codec,
@@ -3565,9 +3580,21 @@ FSDP_ALGOS = (
     ("fedep", dict(algorithm="fedep", client_state_placement="device")),
     ("fedlora", dict(algorithm="fedlora", client_state_placement="device",
                      payload_codec="none", error_feedback=True)),
+    ("fedlora_lowrank_int8", dict(algorithm="fedlora",
+                                  client_state_placement="device",
+                                  payload_codec="lowrank+int8",
+                                  lora_rank=4, error_feedback=True)),
+    ("fedlora_int8", dict(algorithm="fedlora",
+                          client_state_placement="device",
+                          payload_codec="int8", error_feedback=True)),
 )
 #: the algorithms of FSDP_ALGOS whose round runs the DP
-FSDP_DP_ALGOS = ("fedpa_precision", "fedep", "fedlora")
+FSDP_DP_ALGOS = ("fedpa_precision", "fedep", "fedlora",
+                 "fedlora_lowrank_int8", "fedlora_int8")
+#: the algorithms of FSDP_ALGOS whose payloads are int8 codes (16b) and
+#: 16f's full-width FedLoRA round
+FSDP_INT8_ALGOS = ("fedlora_lowrank_int8", "fedlora_int8")
+FSDP_LORA_FULL = "fedlora_lowrank_int8"
 #: 16e: FedEP's population on the full-width ranks (each rank's device
 #: store holds 2 fp32 vectors of its n elements a client) and the
 #: cohort's ids
@@ -3697,9 +3724,85 @@ def fsdp_rounds(cfg, fed, toks, device: str, compute_dtype, seed: int,
     return out
 
 
+@contextlib.contextmanager
+def recording_wires(wires: list):
+    """Append, inside the block, every client payload a FedLoRA round
+    folds (``payload_accum``'s argument: its wire form) to ``wires``."""
+    from repro_torch.algorithms import fedlora
+
+    saved = fedlora.FedLoRA.payload_accum
+
+    def recorded(self, payload):
+        wires.append(payload)
+        return saved(self, payload)
+
+    fedlora.FedLoRA.payload_accum = recorded
+    try:
+        yield wires
+    finally:
+        fedlora.FedLoRA.payload_accum = saved
+
+
+def wire_codes(wires: list, layout=None) -> dict:
+    """Recorded int8 wire payloads -> ``{"<client>/<delta|prec>/<path>":
+    (whole leaf's codes as int64 numpy, scale)}`` and their wire bytes.
+    Under ``layout`` each rank's pieces are all-gathered into whole
+    leaves (every rank calls this) and a factor held whole on every rank
+    is taken as it is."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.compression.quant import is_qleaf
+    from repro_torch.core import fsdp
+
+    out, nbytes = {}, 0
+    for k, payload in enumerate(wires):
+        for part in ("delta", "prec"):
+            wire = payload[part]
+            if layout is None:
+                pairs = [(pytree.keystr(p), w["q"], w["scale"]) for p, w in
+                         pytree.tree_flatten_with_path(
+                             wire, is_leaf=is_qleaf)[0]]
+            else:
+                pieces = layout.join([
+                    torch.zeros(p.size, device=w["q"].device)
+                    if w["q"].dim() > 1 else w["q"].to(torch.float32)
+                    for p, w in zip(layout.leaf_pieces(), wire)])
+                whole = dict(fsdp._paths(layout.gather_tree(pieces)))
+                pairs = [(p.path, w["q"] if w["q"].dim() > 1 else
+                          whole[p.path].to(w["q"].dtype), w["scale"])
+                         for p, w in zip(layout.leaf_pieces(), wire)]
+            for path, q, scale in pairs:
+                out[f"{k}/{part}/{path}"] = (
+                    q.reshape(-1).to(torch.int64).cpu().numpy(),
+                    float(scale))
+                nbytes += q.numel() * q.element_size() \
+                    + scale.numel() * scale.element_size()
+    return {"codes": out, "wire_bytes": nbytes // max(len(wires), 1)}
+
+
+def code_flips(got: dict, want: dict, what: str) -> tuple:
+    """``(flips, codes)``: int8 codes one apart between two runs' wire
+    codes (``wire_codes``), out of all; fails where two codes are more
+    than one apart (not a rounding boundary) or a leaf is missing."""
+    import numpy as np
+
+    if got.keys() != want.keys():
+        fail(f"{what}: the wire payloads differ in their leaves")
+    flips = total = 0
+    for key, (q, _) in want.items():
+        diff = np.abs(got[key][0] - q)
+        if diff.max(initial=0) > 1:
+            fail(f"{what}: codes of {key} differ by {diff.max()}")
+        flips += int(diff.sum())
+        total += q.size
+    return flips, total
+
+
 def fsdp_algo_round(cfg, fed, tokens, device: str, compute_dtype, state,
                     layout=None, mesh=None, num_clients: int = FSDP_CLIENTS,
-                    ids=None, whole_states: bool = True) -> dict:
+                    ids=None, whole_states: bool = True,
+                    ckpt=None) -> dict:
     """One round of ``fed``'s algorithm (``make_fed_round`` at
     ``sequential``) from ``state`` (this rank's shard under ``layout``,
     through FSDP over ``mesh``) on the first ``fed.local_steps`` steps of
@@ -3709,12 +3812,18 @@ def fsdp_algo_round(cfg, fed, tokens, device: str, compute_dtype, state,
     ``fed`` names, the cohort ``ids`` (default the first C). Returns the
     round's host ms, peak memory, DP launches, traffic and losses, the
     store's bytes, and the whole params after it (gathered), SCAFFOLD's
-    ``c`` and, with ``whole_states``, the cohort's new client states."""
+    ``c`` and, with ``whole_states``, the cohort's new client states; for
+    a FedLoRA codec that quantizes, its clients' wire codes and bytes
+    (``wire_codes``). ``ckpt=(directory, "server" | "clients")`` (under
+    a layout) writes the new server state or the store with
+    ``save_checkpoint_fsdp`` on every rank, reads it back at this W
+    (``ckpt_bitwise``: equal by digest) and keeps the gathered whole
+    state (``state``)."""
     import numpy as np
     import torch
 
     from repro_torch.algorithms import get_algorithm
-    from repro_torch.core import sharded_round
+    from repro_torch.core import collective, sharded_round
     from repro_torch.core import tree_math as tm
     from repro_torch.core.client_state import make_client_store
 
@@ -3733,14 +3842,42 @@ def fsdp_algo_round(cfg, fed, tokens, device: str, compute_dtype, state,
         args = ((store.device_state(), store.prepare_ids(ids))
                 if device_store else (store.gather(ids)[0],))
     batches = {"tokens": tokens[:, :fed.local_steps]}
-    res, ms, peak, launches, traffic = timed_round(
-        lambda: fn(state, batches, None, *args),
-        torch.device(device).type == "cuda")
+    wires = []
+    with (recording_wires(wires) if "int8" in fed.payload_codec
+          and fed.algorithm == "fedlora" else contextlib.nullcontext()):
+        res, ms, peak, launches, traffic = timed_round(
+            lambda: fn(state, batches, None, *args),
+            torch.device(device).type == "cuda")
     state, metrics = res[:2]
     rec = dict(ms=ms, peak=peak, launches=launches, traffic=traffic,
                losses={k: float(v) for k, v in metrics.items()},
                store_bytes=store.nbytes if store is not None else 0)
+    if wires:
+        rec.update(wire_codes(wires, layout))
+        del wires
+    if ckpt is not None:
+        import torch.distributed as dist
+
+        from repro_torch.checkpoint import io as ckpt_io
+
+        path, what = ckpt
+        if what == "clients":
+            store.set_device_state(res[2])
+        tree = {what: state if what == "server" else store.state_dict()}
+        t0 = time.perf_counter()
+        ckpt_io.save_checkpoint_fsdp(path, tree, 1, layout)
+        rec["ckpt_write_s"] = time.perf_counter() - t0
+        dist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        back, step, _ = ckpt_io.restore_checkpoint_fsdp(path, tree, None,
+                                                        layout)
+        rec["ckpt_read_s"] = time.perf_counter() - t0
+        rec["ckpt_bitwise"] = step == 1 and bool(torch.equal(
+            collective.digest(back), collective.digest(tree)))
+        del back
     whole = layout.gather_state(state) if layout is not None else state
+    if ckpt is not None and ckpt[1] == "server":
+        rec["state"] = whole
     rec["params"] = whole.params
     rec["c"] = whole.algo_state if fed.algorithm == "scaffold" else None
     rec["states"] = None
@@ -3773,7 +3910,9 @@ def fsdp_summary(rank: int, mesh, rec: dict, seconds: float) -> dict:
 
     out = {"rank": rank, "device": str(mesh.device), "seconds": seconds}
     out.update({k: rec[k] for k in ("ms", "peak", "launches", "traffic",
-                                    "losses", "store_bytes") if k in rec})
+                                    "losses", "store_bytes", "wire_bytes",
+                                    "ckpt_bitwise", "ckpt_write_s",
+                                    "ckpt_read_s") if k in rec})
     for k in ("params", "c", "states"):
         if rec.get(k) is not None:
             out[f"digest_{k}"] = collective.digest(rec[k]).tolist()
@@ -3781,18 +3920,24 @@ def fsdp_summary(rank: int, mesh, rec: dict, seconds: float) -> dict:
 
 
 def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
-    """One rank of phase 16b, 16c and 16e (a spawned child): two gloo
-    ranks sharing the card on a ``("data",)`` mesh. 16b: ``fsdp_rounds``
-    on the one-layer cut, then ``fsdp_algo_round`` of each of
-    ``FSDP_ALGOS`` from its burn-in state; 16c: ``fsdp_rounds`` at full
-    width; 16e: a FedEP round from 16c's state with a device store of
-    ``FSDP_STORE_CLIENTS``. Writes ``out/rank<r>.<case>.json`` (numbers,
-    the elements held, digests, seconds) for the cases ``one-layer``,
-    ``full`` and ``fedep-full`` and per algorithm ``rank<r>.algos.json``;
-    rank 0 also writes the one-layer params (``one-layer.npz``, both
-    rounds, and ``algos.npz``, each algorithm's params and ``c``), 16c's
-    whole state (``full-state.pt``) and 16e's params
-    (``fedep-full.pt``)."""
+    """One rank of phase 16b, 16c, 16e and 16f (a spawned child): two
+    gloo ranks sharing the card on a ``("data",)`` mesh. 16b:
+    ``fsdp_rounds`` on the one-layer cut, then ``fsdp_algo_round`` of each
+    of ``FSDP_ALGOS`` from its burn-in state (FedEP's store written with
+    the FSDP writer, 16g); 16c: ``fsdp_rounds`` at full width; 16e: a
+    FedEP round from 16c's state with a device store of
+    ``FSDP_STORE_CLIENTS``; 16f: a FedLoRA ``lowrank+int8`` round from
+    16c's state, its new server state written with the FSDP writer (16g).
+    Writes ``out/rank<r>.<case>.json`` (numbers, the elements held,
+    digests, seconds) for the cases ``one-layer``, ``full``,
+    ``fedep-full`` and ``fedlora-full`` and per algorithm
+    ``rank<r>.algos.json``; rank 0 also writes the one-layer params
+    (``one-layer.npz``, both rounds, and ``algos.npz``, each algorithm's
+    params and ``c``, FedEP's gathered store rows and the int8 rounds'
+    wire codes), 16c's whole state (``full-state.pt``), 16e's params
+    (``fedep-full.pt``), 16f's gathered state
+    (``fedlora-full-state.pt``) and wire codes
+    (``fedlora-full-codes.npz``); the checkpoints go under ``out``."""
     sys.path.insert(0, str(SRC))
     import dataclasses
 
@@ -3844,17 +3989,23 @@ def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
         algos, arrays = {}, {}
         for name, change in FSDP_ALGOS:
             t0 = time.perf_counter()
+            # 16g: the ranks write FedEP's store after its round
+            ckpt = ((os.path.join(out, "ckpt-store"), "clients")
+                    if name == "fedep" else None)
             rec = fsdp_algo_round(cfg, dataclasses.replace(fed, **change),
                                   toks[1], "cuda", dtype, res["burn_state"],
-                                  res["layout"], mesh)
+                                  res["layout"], mesh, ckpt=ckpt)
             algos[name] = fsdp_summary(rank, mesh, rec,
                                        time.perf_counter() - t0)
             if rank == 0:
-                for k in ("params", "c"):
+                for k in ("params", "c") + (("states",) if ckpt else ()):
                     if rec[k] is not None:
                         arrays.update({f"{name}_{k}_{j}": x.cpu().numpy()
                                        for j, x in
                                        enumerate(tm.tleaves(rec[k]))})
+                for key, (q, scale) in rec.get("codes", {}).items():
+                    arrays[f"{name}_codes|{key}"] = q
+                    arrays[f"{name}_scale|{key}"] = np.float32(scale)
             del rec
         if rank == 0:
             np.savez(os.path.join(out, "algos.npz"), **arrays)
@@ -3895,18 +4046,40 @@ def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
         write("fedep-full", summary)
         if rank == 0:
             torch.save(rec["params"], os.path.join(out, "fedep-full.pt"))
+        del rec
+        torch.cuda.empty_cache()
+        # -- 16f: FedLoRA lowrank+int8 from 16c's state on the same mesh;
+        # 16g: each rank writes the new server state and reads it back
+        t0 = time.perf_counter()
+        rec = fsdp_algo_round(
+            cfg, dataclasses.replace(fed, **dict(FSDP_ALGOS)[
+                FSDP_LORA_FULL]), toks[1], "cuda", dtype, res["state"],
+            layout, mesh, ckpt=(os.path.join(out, "ckpt-full"), "server"))
+        summary = fsdp_summary(rank, mesh, rec, time.perf_counter() - t0)
+        summary["n"] = layout.n
+        write("fedlora-full", summary)
+        if rank == 0:
+            whole = rec["state"]
+            torch.save({"params": whole.params,
+                        "opt_state": whole.opt_state, "round": whole.round},
+                       os.path.join(out, "fedlora-full-state.pt"))
+            np.savez(os.path.join(out, "fedlora-full-codes.npz"),
+                     **{f"codes|{k}": q
+                        for k, (q, _) in rec["codes"].items()})
     finally:
         dist.destroy_process_group()
 
 
 def fsdp_spawn(seed: int, meanwhile=None):
-    """Phase 16b, 16c and 16e's two ranks (spawned children sharing the
-    card); runs ``meanwhile()`` in this process while they work. Returns
-    ``({case: the ranks' summaries}, {name: rank 0's arrays},
+    """Phase 16b, 16c, 16e and 16f's two ranks (spawned children sharing
+    the card); runs ``meanwhile()`` in this process while they work.
+    Returns ``({case: the ranks' summaries}, {name: rank 0's arrays},
     meanwhile's result, seconds from the spawn to both exits)``; the
     arrays are the one-layer rounds' params (``one-layer``), each
-    algorithm's (``algos``), 16c's whole state (``full-state``) and 16e's
-    params (``fedep-full``), on the host."""
+    algorithm's (``algos``), 16c's whole state (``full-state``), 16e's
+    params (``fedep-full``), 16f's state and codes, on the host, and
+    16g's restores in this process (``restored``), read before the
+    ranks' files are removed."""
     import multiprocessing as mp
     import shutil
     import tempfile
@@ -3934,19 +4107,65 @@ def fsdp_spawn(seed: int, meanwhile=None):
         if alive or any(p.exitcode for p in procs):
             fail(f"fsdp ranks exited {[p.exitcode for p in procs]}")
         sums = {}
-        for case in ("one-layer", "algos", "full", "fedep-full"):
+        for case in ("one-layer", "algos", "full", "fedep-full",
+                     "fedlora-full"):
             sums[case] = []
             for r in (0, 1):
                 with open(os.path.join(tmp, f"rank{r}.{case}.json")) as f:
                     sums[case].append(json.load(f))
         files = {k: dict(np.load(os.path.join(tmp, f"{k}.npz")))
-                 for k in ("one-layer", "algos")}
+                 for k in ("one-layer", "algos", "fedlora-full-codes")}
         files.update({k: torch.load(os.path.join(tmp, f"{k}.pt"),
                                     map_location="cpu")
-                      for k in ("full-state", "fedep-full")})
+                      for k in ("full-state", "fedep-full",
+                                "fedlora-full-state")})
+        files["restored"] = fsdp_restore_one_process(tmp)
     finally:
         shutil.rmtree(tmp)
     return sums, files, extra, wall
+
+
+def fsdp_restore_one_process(tmp: str) -> dict:
+    """Phase 16g's restores in this process at W = 1 (no mesh), on the
+    card: 16f's full-width server state from the two ranks' FSDP files
+    (gathered into the whole tree) and 16b's FedEP store (its rows put
+    together into whole trees); with the seconds each read took."""
+    import torch
+
+    from repro_torch.algorithms import get_algorithm
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import fsdp
+    from repro_torch.core.client_state import make_client_store
+    from repro_torch.core.server import ServerState
+    from repro_torch.models.model import init_params
+
+    out = {}
+    cfg, _, _ = fsdp_case("full")
+    one = fsdp.FlatShard(init_params(None, cfg, device="meta"))
+    like = {"server": ServerState(
+        torch.empty(one.d, device="cuda"),
+        {"step": 0, "m": torch.empty(one.d, device="cuda")}, 0, ())}
+    t0 = time.perf_counter()
+    tree, step, _ = ckpt_io.restore_checkpoint_fsdp(
+        os.path.join(tmp, "ckpt-full"), like, None, one)
+    out["server_s"] = time.perf_counter() - t0
+    out["server"] = one.gather_state(tree["server"])
+    cfg, _, _ = fsdp_case("one-layer")
+    one = fsdp.FlatShard(init_params(None, cfg, device="meta"))
+    store = make_client_store("device", FSDP_CLIENTS, device="cuda",
+                              fsdp=one)
+    store.ensure(get_algorithm(FedConfig(algorithm="fedep"))
+                 .init_client_state(torch.empty(one.d, device="cuda")))
+    t0 = time.perf_counter()
+    tree, _, _ = ckpt_io.restore_checkpoint_fsdp(
+        os.path.join(tmp, "ckpt-store"), {"clients": store.state_dict()},
+        None, one)
+    store.load_state_dict(tree["clients"])
+    out["store_s"] = time.perf_counter() - t0
+    out["rows"] = one.gather_rows(store.device_state()["buffers"])
+    out["stamps"] = store.device_state()["stamps"].tolist()
+    return out
 
 
 def fsdp_launches(rounds: list) -> dict:
@@ -4081,15 +4300,34 @@ def fsdp_two_rank_replay(sums, files, one, cpu, cpu_s: float) -> dict:
         equal = all(per[0][k] == per[1][k] for k in per[0]
                     if k.startswith("digest_"))
         got_gathers = [s["traffic"]["param_gathers"] for s in per]
+        flips = ""
+        if alg in FSDP_INT8_ALGOS:
+            codes = {k.split("|", 1)[1]: (v, None)
+                     for k, v in files["algos"].items()
+                     if k.startswith(f"{alg}_codes|")}
+            card = code_flips(codes, one["algos"][alg]["codes"],
+                              f"{alg} codes, two ranks vs one process")
+            host = code_flips(codes, cpu["algos"][alg]["codes"],
+                              f"{alg} codes, two ranks vs the CPU")
+            flips = (f"; int8 codes flipped against one process on the "
+                     f"card {card[0]} of {card[1]}, against the CPU "
+                     f"{host[0]} of {host[1]}; wire bytes a client "
+                     f"{[s['wire_bytes'] for s in per]} (one process "
+                     f"{one['algos'][alg]['wire_bytes']})")
+            if any(s["wire_bytes"] != one["algos"][alg]["wire_bytes"]
+                   for s in per):
+                fail(f"fsdp two gloo ranks {alg}: wire bytes differ")
         print(f"fsdp two gloo ranks {alg} ({name}, one round from the "
               f"burn-in state): ranks equal by digest (params, c, client "
               f"states) {equal}; per rank host ms "
               f"{[round(s['ms'], 1) for s in per]}, DP launches "
               f"{[s['launches'] for s in per]} (expected {want} each), "
               f"params all-gathers {got_gathers} (expected {gathers}), "
+              f"codec all-reduces "
+              f"{[s['traffic']['codec_reduces'] for s in per]}, "
               f"losses {per[0]['losses']} ({K} local steps); one "
-              f"process on the card {one['algos'][alg]['ms']:.1f} ms",
-              flush=True)
+              f"process on the card {one['algos'][alg]['ms']:.1f} ms"
+              f"{flips}", flush=True)
         if not equal:
             fail(f"fsdp two gloo ranks {alg}: the ranks differ")
         for s in per:
@@ -4264,6 +4502,138 @@ def fsdp_full_fedep(card: str, sums, files, seed: int) -> dict:
     return launches
 
 
+def codec_elements(cfg, rank: int = 4) -> tuple:
+    """``(F, L)`` of ``cfg``'s params: the elements of every ``lowrank``
+    factor (``R x r`` for each leaf with 2+ dims and a last dim over
+    ``r``) and the number of leaves: a client's codec all-reduces under
+    FSDP sum ``2 F`` fp32 partials (delta and precision) and max ``2 L``
+    (one per leaf, both)."""
+    from repro_torch.core import tree_math as tm
+    from repro_torch.models.model import init_params
+
+    leaves = [tuple(x.shape) for x in tm.tleaves(
+        init_params(None, cfg, device="meta"))]
+    return (sum(math.prod(s[:-1]) * rank for s in leaves
+                if len(s) >= 2 and s[-1] > rank), len(leaves))
+
+
+def fsdp_full_fedlora(card: str, sums, files, seed: int) -> dict:
+    """Phase 16f: one FedLoRA ``lowrank+int8`` round (rank 4, error
+    feedback, a device store of 2 clients made for the layout) of the
+    full-width fedlm-100m (bf16) from 16c's state on the two gloo ranks,
+    on 16e's ``("data", "model")`` mesh of 1 x 2. Prints each rank's host
+    ms, peak memory, wire bytes a client (against ``round_bytes``'
+    903,144), codec all-reduces and bytes against the formula, params
+    all-gathers, DP launches (6 each); then the same round in one process
+    on the card from 16c's gathered state, whose params the ranks' meet
+    to phase 4's bound, and the int8 codes flipped between the two.
+    Returns the DP launches."""
+    import dataclasses
+
+    from repro_torch.core.server import ServerState
+    from repro_torch.launch import train
+
+    cfg, argv, dtype = fsdp_case("full")
+    fed, toks = fsdp_inputs(argv, cfg, seed)
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    steps = FSDP_CLIENTS * args.local_steps
+    expected = FSDP_CLIENTS * (ell - 1)
+    F, L = codec_elements(cfg)
+    W = 2
+    want_codec = FSDP_CLIENTS * 2 * (F + L) * 4 * (W - 1)
+    print(f"fsdp two gloo ranks fedlora {cfg.name}: bf16, lowrank+int8 "
+          f"rank 4 with error feedback, {FSDP_CLIENTS} clients, one round "
+          f"from 16c's state on a ('data', 'model') mesh of 1 x 2 on one "
+          f"card ({card}): {max(s['seconds'] for s in sums):.1f} s a rank "
+          f"(its checkpoint included)", flush=True)
+    launches = {}
+    for s in sums:
+        n, t = s["n"], s["traffic"]
+        print(f"  rank {s['rank']} on {s['device']}: n={n:,}; host ms "
+              f"{s['ms']:.1f}; peak memory allocated "
+              f"{s['peak'] / 2**30:.2f} GiB; wire bytes a client "
+              f"{s['wire_bytes']:,} (round_bytes "
+              f"{FEDLM_UP['lowrank+int8']:,}); codec all-reduces "
+              f"{t['codec_reduces']} (expected {2 * FSDP_CLIENTS}), bytes "
+              f"{t['codec']:,} (formula {want_codec:,}: F={F:,} factor "
+              f"elements, L={L} leaves); params all-gathers "
+              f"{t['param_gathers']} (expected {steps}), staged "
+              f"{t['staged']:,}, host s inside the collectives "
+              f"{t['seconds']:.2f}; DP launches {s['launches']} (expected "
+              f"{expected} each); store bytes {s['store_bytes']:,} "
+              f"(formula {FSDP_CLIENTS * n * 4:,}); losses {s['losses']}",
+              flush=True)
+        launches[f"fedlm-100m bf16 sequential fedlora lowrank+int8, 2 gloo "
+                 f"ranks fsdp: rank {s['rank']}"] = s["launches"]
+        if (s["wire_bytes"] != FEDLM_UP["lowrank+int8"]
+                or t["codec_reduces"] != 2 * FSDP_CLIENTS
+                or t["codec"] != want_codec
+                or t["param_gathers"] != steps
+                or s["store_bytes"] != FSDP_CLIENTS * n * 4
+                or any(v != expected for v in s["launches"].values())
+                or not all(map(math.isfinite, s["losses"].values()))):
+            fail(f"fsdp full fedlora: rank {s['rank']} {s}")
+    if sums[0]["digest_params"] != sums[1]["digest_params"]:
+        fail("fsdp full fedlora: the ranks' params differ")
+    saved = files["full-state"]
+    state = ServerState(_to_cuda(saved["params"]),
+                        _to_cuda(saved["opt_state"]), saved["round"], ())
+    rec = fsdp_algo_round(
+        cfg, dataclasses.replace(fed, **dict(FSDP_ALGOS)[FSDP_LORA_FULL]),
+        toks[1], "cuda", dtype, state, whole_states=False)
+    launches["fedlm-100m bf16 sequential fedlora lowrank+int8, no mesh"] = \
+        rec["launches"]
+    codes = {k.split("|", 1)[1]: (v, None)
+             for k, v in files["fedlora-full-codes"].items()}
+    flips, total = code_flips(codes, rec["codes"],
+                              "fedlora full width codes, two ranks vs one "
+                              "process")
+    print(f"  one process on the card: host ms {rec['ms']:.1f}; peak "
+          f"{rec['peak'] / 2**30:.2f} GiB; wire bytes a client "
+          f"{rec['wire_bytes']:,}; DP launches {rec['launches']}; int8 "
+          f"codes flipped against the ranks {flips} of {total}", flush=True)
+    params_close(files["fedlora-full-state"]["params"], rec["params"],
+                 "fedlora full width: two ranks vs one process on the card")
+    return launches
+
+
+def fsdp_checkpoints(sums_algos, sums_full, files) -> None:
+    """Phase 16g: the FSDP checkpoints the ranks wrote (16f's full-width
+    server state, 16b's FedEP store): each rank read its own file back
+    bitwise; one process restored both at W = 1 on the card
+    (``fsdp_restore_one_process``), the state bitwise equal to what the
+    ranks gathered (``gather_state``), the store's rows to
+    ``gather_rows``."""
+    from repro_torch.core import tree_math as tm
+
+    restored = files["restored"]
+    saved = files["fedlora-full-state"]
+    state = restored["server"]
+    server_equal = (equal_bitwise(state.params, saved["params"])
+                    and equal_bitwise(state.opt_state["m"],
+                                      saved["opt_state"]["m"])
+                    and state.round == saved["round"]
+                    and state.opt_state["step"] == saved["opt_state"]["step"])
+    algos = files["algos"]
+    rows = [algos[f"fedep_states_{j}"]
+            for j in range(len(tm.tleaves(restored["rows"])))]
+    rows_equal = equal_bitwise(restored["rows"], rows)
+    own = [s["ckpt_bitwise"] for s in sums_full] + \
+        [s["fedep"]["ckpt_bitwise"] for s in sums_algos]
+    print(f"fsdp checkpoints: the two ranks wrote 16f's full-width server "
+          f"state (write s {[round(s['ckpt_write_s'], 2) for s in sums_full]}"
+          f", read back s {[round(s['ckpt_read_s'], 2) for s in sums_full]})"
+          f" and 16b's FedEP store; each rank's own read bitwise {own}; "
+          f"one process at W = 1 on the card: the state equal to the "
+          f"ranks' gather_state bitwise {server_equal} "
+          f"({restored['server_s']:.2f} s), the store's rows to their "
+          f"gather_rows bitwise {rows_equal} ({restored['store_s']:.2f} s, "
+          f"stamps {restored['stamps']})", flush=True)
+    if not (all(own) and server_equal and rows_equal):
+        fail("fsdp checkpoints: a restore differs from what was written")
+
+
 def _to_cuda(tree):
     """A saved tree's tensors on the card (other leaves as they are)."""
     import torch
@@ -4275,7 +4645,8 @@ def _to_cuda(tree):
 
 
 def sequential_fsdp(card: str, seed: int) -> dict:
-    """Phase 16 (16a-16c, 16e); returns the DP launches of its runs."""
+    """Phase 16 (16a-16c, 16e-16g); returns the DP launches of its
+    runs."""
     import torch
 
     by_run, one = fsdp_nccl_one_rank(seed)
@@ -4299,6 +4670,10 @@ def sequential_fsdp(card: str, seed: int) -> dict:
     del one, cpu
     by_run.update(fsdp_full_width(card, sums["full"]))
     by_run.update(fsdp_full_fedep(card, sums["fedep-full"], files, seed))
+    torch.cuda.empty_cache()
+    by_run.update(fsdp_full_fedlora(card, sums["fedlora-full"], files,
+                                    seed))
+    fsdp_checkpoints(sums["algos"], sums["fedlora-full"], files)
     return by_run
 
 

@@ -23,12 +23,15 @@ client update runs on a stack of clients, so the residuals in and out are
 the stack's ``(C, ...)`` slice and the codec reads each client's shape
 from the unstacked params (``compression.base``).
 
-Under FSDP only the identity codec runs (precision-weighted FedPA plus
-the residual, all elementwise on the shard, the residual a ``(n,)``
-store row): the ``lowrank`` sketch multiplies whole rows of a matrix
-leaf and the ``int8`` scale is a max over a client's whole payload, and a
-flat shard cuts leaves anywhere (``core.sharded_round`` refuses them on
-more than one rank, ROADMAP.md item 10 part 3b).
+Under FSDP (``self.layout``, a ``core.fsdp.FlatShard``) every codec runs
+on this rank's shard of the payload: the codec chain takes the layout
+(``compression.base``), so the ``lowrank`` factors are summed over the
+ranks from each rank's rows of a leaf, and each leaf's ``int8`` scale,
+one per leaf and per client, is the max over the ranks of each rank's
+piece max. The error-feedback residual stays this rank's ``(n,)`` store
+row, ``corrected - decode(encode(corrected))`` on the shard, and
+``finish_cohort`` decodes the mean to a flat shard against the layout's
+template (``state.params`` is a shard there).
 """
 from __future__ import annotations
 
@@ -87,22 +90,20 @@ class FedLoRA(FedPAPrecision):
         suffix(project(prec))}`` and, with error feedback, the new
         residuals (what the round trip lost) as ``state_update``."""
         run = self._iasg_delta(grad_fn, client_opt)   # shared FedPA core
-        codec = self.codec
+        codec, layout = self.codec, self.layout
         delta_dtype = self.delta_dtype
 
         def encode_pair(params, delta, prec, round_idx, residual):
             corrected = (tm.tcast(delta, torch.float32) if residual is None
                          else tm.tmap(lambda d, r: d.to(torch.float32) + r,
                                       delta, residual))
-            wire = codec.encode(tm.tcast(corrected, delta_dtype), round_idx,
-                                params)
-            prec_wire = codec.encode_aux(
-                codec.project_precision(prec, round_idx, params), round_idx,
-                params)
+            wire, prec_wire = codec.encode_payload(
+                tm.tcast(corrected, delta_dtype), prec, round_idx, params,
+                layout)
             payload = {"delta": wire, "prec": prec_wire}
             if residual is None:
                 return payload, None
-            decoded = codec.decode(wire, round_idx, params)
+            decoded = codec.decode(wire, round_idx, params, layout)
             return payload, tm.tmap(lambda c, d: c - d.to(torch.float32),
                                     corrected, decoded)
 
@@ -122,8 +123,8 @@ class FedLoRA(FedPAPrecision):
     def init_accum(self, params):
         """fp32 ``{num, den}`` zeros in the codec's accumulator space (the
         linear-prefix image: rank-r factors, not dense deltas)."""
-        return {"num": self.codec.accum_zeros(params),
-                "den": self.codec.accum_zeros(params)}
+        return {"num": self.codec.accum_zeros(params, self.layout),
+                "den": self.codec.accum_zeros(params, self.layout)}
 
     def payload_accum(self, payload):
         """Dequantize (undo the nonlinear suffix), then natural-parameter
@@ -139,7 +140,8 @@ class FedLoRA(FedPAPrecision):
         mean = tm.tmap(
             lambda n, d: n.to(torch.float32) / (d.to(torch.float32) + _EPS),
             agg["num"], agg["den"])
-        dense = self.codec.decode_accum(mean, state.round, state.params)
+        dense = self.codec.decode_accum(mean, state.round, state.params,
+                                        self.layout)
         return {"delta": dense}
 
     def finalize(self, agg):

@@ -24,11 +24,23 @@ reference's way: each rank writes only the rows it owns as
 ``restore_store_sharded`` loads the shard whose rows match the rank's, or,
 when the topology changed, reads every shard and concatenates them.
 
-A server state in the FSDP flat layout (``core/fsdp.py``: one ``(n,)``
-shard of the params' ravel a rank) is not a tree of whole leaves, and no
-writer takes it: both raise naming ROADMAP.md's item for FSDP
-checkpoints (``fsdp.CHECKPOINT_ITEM``), as a store made for the layout
-does (``core/client_state.py``).
+The FSDP family checkpoints a state in the flat layout (``core/fsdp.py``:
+a server state's ``(n,)`` shards of the params' ravel, a store's ``(N,
+n)`` rows): every rank writes its own file,
+``ckpt_<step>.fsdp<k>of<W>.npz`` + ``.json``, holding its part of each
+flat leaf (``fsdp.in_flat_layout``) under the state's key path and every
+other leaf (the round, the optimizers' steps, a store's stamps) whole.
+The json adds ``{"fsdp": {"d", "n", "W", "rank", "template"}}``, the
+template's leaf paths and shapes, and marks the flat leaves.
+``restore_checkpoint_fsdp`` reads the rank's own file when the layout has
+the set's W; at another W (W = 1 on no mesh included) it reads every file,
+puts each flat leaf's d elements back in order and cuts them for the new
+layout, and the leaves held whole must agree across the files. A layout
+whose d or template differs raises ``ValueError``; ``latest_fsdp_checkpoint``
+skips an incomplete set. ``save_checkpoint`` refuses a flat leaf, since
+a shard written as if it were whole would restore as the wrong tree; a
+whole state gathered from the shards (``FlatShard.gather_state``) is an
+ordinary tree in the reference's format.
 """
 from __future__ import annotations
 
@@ -41,7 +53,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import _not_ported
 from repro_torch.core import fsdp
 
 #: dtypes npz stores as they are (the reference's list); others widen.
@@ -126,18 +137,28 @@ def _from_array(arr: np.ndarray, like):
     return np.asarray(arr).astype(np.asarray(like).dtype)
 
 
-def _pack_leaves(state: Any):
-    """``state`` -> (the arrays npz stores, the path/dtype manifest)."""
+def _pack_leaves(state: Any, layout=None):
+    """``state`` -> (the arrays npz stores, the path/dtype manifest). A
+    leaf in the FSDP flat layout raises ``ValueError`` unless ``layout``
+    is given; then its entry is marked ``"flat"`` and its last axis must
+    be the layout's ``n``."""
     arrays, manifest = {}, []
     for i, (path, leaf) in enumerate(leaves_with_paths(state)):
-        if fsdp.in_flat_layout(leaf):
-            raise _not_ported(f"a checkpoint of {path}, a shard in the FSDP "
-                              f"flat layout", fsdp.CHECKPOINT_ITEM)
+        flat = fsdp.in_flat_layout(leaf)
+        if flat and layout is None:
+            raise ValueError(
+                f"{path} is a shard in the FSDP flat layout, not a whole "
+                f"leaf: write it with save_checkpoint_fsdp (or gather the "
+                f"whole tree first)")
         arr, dtype = _to_array(leaf)
+        if flat and (arr.ndim == 0 or arr.shape[-1] != layout.n):
+            raise ValueError(f"{path}: a flat leaf of shape {arr.shape} is "
+                             f"not the layout's (..., {layout.n})")
         key = f"leaf_{i}"
         arrays[key] = arr
         manifest.append({"key": key, "path": path,
-                         "shape": list(arr.shape), "dtype": dtype})
+                         "shape": list(arr.shape), "dtype": dtype,
+                         **({"flat": True} if flat else {})})
     return arrays, manifest
 
 
@@ -239,20 +260,26 @@ def save_checkpoint_shard(ckpt_dir: str, state: Any, step: int, *,
                    "row_offset": row_offset}})
 
 
-def latest_sharded_checkpoint(ckpt_dir: str) -> Optional[int]:
-    """The highest step with a complete shard set (all n of n files): a
-    save some ranks had not finished is skipped."""
+def _latest_complete(ckpt_dir: str, pattern) -> Optional[int]:
+    """The highest step whose files named by ``pattern`` (groups: step,
+    index, count) form a complete set, all ``count`` of them."""
     if not os.path.isdir(ckpt_dir):
         return None
     found: dict = {}
     for fn in os.listdir(ckpt_dir):
-        m = _SHARD_RE.match(fn)
+        m = pattern.match(fn)
         if m:
             step, idx, count = (int(g) for g in m.groups())
             found.setdefault((step, count), set()).add(idx)
     complete = [step for (step, count), idxs in found.items()
                 if len(idxs) == count]
     return max(complete) if complete else None
+
+
+def latest_sharded_checkpoint(ckpt_dir: str) -> Optional[int]:
+    """The highest step with a complete shard set (all n of n files): a
+    save some ranks had not finished is skipped."""
+    return _latest_complete(ckpt_dir, _SHARD_RE)
 
 
 def _read_shard(ckpt_dir: str, step: int, index: int, count: int):
@@ -371,3 +398,130 @@ def restore_store_sharded(ckpt_dir: str, store,
             f"{store.num_clients}")
     store.load_state_dict(full)
     return step
+
+
+# -- FSDP checkpoints: each rank's part of a state in the flat layout --------
+
+_FSDP_RE = re.compile(r"ckpt_(\d+)\.fsdp(\d+)of(\d+)\.npz$")
+
+
+def _fsdp_base(ckpt_dir: str, step: int, rank: int, count: int) -> str:
+    return os.path.join(ckpt_dir, f"ckpt_{step:08d}.fsdp{rank}of{count}")
+
+
+def _layout_record(layout) -> dict:
+    """The json's record of an FSDP layout."""
+    return {"d": layout.d, "n": layout.n, "W": layout.W,
+            "rank": layout.rank,
+            "template": [{"path": p, "shape": list(s)}
+                         for p, s in zip(layout.paths, layout.shapes)]}
+
+
+def save_checkpoint_fsdp(ckpt_dir: str, state: Any, step: int, layout,
+                         metadata: Optional[dict] = None) -> str:
+    """Write this rank's part of ``state`` (a tree whose flat-layout leaves
+    are ``layout``'s shards or rows) as ``ckpt_<step>.fsdp<k>of<W>.npz``
+    + ``.json``; every rank of the layout calls it. Returns the npz
+    path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays, manifest = _pack_leaves(state, layout)
+    return _write_base(
+        _fsdp_base(ckpt_dir, step, layout.rank, layout.W), arrays,
+        {"step": step, "metadata": metadata or {}, "manifest": manifest,
+         "fsdp": _layout_record(layout)})
+
+
+def latest_fsdp_checkpoint(ckpt_dir: str) -> Optional[int]:
+    """The highest step with a complete FSDP set (all W of W files): a
+    save some ranks had not finished is skipped."""
+    return _latest_complete(ckpt_dir, _FSDP_RE)
+
+
+def _fsdp_metas(ckpt_dir: str, step: int) -> list:
+    """Every json of ``step``'s FSDP set in rank order, checked
+    complete."""
+    metas = {}
+    for fn in os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else ():
+        m = _FSDP_RE.match(fn)
+        if m and int(m.group(1)) == step:
+            with open(os.path.join(ckpt_dir, fn[:-len(".npz")]
+                                   + ".json")) as f:
+                metas[int(m.group(2))] = json.load(f)
+    if not metas:
+        raise FileNotFoundError(
+            f"no FSDP checkpoints for step {step} in {ckpt_dir}")
+    count = next(iter(metas.values()))["fsdp"]["W"]
+    if sorted(metas) != list(range(count)):
+        raise FileNotFoundError(
+            f"step {step} has FSDP files of ranks {sorted(metas)} of "
+            f"{count} in {ckpt_dir}")
+    return [metas[r] for r in range(count)]
+
+
+def _check_layout(rec: dict, layout) -> None:
+    """``ValueError`` unless a saved layout record has ``layout``'s d and
+    template."""
+    if rec["d"] != layout.d:
+        raise ValueError(f"the checkpoint's layout has d = {rec['d']}, "
+                         f"this layout d = {layout.d}")
+    saved = [(t["path"], tuple(t["shape"])) for t in rec["template"]]
+    if saved != list(zip(layout.paths, layout.shapes)):
+        raise ValueError(
+            f"the checkpoint's template {saved} is not this layout's "
+            f"{list(zip(layout.paths, layout.shapes))}")
+
+
+def _recut(parts: List[np.ndarray], d: int, layout) -> np.ndarray:
+    """One flat leaf's ``(..., n_old)`` parts, in rank order -> this
+    rank's ``(..., n)`` part of the same ``d`` elements under
+    ``layout`` (zero padding past d)."""
+    whole = np.concatenate(parts, axis=-1)[..., :d]
+    out = np.zeros(whole.shape[:-1] + (layout.n,), whole.dtype)
+    hi = min(layout.lo + layout.n, d)
+    if hi > layout.lo:
+        out[..., :hi - layout.lo] = whole[..., layout.lo:hi]
+    return out
+
+
+def restore_checkpoint_fsdp(ckpt_dir: str, like: Any, step: Optional[int],
+                            layout) -> Tuple[Any, int, dict]:
+    """Restore ``save_checkpoint_fsdp``'s set into the structure of
+    ``like`` (its flat leaves ``layout``'s shards or rows); returns
+    ``(tree, step, metadata)``, the flat leaves marked as the layout's.
+    ``step=None`` takes ``latest_fsdp_checkpoint``."""
+    if step is None:
+        step = latest_fsdp_checkpoint(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no FSDP checkpoints in {ckpt_dir}")
+    metas = _fsdp_metas(ckpt_dir, step)
+    rec = metas[0]["fsdp"]
+    _check_layout(rec, layout)
+    if rec["W"] == layout.W:
+        meta = metas[layout.rank]
+        with np.load(_fsdp_base(ckpt_dir, step, layout.rank, layout.W)
+                     + ".npz") as data:
+            tree = _restore_leaves(like, meta, data)
+    else:
+        meta = metas[0]
+        datas = [np.load(_fsdp_base(ckpt_dir, step, r, rec["W"]) + ".npz")
+                 for r in range(rec["W"])]
+        try:
+            arrays = {}
+            for i, m in enumerate(meta["manifest"]):
+                parts = [data[metas[r]["manifest"][i]["key"]]
+                         for r, data in enumerate(datas)]
+                if m.get("flat"):
+                    arrays[m["key"]] = _recut(parts, rec["d"], layout)
+                elif any(not np.array_equal(parts[0], p) for p in parts):
+                    raise ValueError(f"{m['path']} differs between the "
+                                     f"ranks' files of step {step}")
+                else:
+                    arrays[m["key"]] = parts[0]
+        finally:
+            for data in datas:
+                data.close()
+        tree = _restore_leaves(like, meta, arrays)
+    flat = {m["path"] for m in meta["manifest"] if m.get("flat")}
+    fsdp.mark_flat([leaf for path, leaf in leaves_with_paths(tree)
+                    if path in flat])
+    return tree, meta["step"], meta["metadata"]

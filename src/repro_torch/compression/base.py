@@ -20,6 +20,22 @@ and basis, the quantizer's scale) comes from the per-client shape. With
 Leaves are numbered in JAX's flatten order of the template's key paths
 (``jax_leaf_index``), since the sketch of a leaf is keyed by that number.
 
+Under FSDP (``core/fsdp.py``) a payload is this rank's flat shard of the
+params' ravel, ``(*lead, n)``, and every :class:`CodecChain` method takes
+the layout (``layout=``). The chain then works on *parts*: one entry per
+template leaf, in the layout's order, first the leaf's piece on this rank
+(``FlatShard.split``, ``(*lead, b - a)``). A linear stage that mixes a
+leaf's elements (the ``lowrank`` sketch) turns its pieces into factors
+replicated on every rank: each rank's partial factors (``shard_partials``)
+are summed over the ranks in one call for every tree the chain encodes
+together, then finished (``shard_finish``). A nonlinear stage whose
+statistic runs over a leaf (the ``int8`` scale) takes the max over the
+ranks of each part's local max (``shard_amax``), in one call, then
+quantizes elementwise (``shard_quantize``). Decoding needs no collective:
+a factor lifts back to this rank's piece (``shard_decode``), and
+``FlatShard.join`` makes the pieces a shard again. Without a layout every
+path is the whole-tree one.
+
 The registry mirrors ``algorithms``: codecs register by name, and
 ``FedConfig.payload_codec`` is parsed against it at config time.
 """
@@ -92,6 +108,34 @@ class PayloadCodec:
         del round_idx, like
         return prec
 
+    # -- the sharded forms (parts of an FSDP shard; ``CodecChain``) -----------
+    def replicates(self, shape) -> bool:
+        """Whether the stage turns a leaf of ``shape`` into a part held
+        whole on every rank (a ``lowrank`` factor)."""
+        del shape
+        return False
+
+    def shard_partials(self, parts, round_idx, layout, precision: bool):
+        """A linear stage's fp32 partials, one per part (None for a part
+        the stage keeps elementwise), to be summed over the ranks: of the
+        encode, or with ``precision`` of ``project_precision``."""
+        del round_idx, layout, precision
+        return [None] * len(parts)
+
+    def shard_finish(self, parts, summed, layout, precision: bool):
+        """The encoded (or projected) parts from the summed partials."""
+        del summed, layout, precision
+        return parts
+
+    def shard_decode(self, parts, round_idx, layout):
+        """Encoded parts -> this rank's pieces."""
+        return self.decode(parts, round_idx, None)
+
+    def shard_accum_like(self, parts, layout):
+        """fp32 zero pieces -> the stage's encoded fp32 zero parts."""
+        del layout
+        return parts
+
 
 _REGISTRY: Dict[str, Type[PayloadCodec]] = {}
 
@@ -155,7 +199,8 @@ class CodecChain:
     ``encode`` / ``decode`` run the whole pipeline (the client wire form);
     ``to_accum`` undoes only the nonlinear suffix (per client, before the
     sum); ``decode_accum`` undoes only the linear prefix (on the server,
-    once per round, on the summed accumulator).
+    once per round, on the summed accumulator). Each takes ``layout``, an
+    FSDP layout whose shards the trees are (the module's docstring).
     """
 
     def __init__(self, fed):
@@ -170,14 +215,37 @@ class CodecChain:
         """True when the chain is a no-op (the ``none`` codec)."""
         return all(s.name == "none" for s in self.stages)
 
-    def encode(self, tree, round_idx, like=None):
+    def _sharded(self, layout) -> bool:
+        return layout is not None and not self.is_identity
+
+    def encode(self, tree, round_idx, like=None, layout=None):
         """Whole pipeline: parameter-shaped tree -> wire form."""
+        if self._sharded(layout):
+            return self._encode_shards([(tree, False)], round_idx, layout,
+                                       True)[0]
         for s in self.stages:
             tree = s.encode(tree, round_idx, like)
         return tree
 
-    def decode(self, tree, round_idx, like):
+    def encode_payload(self, delta, prec, round_idx, like=None,
+                       layout=None):
+        """A client's ``(encode(delta), encode_aux(project_precision(
+        prec)))``; under a layout both trees share each stage's collective
+        (one sum of the sketches' partials, one max of the scales')."""
+        if self._sharded(layout):
+            return tuple(self._encode_shards(
+                [(delta, False), (prec, True)], round_idx, layout, True))
+        return (self.encode(delta, round_idx, like),
+                self.encode_aux(self.project_precision(prec, round_idx,
+                                                       like),
+                                round_idx, like))
+
+    def decode(self, tree, round_idx, like, layout=None):
         """Whole inverse pipeline; ``like`` is the unstacked template."""
+        if self._sharded(layout):
+            for s in reversed(self.stages):
+                tree = s.shard_decode(tree, round_idx, layout)
+            return layout.join(tree)
         for s in reversed(self.stages):
             tree = s.decode(tree, round_idx, like)
         return tree
@@ -188,30 +256,89 @@ class CodecChain:
             tree = s.decode(tree, None, None)
         return tree
 
-    def encode_aux(self, tree, round_idx, like=None):
+    def encode_aux(self, tree, round_idx, like=None, layout=None):
         """Apply the nonlinear suffix only (for already-projected stats)."""
+        if self._sharded(layout):
+            return self._suffix_shards([tree], layout)[0]
         for s in self.suffix:
             tree = s.encode(tree, round_idx, like)
         return tree
 
-    def decode_accum(self, tree, round_idx, like):
+    def decode_accum(self, tree, round_idx, like, layout=None):
         """Undo the linear prefix: accumulator space -> parameter space."""
+        if self._sharded(layout):
+            for s in reversed(self.prefix):
+                tree = s.shard_decode(tree, round_idx, layout)
+            return layout.join(tree)
         for s in reversed(self.prefix):
             tree = s.decode(tree, round_idx, like)
         return tree
 
-    def project_precision(self, prec, round_idx, like=None):
+    def project_precision(self, prec, round_idx, like=None, layout=None):
         """Parameter-shaped diagonal precision -> accumulator space."""
+        if self._sharded(layout):
+            return self._encode_shards([(prec, True)], round_idx, layout,
+                                       False)[0]
         for s in self.prefix:
             prec = s.project_precision(prec, round_idx, like)
         return prec
 
-    def accum_zeros(self, params):
-        """Fresh fp32 zeros of the accumulator (linear-prefix image) space."""
+    def accum_zeros(self, params, layout=None):
+        """Fresh fp32 zeros of the accumulator (linear-prefix image) space
+        (under a layout: ``params`` is this rank's shard)."""
         z = tm.tzeros_like(params, torch.float32)
+        if self._sharded(layout):
+            z = layout.split(z)
+            for s in self.prefix:
+                z = s.shard_accum_like(z, layout)
+            return z
         for s in self.prefix:
             z = s.accum_like(z)
         return z
+
+    # -- under a layout ------------------------------------------------------
+    def _encode_shards(self, jobs, round_idx, layout, suffix: bool):
+        """``[(shard, precision)]`` -> each shard's encoded parts: split,
+        the prefix projected (``precision``: the variance rule) with one
+        sum over the ranks per stage for all the jobs, then with
+        ``suffix`` the suffix (precisions too: ``encode_aux``)."""
+        jobs = [(layout.split(x), prec) for x, prec in jobs]
+        for s in self.prefix:
+            partials = [s.shard_partials(parts, round_idx, layout, prec)
+                        for parts, prec in jobs]
+            flat = [p for ps in partials for p in ps if p is not None]
+            if flat:
+                summed = iter(layout.sum_over_ranks(torch.cat(
+                    [p.reshape(-1) for p in flat])).split(
+                        [p.numel() for p in flat]))
+                partials = [[None if p is None else
+                             next(summed).reshape(p.shape) for p in ps]
+                            for ps in partials]
+            jobs = [(s.shard_finish(parts, ps, layout, prec), prec)
+                    for (parts, prec), ps in zip(jobs, partials)]
+        parts = [parts for parts, _ in jobs]
+        return self._suffix_shards(parts, layout) if suffix else parts
+
+    def _lead_dims(self, parts, layout) -> int:
+        """How many leading (client) axes the parts carry."""
+        p = layout.leaf_pieces()[0]
+        whole = any(s.replicates(p.shape) for s in self.prefix)
+        return parts[0].dim() - (len(p.shape) if whole else 1)
+
+    def _suffix_shards(self, jobs, layout):
+        """Each job's parts through the nonlinear suffix: per stage, every
+        part's local maxima, one max over the ranks for all the jobs, then
+        the elementwise encode."""
+        for s in self.suffix:
+            lead = self._lead_dims(jobs[0], layout)
+            amax = [s.shard_amax(parts, lead) for parts in jobs]
+            total = layout.max_over_ranks(torch.cat(
+                [a.reshape(-1) for a in amax]))
+            amax = [t.reshape(a.shape) for t, a in zip(
+                total.split([a.numel() for a in amax]), amax)]
+            jobs = [s.shard_quantize(parts, a, lead)
+                    for parts, a in zip(jobs, amax)]
+        return jobs
 
 
 def build_codec(fed) -> CodecChain:

@@ -25,9 +25,19 @@ Threefry, no QR.
 The projection is linear, so the round accumulator lives in the sketch
 image (``accum_like``) and diagonal precisions push through it by the
 variance rule ``var_enc = var @ (V * V)`` (``project_precision``).
+
+On an FSDP shard (``compression.base``'s parts) a rank holds a piece of a
+matrix leaf that may start and end mid-row. ``x @ V`` sums over a row's
+columns, so each rank writes its piece into zero rows covering the rows
+it touches, multiplies them by ``V`` (``V * V`` and ``1 / p`` for a
+precision) in fp32 into a zero ``(*lead, R, r)`` factor, and the chain sums
+the factors over the ranks; the sum is cast to the payload dtype once
+(``shard_finish``), so no rank's partial is rounded before the sum. A
+decode lifts only the rows of this rank's piece and keeps its elements.
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 
 import torch
@@ -163,3 +173,88 @@ class LowRankCodec(PayloadCodec):
             return (1.0 / torch.clamp(var_enc, min=_EPS)).to(p.dtype)
 
         return self._map_leaves(prec, like, leaf)
+
+    # -- on an FSDP shard (``compression.base``) ------------------------------
+    def replicates(self, shape) -> bool:
+        """An eligible leaf's factor is held whole on every rank."""
+        return self._eligible(shape)
+
+    @staticmethod
+    def _rows(p, last: int):
+        """The leaf rows ``[lo, hi)`` that piece ``p`` touches, and where
+        its first element sits in row ``lo``."""
+        lo = p.a // last
+        return lo, -(-p.b // last), p.a - lo * last
+
+    def shard_partials(self, parts, round_idx, layout, precision: bool):
+        """This rank's fp32 ``(*lead, R, r)`` factor of each eligible leaf:
+        its piece (``1 / max(p, eps)`` for a precision) in zero rows
+        times ``V`` (``V * V``), zero outside the rows it touches."""
+        out = []
+        for p, x in zip(layout.leaf_pieces(), parts):
+            if not self._eligible(p.shape):
+                out.append(None)
+                continue
+            last = p.shape[-1]
+            lead = tuple(x.shape[:-1])
+            f = torch.zeros(*lead, math.prod(p.shape) // last, self.rank,
+                            dtype=torch.float32, device=x.device)
+            if p.size:
+                v = self._basis(last, round_idx, p.index, x.device)
+                x32 = x.to(torch.float32)
+                if precision:
+                    x32 = 1.0 / torch.clamp(x32, min=_EPS)
+                    v = v * v
+                lo, hi, off = self._rows(p, last)
+                rows = torch.zeros(*lead, (hi - lo) * last,
+                                   dtype=torch.float32, device=x.device)
+                rows[..., off:off + p.size] = x32
+                f[..., lo:hi, :] = rows.reshape(*lead, hi - lo, last) @ v
+            out.append(f)
+        return out
+
+    def shard_finish(self, parts, summed, layout, precision: bool):
+        """Each eligible leaf's summed factor shaped ``(*lead,
+        *shape[:-1], r)``, cast once to its piece's dtype (a precision
+        through ``1 / max(var_enc, eps)`` first)."""
+        out = []
+        for p, x, f in zip(layout.leaf_pieces(), parts, summed):
+            if f is None:
+                out.append(x)
+                continue
+            if precision:
+                f = 1.0 / torch.clamp(f, min=_EPS)
+            out.append(f.to(x.dtype).reshape(*x.shape[:-1], *p.shape[:-1],
+                                             self.rank))
+        return out
+
+    def shard_decode(self, parts, round_idx, layout):
+        """Each eligible leaf's factor -> this rank's piece: the rows the
+        piece touches lifted by ``V.T`` (fp32), its elements kept, in the
+        factor's dtype."""
+        out = []
+        for p, y in zip(layout.leaf_pieces(), parts):
+            if not self._eligible(p.shape):
+                out.append(y)
+                continue
+            last = p.shape[-1]
+            lead = tuple(y.shape[:y.dim() - len(p.shape)])
+            if not p.size:
+                out.append(torch.zeros(*lead, 0, dtype=y.dtype,
+                                       device=y.device))
+                continue
+            v = self._basis(last, round_idx, p.index, y.device)
+            lo, hi, off = self._rows(p, last)
+            rows = y.to(torch.float32).reshape(*lead, -1, self.rank)[
+                ..., lo:hi, :] @ v.T
+            out.append(rows.reshape(*lead, -1)[..., off:off + p.size]
+                       .to(y.dtype))
+        return out
+
+    def shard_accum_like(self, parts, layout):
+        """fp32 zeros: an eligible leaf's ``(*shape[:-1], r)`` factor (with
+        the pieces' leading axes), the others' pieces as they are."""
+        return [torch.zeros(*x.shape[:-1], *p.shape[:-1], self.rank,
+                            dtype=torch.float32, device=x.device)
+                if self._eligible(p.shape) else x
+                for p, x in zip(layout.leaf_pieces(), parts)]

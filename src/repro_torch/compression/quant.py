@@ -9,6 +9,14 @@ leaf). Quantization is nonlinear, so it sits at the end of a codec chain
 and is undone per client (``CodecChain.to_accum``) before payloads are
 summed. ``FedConfig.quant_bits`` selects 8 or 16 bits. Every op stays on
 the leaf's device; nothing is read back to the host.
+
+The scale is per leaf and per client. On an FSDP shard (``compression
+.base``'s parts) a leaf may be cut over the ranks, so its scale is the max
+over the ranks of each rank's ``max |piece|`` (``shard_amax``, every part
+of a client in one call; a factor held whole on every rank gives every
+rank the same max), then quantization is elementwise
+(``shard_quantize``). The max is exact, so the sharded codes and scales
+are the whole leaf's bit for bit.
 """
 from __future__ import annotations
 
@@ -64,12 +72,34 @@ class QuantCodec(PayloadCodec):
             x32 = x.to(torch.float32)
             amax = (x32.abs().reshape(x.shape[0], -1).amax(1)
                     if _stacked(x, ref) else x32.abs().amax())
-            scale = torch.clamp(amax, min=_SCALE_EPS) / self.qmax
-            q = torch.clamp(torch.round(x32 / _per_client(scale, x)),
-                            -self.qmax, self.qmax).to(self.qdtype)
-            return {"q": q, "scale": scale}
+            return self._quantize(x32, amax)
 
         return pytree.tree_map(leaf, tree, tree if like is None else like)
+
+    def _quantize(self, x32: torch.Tensor, amax: torch.Tensor) -> dict:
+        """``{"q", "scale"}`` of fp32 ``x32`` against its clients' max
+        magnitudes ``amax`` (``()`` or ``(C,)``)."""
+        scale = torch.clamp(amax, min=_SCALE_EPS) / self.qmax
+        q = torch.clamp(torch.round(x32 / _per_client(scale, x32)),
+                        -self.qmax, self.qmax).to(self.qdtype)
+        return {"q": q, "scale": scale}
+
+    def shard_amax(self, parts, lead_dims: int) -> torch.Tensor:
+        """Each part's ``max |x|`` per client on this rank (0 for an empty
+        piece): ``(*lead, len(parts))`` fp32."""
+        cols = []
+        for x in parts:
+            flat = x.to(torch.float32).abs().flatten(lead_dims)
+            cols.append(flat.amax(-1) if flat.shape[-1] else
+                        flat.new_zeros(flat.shape[:-1]))
+        return torch.stack(cols, dim=-1)
+
+    def shard_quantize(self, parts, amax: torch.Tensor, lead_dims: int):
+        """Each part quantized against its max over the ranks (``amax``,
+        ``shard_amax``'s shape)."""
+        del lead_dims
+        return [self._quantize(x.to(torch.float32), amax[..., i])
+                for i, x in enumerate(parts)]
 
     def decode(self, tree, round_idx, like):
         """Dequantize every ``{"q", "scale"}`` leaf back to fp32."""

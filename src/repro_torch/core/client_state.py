@@ -49,8 +49,12 @@ row of this rank's ``n`` elements, ``(N, n)`` buffers from the layout's
 shard template (``alg.init_client_state(sharded_state.params)``). Every
 rank runs every client with the same ids and stamps, so the population
 does not split, every rank takes the same CAS decisions, and the gather
-and scatter are the unsharded ones. Its rows are not a checkpoint's whole
-trees: its state dicts refuse (``fsdp.CHECKPOINT_ITEM``).
+and scatter are the unsharded ones. Its state dict holds the rows, ``(N,
+n)`` a leaf, marked as the flat layout's (``fsdp.mark_flat``), so
+``checkpoint.io.save_checkpoint`` refuses them and
+``save_checkpoint_fsdp`` writes each rank's; ``load_state_dict`` takes
+rows of this layout's ``n`` (``restore_checkpoint_fsdp`` re-cuts another
+layout's), and either store restores the other's rows bit for bit.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ import torch
 from repro_torch.configs.base import _not_ported
 from repro_torch.core import collective
 from repro_torch.core import tree_math as tm
-from repro_torch.core.fsdp import CHECKPOINT_ITEM
+from repro_torch.core.fsdp import mark_flat
 from repro_torch.launch.mesh import rank_device
 
 #: Mesh axis names that may carry the population / client dimension, in
@@ -281,11 +285,23 @@ class BaseClientStateStore(abc.ABC):
             self._buffers = self._allocate(template)
         return self
 
-    def _refuse_flat(self, op: str) -> None:
-        """A store of FSDP shards holds no client's whole state."""
-        if self.fsdp is not None:
-            raise _not_ported(f"{type(self).__name__}.{op} of a store in "
-                              f"the FSDP flat layout", CHECKPOINT_ITEM)
+    def _flat_rows(self, buffers):
+        """A state dict's buffers: marked as the flat layout's under an
+        FSDP layout (whose rows they are)."""
+        return buffers if self.fsdp is None else mark_flat(buffers)
+
+    def _check_rows(self, buffers) -> None:
+        """``ValueError`` unless a restored store's rows are this FSDP
+        layout's ``(N, n)`` (nothing to check without a layout)."""
+        if self.fsdp is None:
+            return
+        bad = [tuple(np.shape(b)) for b in tm.tleaves(buffers)
+               if np.ndim(b) != 2 or np.shape(b)[-1] != self.fsdp.n]
+        if bad:
+            raise ValueError(
+                f"rows of shape {bad} are not this FSDP layout's (N, "
+                f"{self.fsdp.n}): another layout's rows are re-cut by "
+                f"checkpoint.io.restore_checkpoint_fsdp")
 
     @property
     def nbytes(self) -> int:
@@ -401,13 +417,13 @@ class ClientStateStore(BaseClientStateStore):
     def state_dict(self):
         """The dense buffers + int64 write stamps (the store's own arrays)."""
         self._require_initialized()
-        self._refuse_flat("state_dict")
-        return {"buffers": self._buffers, "stamps": self._stamps}
+        return {"buffers": self._flat_rows(self._buffers),
+                "stamps": self._stamps}
 
     def load_state_dict(self, state) -> "ClientStateStore":
         """Restore from either store's :meth:`state_dict` (copied)."""
-        self._refuse_flat("load_state_dict")
         stamps = self._check_restore_stamps(state)
+        self._check_rows(state["buffers"])
         self._buffers = tm.tmap(lambda b: np.array(_host(b)),
                                 state["buffers"])
         self._stamps = stamps.copy()
@@ -695,7 +711,6 @@ class DeviceClientStateStore(BaseClientStateStore):
         and any layout. On a multi-process mesh no rank holds every row:
         use :meth:`local_state_dict` there."""
         self._require_initialized()
-        self._refuse_flat("state_dict")
         if self.mesh is not None and self.mesh.size > 1:
             raise RuntimeError(
                 "state_dict() needs every row addressable; on a "
@@ -706,8 +721,8 @@ class DeviceClientStateStore(BaseClientStateStore):
     def load_state_dict(self, state) -> "DeviceClientStateStore":
         """Restore from either store's :meth:`state_dict` (the whole
         population; each rank keeps its own rows, re-padded)."""
-        self._refuse_flat("load_state_dict")
         stamps = self._check_restore_stamps(state)
+        self._check_rows(state["buffers"])
         return self._load_rows(state["buffers"], stamps, 0)
 
     def local_state_dict(self):
@@ -716,11 +731,10 @@ class DeviceClientStateStore(BaseClientStateStore):
         ``row_offset`` its position in the population; feed both to
         ``checkpoint.save_checkpoint_shard``."""
         self._require_initialized()
-        self._refuse_flat("local_state_dict")
         live = self._live()
-        state = {"buffers": tm.tmap(
+        state = {"buffers": self._flat_rows(tm.tmap(
                      lambda b: b[:live].detach().to("cpu", copy=True).numpy(),
-                     self._buffers),
+                     self._buffers)),
                  "stamps": self._stamps[:live].to("cpu", copy=True).numpy()}
         return state, min(self.row_offset, self.num_clients)
 
@@ -730,7 +744,7 @@ class DeviceClientStateStore(BaseClientStateStore):
         file): the rows of ``[row_offset, row_offset + rows)`` that this
         rank owns are loaded, its other rows zeroed (stamps 0, -1 on
         padding). An unsharded store needs the whole population."""
-        self._refuse_flat("load_local_state_dict")
+        self._check_rows(state["buffers"])
         stamps = _host(state["stamps"]).astype(np.int64)
         rows = stamps.shape[0]
         if row_offset < 0 or row_offset + rows > self.num_clients:

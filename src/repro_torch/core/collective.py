@@ -18,7 +18,10 @@ functions on tensors that take the mesh (``launch.mesh.ProcessMesh``).
     — the FSDP round's collectives (``core/fsdp.py``): every rank's flat
     shard gathered into the whole vector, a whole vector summed over the
     ranks with each rank keeping its shard of the sum, and a small tensor
-    (the DP's dot products, the losses) summed over the ranks.
+    (the DP's dot products, the losses) summed over the ranks;
+  * ``all_reduce_codec`` — a payload codec's partials over the ranks of an
+    FSDP round: the ``lowrank`` factors of a client's leaves summed, the
+    ``int8`` maxima of its leaves' pieces maxed.
 
 A mesh without a group (one process) makes each of them the identity; a
 group of one rank still runs its collective, so a one-rank NCCL group
@@ -37,11 +40,13 @@ params shard (``params``: ``(W - 1) n`` elements per all-gather of an
 reduce-scatter of ``W n`` elements sends ``(W - 1) n``; gloo has none, so
 its route all-reduces the whole vector, which a ring does by sending ``2
 (W - 1) n``) and as small sums (``small``: ``(W - 1)`` times the
-tensor's bytes), the bytes staged between device and host (``staged``),
-the host seconds spent inside these functions (``seconds``: on gloo every
-call blocks until its data has moved; NCCL calls return once queued), and
-the calls of the FSDP kinds (``param_gathers``, ``grad_reduces``,
-``small_reduces``); ``sent_bytes()`` sums the kinds sent.
+tensor's bytes), as codec partials (``codec``: ``(W - 1)`` times the
+tensor's bytes, as ``small``), the bytes staged between device and host
+(``staged``), the host seconds spent inside these functions (``seconds``:
+on gloo every call blocks until its data has moved; NCCL calls return once
+queued), and the calls of the FSDP kinds (``param_gathers``,
+``grad_reduces``, ``small_reduces``, ``codec_reduces``); ``sent_bytes()``
+sums the kinds sent.
 """
 from __future__ import annotations
 
@@ -58,12 +63,13 @@ from repro_torch.core import tree_math as tm
 #: This rank's collective calls, bytes sent to other ranks by kind, and
 #: bytes staged through the host.
 traffic = {"calls": 0, "rows": 0, "accumulator": 0, "gathered": 0,
-           "params": 0, "grads": 0, "small": 0, "staged": 0,
+           "params": 0, "grads": 0, "small": 0, "codec": 0, "staged": 0,
            "seconds": 0.0, "param_gathers": 0, "grad_reduces": 0,
-           "small_reduces": 0}
+           "small_reduces": 0, "codec_reduces": 0}
 
 #: The kinds of bytes sent to other ranks.
-SENT_KINDS = ("rows", "accumulator", "gathered", "params", "grads", "small")
+SENT_KINDS = ("rows", "accumulator", "gathered", "params", "grads", "small",
+              "codec")
 
 #: A Mersenne prime: the modulus of the digest's terms.
 _P = 2**31 - 1
@@ -303,17 +309,32 @@ def reduce_scatter_flat(mesh, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _all_reduce(mesh, x: torch.Tensor, op, kind: str) -> torch.Tensor:
+    """``x`` reduced with ``op`` over the ranks, as a new tensor on
+    ``x``'s device (``x`` itself without a group), counted as ``kind``."""
+    if mesh is None or mesh.group is None:
+        return x
+    staged = _staged(mesh, x)
+    buf = _to_host(x.contiguous()) if staged else x.clone()
+    dist.all_reduce(buf, op=op, group=mesh.group)
+    traffic["calls"] += 1
+    traffic[f"{kind}_reduces"] += 1
+    traffic[kind] += (mesh.size - 1) * x.numel() * x.element_size()
+    return _from_host(buf, x.device) if staged else buf
+
+
 @_timed
 def all_reduce_small(mesh, x: torch.Tensor) -> torch.Tensor:
     """The sum over ranks of ``x`` (a few values: the DP's dot products,
     the losses), as a new tensor on ``x``'s device; ``x`` itself without
     a group."""
-    if mesh is None or mesh.group is None:
-        return x
-    staged = _staged(mesh, x)
-    buf = _to_host(x.contiguous()) if staged else x.clone()
-    dist.all_reduce(buf, group=mesh.group)
-    traffic["calls"] += 1
-    traffic["small_reduces"] += 1
-    traffic["small"] += (mesh.size - 1) * x.numel() * x.element_size()
-    return _from_host(buf, x.device) if staged else buf
+    return _all_reduce(mesh, x, dist.ReduceOp.SUM, "small")
+
+
+@_timed
+def all_reduce_codec(mesh, x: torch.Tensor, op: str) -> torch.Tensor:
+    """The sum (``op="sum"``) or elementwise max (``"max"``) over ranks of
+    a codec's partials ``x``, as a new tensor on ``x``'s device; ``x``
+    itself without a group."""
+    return _all_reduce(mesh, x, {"sum": dist.ReduceOp.SUM,
+                                 "max": dist.ReduceOp.MAX}[op], "codec")

@@ -42,42 +42,72 @@ one reduction over the whole parameter vector, ``fedpa_precision``'s mean
 precision under a staleness discount, goes through ``param_total``: the
 sum of this rank's real elements (the zero padding past ``d`` is not
 neutral there: a padded coordinate's precision is ``1 / rho_l``),
-all-reduced over the ranks, over a count of ``d``. A payload codec other
-than the identity cannot run on a flat shard (``NEXT_ITEM``).
+all-reduced over the ranks, over a count of ``d``.
+
+FedLoRA's payload codecs work leaf by leaf, and a shard cuts leaves at any
+element (mid-row too). ``leaf_pieces`` says which elements ``[a, b)`` of
+each template leaf lie in this rank's shard and where; ``split`` cuts a
+shard into those pieces and ``join`` puts pieces back (the padding belongs
+to no piece). The ``lowrank`` sketch ``x @ V`` is a sum over a matrix
+leaf's columns, so each rank multiplies the rows its pieces touch and the
+partial factors are summed over the ranks (``sum_over_ranks``); the
+``int8`` scale is one client's ``max |x|`` over one leaf, so a piece's
+scale is the max over the ranks of each rank's piece max
+(``max_over_ranks``). Each is one call for all of a client's leaves
+(``compression.base.CodecChain``).
 
 Leaves are matched by their key paths, so a tree built in another key
 order (the JAX package's sorted one) shards to the same elements. Without
 a mesh, or on a mesh of one rank, the layout is the identity (``n = d``)
 and a collective moves no data to another rank (a one-rank group still
 makes its calls). A server state or a store in the flat layout is not a
-checkpoint's tree: ``checkpoint.io`` refuses both (``CHECKPOINT_ITEM``).
+tree of whole leaves: ``checkpoint.io.save_checkpoint`` refuses it, and
+``checkpoint.io.save_checkpoint_fsdp`` writes each rank's shards, which
+``restore_checkpoint_fsdp`` reads back into a layout of any W.
 """
 from __future__ import annotations
 
 import weakref
-from typing import Callable
+from typing import Callable, List, NamedTuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.compression.base import jax_leaf_index
 from repro_torch.core import collective
 from repro_torch.kernels import ops
 
-#: The algorithms an FSDP round runs: all of the port's.
+#: The algorithms an FSDP round runs: all of the port's, with every
+#: payload codec.
 ALGORITHMS = ("fedavg", "fedpa", "fedpa_precision", "fedprox", "mime",
               "scaffold", "fedep", "fedlora")
-#: ROADMAP.md queue 1's item for what is still missing under FSDP: a
-#: payload codec other than the identity (FedLoRA's ``lowrank`` sketch
-#: multiplies whole rows of a matrix leaf, ``int8``'s scale is a max over
-#: the whole payload; a flat shard cuts leaves at arbitrary elements).
-NEXT_ITEM = "10 part 3b"
-#: The item for checkpoints of a state in the flat layout.
-CHECKPOINT_ITEM = "10 part 3c"
 
-#: ``id -> weakref`` of every tensor of a server state in the flat layout
-#: (``shard_state``'s, and each server step's under a layout): what
+#: ``id -> weakref`` of every tensor (or numpy array) held in the flat
+#: layout: a server state's (``shard_state``'s, and each server step's
+#: under a layout) and a store's rows (its state dict): what
 #: ``in_flat_layout`` recognises.
 _FLAT: dict = {}
+
+
+class LeafPiece(NamedTuple):
+    """The part of one template leaf that lies in a rank's shard: the
+    leaf's key ``path`` and ``shape``, its ``index`` in JAX's flatten
+    order (what a codec keys the leaf's sketch by), its elements ``[a,
+    b)`` in the leaf's ravel (``a == b``: none on this rank) and where
+    they start in the shard (``at``)."""
+
+    path: str
+    shape: tuple
+    index: int
+    a: int
+    b: int
+    at: int
+
+    @property
+    def size(self) -> int:
+        """How many of the leaf's elements lie in the shard."""
+        return self.b - self.a
 
 
 def _paths(tree) -> list:
@@ -87,10 +117,10 @@ def _paths(tree) -> list:
 
 
 def mark_flat(tree):
-    """Record every tensor of ``tree`` as held in the flat layout (until
-    it is freed); returns ``tree``."""
+    """Record every tensor (and numpy array) of ``tree`` as held in the
+    flat layout (until it is freed); returns ``tree``."""
     for x in pytree.tree_leaves(tree):
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, (torch.Tensor, np.ndarray)):
             k = id(x)
 
             def forget(ref, k=k):
@@ -102,7 +132,7 @@ def mark_flat(tree):
 
 
 def in_flat_layout(x) -> bool:
-    """Whether ``x`` is a tensor of a server state in the flat layout."""
+    """Whether ``x`` is a tensor (or array) held in the flat layout."""
     ref = _FLAT.get(id(x))
     return ref is not None and ref() is x
 
@@ -128,6 +158,7 @@ class FlatShard:
         self.lo = self.rank * self.n
         self.data_extent, self.data_index = ((1, 0) if mesh is None
                                              else mesh.data_slot())
+        self._pieces = None
 
     # -- layout ---------------------------------------------------------------
     def _leaves(self, tree) -> list:
@@ -198,6 +229,49 @@ class FlatShard:
     def mean_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over ranks of a small tensor (the losses)."""
         return collective.all_reduce_small(self.mesh, x) / self.W
+
+    def sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over ranks of a codec's partials (the ``lowrank``
+        factors of a client's leaves), in ``x``'s dtype."""
+        return collective.all_reduce_codec(self.mesh, x, "sum")
+
+    def max_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over ranks of a codec's partials (the
+        ``int8`` per-leaf maxima of a client's pieces)."""
+        return collective.all_reduce_codec(self.mesh, x, "max")
+
+    # -- the leaves' pieces (the payload codecs) ------------------------------
+    def leaf_pieces(self) -> List[LeafPiece]:
+        """For each template leaf, in the layout's order, the
+        :class:`LeafPiece` of this rank's shard (an empty one when the
+        leaf has no element here; the padding past ``d`` is no piece)."""
+        if self._pieces is None:
+            index = jax_leaf_index(self.template)
+            out, off, hi = [], 0, self.lo + self.n
+            for i, (path, shape, k) in enumerate(zip(self.paths, self.shapes,
+                                                     self.sizes)):
+                a = min(max(self.lo - off, 0), k)
+                b = max(min(hi - off, k), a)
+                out.append(LeafPiece(path, shape, index[i], a, b,
+                                     max(off + a - self.lo, 0)))
+                off += k
+            self._pieces = out
+        return self._pieces
+
+    def split(self, shard: torch.Tensor) -> list:
+        """A ``(*lead, n)`` shard -> its pieces, one ``(*lead, b - a)``
+        view per template leaf (``leaf_pieces``' order)."""
+        return [shard[..., p.at:p.at + p.size] for p in self.leaf_pieces()]
+
+    def join(self, pieces: list) -> torch.Tensor:
+        """``split``'s inverse: the ``(*lead, n)`` shard of one piece per
+        leaf, in the first piece's dtype, zero on the padding."""
+        x0 = pieces[0]
+        out = torch.zeros(*x0.shape[:-1], self.n, dtype=x0.dtype,
+                          device=x0.device)
+        for p, x in zip(self.leaf_pieces(), pieces):
+            out[..., p.at:p.at + p.size] = x
+        return out
 
     @property
     def real(self) -> int:

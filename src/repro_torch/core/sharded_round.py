@@ -27,12 +27,13 @@ shard, with one all-gather of the compute-dtype params at each gradient
 ``ServerState``: the layout (``fsdp_layout``) shards a whole state
 (``shard_state``) and gathers it back (``gather_state``), and a store's
 rows with ``shard_rows`` / ``gather_rows``. Both stages take the layout,
-so ``make_fed_round_split`` runs under FSDP too. Compute is not split over
-``model`` (the reference's ``tp_constrain`` computes on tensor-parallel
-params: ROADMAP.md queue 1, item 10 part 4), and a FedLoRA payload codec
-other than the identity at ``sequential`` on more than one rank raises
-naming item 10 part 3b (``fsdp.NEXT_ITEM``): on one rank it runs on the
-whole tree. Without a mesh every sharding hook is the identity (the
+so ``make_fed_round_split`` runs under FSDP too. FedLoRA's payload codecs
+run on the shards as well: the ``lowrank`` factors are summed over the
+ranks and each leaf's ``int8`` scale maxed over them (``core/fsdp.py``),
+where the reference's ``map_components`` passes the encoded payload by.
+Compute is not split over ``model`` (the reference's ``tp_constrain``
+computes on tensor-parallel params: ROADMAP.md queue 1, item 10 part 4).
+Without a mesh every sharding hook is the identity (the
 reference's ``prepare_params``, ``constrain_accum``, ``finalize_params``
 and the payload constraint place nothing), so they are left out. Either
 way the sequential placement's client wrapper casts the master params to
@@ -49,8 +50,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.algorithms import get_algorithm
-from repro_torch.configs.base import FedConfig, ModelConfig, _not_ported
+from repro_torch.configs.base import FedConfig, ModelConfig
 from repro_torch.core import fsdp
 from repro_torch.core import tree_math as tm
 from repro_torch.core.round_program import (make_cohort_program,
@@ -80,14 +80,7 @@ def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
     if placement != "sequential":
         raise ValueError(f"unknown placement {placement!r}")
     if mesh is not None:
-        alg = get_algorithm(fed)
-        if not alg.supports_codec or alg.codec.is_identity:
-            kw["fsdp"] = fsdp_layout(cfg, mesh)
-        elif mesh.size > 1:
-            raise _not_ported(f"{alg.name!r} with payload codec "
-                              f"{fed.payload_codec!r} at the sequential "
-                              f"placement's FSDP over a mesh of ranks",
-                              fsdp.NEXT_ITEM)
+        kw["fsdp"] = fsdp_layout(cfg, mesh)
 
     def wrap_client(client_update):
         def cast_client_update(master_params, batches, *extra):

@@ -215,8 +215,8 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
     the element counts of every parameter-shaped tensor it held (master,
     server momentum, accumulator, iterate, samples, ``v_hist``). Then one
     ``algo_round`` of each algorithm of the inputs' ``algo_kw``
-    (``<name>.rank<r>.npz``) and, when the inputs name one, the
-    ``engine_run`` (``engine.rank<r>.npz``)."""
+    (``<name>.rank<r>.npz``) and each ``engine_run`` the inputs'
+    ``engine_kw`` names (``<name>.rank<r>.npz``)."""
     import json
 
     from repro_torch import configs
@@ -291,13 +291,16 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
         for k, v in held.items():
             out[f"held/{k}"] = np.array(sorted(v))
         np.savez(os.path.join(out_dir, f"{dp}.rank{rank}.npz"), **out)
+    ckpt_algo = str(inputs["ckpt_algo"]) if "ckpt_algo" in inputs.files \
+        else None
     for name, algo_kw in json.loads(str(inputs["algo_kw"])).items():
+        ckpt = os.path.join(out_dir, "ckpt") if name == ckpt_algo else None
         np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
-                 **algo_round(algo_kw, inputs, mesh))
+                 **algo_round(algo_kw, inputs, mesh, ckpt))
     if "engine_kw" in inputs.files:
-        np.savez(os.path.join(out_dir, f"engine.rank{rank}.npz"),
-                 **engine_run(json.loads(str(inputs["engine_kw"])), inputs,
-                              mesh))
+        for name, engine_kw in json.loads(str(inputs["engine_kw"])).items():
+            np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
+                     **engine_run(engine_kw, inputs, mesh))
 
 
 def _tree(inputs, prefix: str):
@@ -321,7 +324,49 @@ def _flat(tree, prefix: str) -> dict:
     return out
 
 
-def algo_round(kw: dict, inputs, mesh=None) -> dict:
+def path_key(path: str) -> str:
+    """A key path such as ``['a']['b']`` -> ``a/b``."""
+    return "/".join(k.strip("'") for k in path.strip("[]").split("]["))
+
+
+def wire_arrays(wires: list, layout=None) -> dict:
+    """Each recorded client payload of a quantizing FedLoRA round (its
+    delta's and precision's wire forms, as ``payload_accum`` saw them) as
+    ``{wire/<client>/<delta|prec>/<path>/<q|scale>: numpy}``: whole trees
+    in one process; under ``layout`` each rank's pieces gathered into
+    whole leaves (one all-gather each: call it on every rank) and the
+    factors held whole as they are."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.compression.quant import is_qleaf
+    from repro_torch.core import fsdp
+
+    out = {}
+    for k, payload in enumerate(wires):
+        for part in ("delta", "prec"):
+            wire = payload[part]
+            if layout is None:
+                pairs = [(pytree.keystr(p), w) for p, w in
+                         pytree.tree_flatten_with_path(
+                             wire, is_leaf=is_qleaf)[0]]
+            else:
+                q = [torch.zeros(p.size) if w["q"].dim() > 1
+                     else w["q"].to(torch.float32)
+                     for p, w in zip(layout.leaf_pieces(), wire)]
+                whole = dict(fsdp._paths(layout.gather_tree(layout.join(q))))
+                pairs = [(p.path, {"q": w["q"] if w["q"].dim() > 1 else
+                                   whole[p.path].reshape(-1),
+                                   "scale": w["scale"]})
+                         for p, w in zip(layout.leaf_pieces(), wire)]
+            for path, w in pairs:
+                key = f"wire/{k}/{part}/{path_key(path)}"
+                out[f"{key}/q"] = w["q"].to(torch.float32).reshape(
+                    -1).numpy()
+                out[f"{key}/scale"] = w["scale"].numpy()
+    return out
+
+
+def algo_round(kw: dict, inputs, mesh=None, ckpt=None) -> dict:
     """One round of the FSDP test's other algorithms: the smoke fedlm-100m
     at ``sequential`` (fp32 compute) from ``inputs``' params (``p/``) and
     the algorithm's starting state (SCAFFOLD's ``c`` under ``c/``, MIME's
@@ -332,9 +377,15 @@ def algo_round(kw: dict, inputs, mesh=None) -> dict:
     loaded first). Returns ``{params/<path>, c/<path>, states/<path>}``
     (gathered whole), the losses, this rank's traffic (``traffic/<kind>``)
     and the elements it held (``held/<what>``: the params, ``c``, MIME's
-    broadcast momentum, a client state row, the store's rows)."""
+    broadcast momentum, a client state row, the store's rows); for a
+    FedLoRA codec that quantizes, each client's wire payload
+    (``wire_arrays``). With
+    ``ckpt`` (a directory, under FSDP with a device store) the rank writes
+    the new state and store with ``save_checkpoint_fsdp`` and reads them
+    back at its own W (``ckpt/bitwise``: equal by digest)."""
     from repro_torch import configs
-    from repro_torch.algorithms import get_algorithm, mime
+    from repro_torch.algorithms import fedlora, get_algorithm, mime
+    from repro_torch.checkpoint import io as ckpt_io
     from repro_torch.configs.base import FedConfig
     from repro_torch.core import collective, sharded_round
     from repro_torch.core import tree_math as tm
@@ -367,6 +418,15 @@ def algo_round(kw: dict, inputs, mesh=None) -> dict:
         return out
 
     mime.Mime.broadcast = probed
+    wires = []
+    payload_accum = fedlora.FedLoRA.payload_accum
+
+    def recorded(self, payload):
+        wires.append(payload)
+        return payload_accum(self, payload)
+
+    if fed.algorithm == "fedlora" and "int8" in fed.payload_codec:
+        fedlora.FedLoRA.payload_accum = recorded
     fn = sharded_round.make_fed_round(
         cfg, fed, placement="sequential", compute_dtype=torch.float32,
         q_chunk=8, mesh=mesh)
@@ -392,12 +452,23 @@ def algo_round(kw: dict, inputs, mesh=None) -> dict:
         res = fn(state, {"tokens": inputs["tokens1"]}, None, *args)
     finally:
         mime.Mime.broadcast = broadcast
+        fedlora.FedLoRA.payload_accum = payload_accum
     state, metrics = res[:2]
     if seen:
         held["momentum"] = seen[0]
     out = {f"traffic/{k}": v for k, v in collective.traffic.items()}
     out.update({f"held/{k}": np.asarray(v) for k, v in held.items()})
     out.update({k: float(v) for k, v in metrics.items()})
+    out.update(wire_arrays(wires, layout))
+    if ckpt is not None:
+        store.set_device_state(res[2])
+        tree = {"server": state, "clients": store.state_dict()}
+        ckpt_io.save_checkpoint_fsdp(ckpt, tree, 1, layout)
+        torch.distributed.barrier()
+        back, step, _ = ckpt_io.restore_checkpoint_fsdp(ckpt, tree, None,
+                                                        layout)
+        out["ckpt/bitwise"] = step == 1 and torch.equal(
+            collective.digest(back), collective.digest(tree))
     if layout is not None:
         state = layout.gather_state(state)
     out.update(_flat(state.params, "params"))
@@ -413,15 +484,17 @@ def algo_round(kw: dict, inputs, mesh=None) -> dict:
 
 def engine_run(kw: dict, inputs, mesh=None) -> dict:
     """The FSDP test's ``RoundEngine`` run: ``kw``'s stateful algorithm
-    (FedEP) on the device store for ``inputs["engine_ids"]`` cohorts at
+    (FedEP, FedLoRA with error feedback) on the device store for
+    ``inputs["engine_ids"]`` cohorts at
     window ``kw["max_staleness"] + 1`` (the stale rounds discounted), from
     ``inputs``' params and zero states, the tokens ``engine_tokens``;
     through FSDP over ``mesh``'s ranks when given. Returns the gathered
     params (``params/<path>``), the store's rows gathered
     (``states/<path>``), each record's ``state_drops`` and
-    ``staleness``."""
+    ``staleness``, and for a quantizing FedLoRA each cohort's clients'
+    wire payloads in dispatch order (``wire_arrays``)."""
     from repro_torch import configs
-    from repro_torch.algorithms import get_algorithm
+    from repro_torch.algorithms import fedlora, get_algorithm
     from repro_torch.configs.base import FedConfig
     from repro_torch.core import sharded_round
     from repro_torch.core.client_state import make_client_store
@@ -449,8 +522,21 @@ def engine_run(kw: dict, inputs, mesh=None) -> dict:
                          max_staleness=fed.max_staleness,
                          staleness_discount=fed.staleness_discount,
                          client_store=store, stateful=True)
-    state, history = engine.run(
-        state, lambda t: Cohort(t, ids[t], {"tokens": toks[t]}), len(ids))
+    wires = []
+    payload_accum = fedlora.FedLoRA.payload_accum
+
+    def recorded(self, payload):
+        wires.append(payload)
+        return payload_accum(self, payload)
+
+    if fed.algorithm == "fedlora" and "int8" in fed.payload_codec:
+        fedlora.FedLoRA.payload_accum = recorded
+    try:
+        state, history = engine.run(
+            state, lambda t: Cohort(t, ids[t], {"tokens": toks[t]}),
+            len(ids))
+    finally:
+        fedlora.FedLoRA.payload_accum = payload_accum
     if layout is not None:
         state = layout.gather_state(state)
     rows = store.device_state()["buffers"]
@@ -458,6 +544,7 @@ def engine_run(kw: dict, inputs, mesh=None) -> dict:
         rows = layout.gather_rows(rows)
     out = {"state_drops": np.array([h["state_drops"] for h in history]),
            "staleness": np.array([h["staleness"] for h in history])}
+    out.update(wire_arrays(wires, layout))
     out.update(_flat(state.params, "params"))
     out.update(_flat(rows, "states"))
     return out
