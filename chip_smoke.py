@@ -238,7 +238,10 @@
    through a one-rank NCCL mesh against no mesh, a burn-in and a FedPA
    round: the burn-in round bitwise, the FedPA round within 1e-6 of the
    largest entry (its coefficients come from the glue, not the reduce
-   kernel's epilogue). (b) The same on two gloo ranks sharing the card
+   kernel's epilogue); then the same rounds through the tensor-parallel
+   path's NCCL calls (the exchange, the model group's all-reduces) on a
+   one-rank ``("data", "model")`` mesh, the plan forced to one model
+   rank, held the same way. (b) The same on two gloo ranks sharing the card
    (one row of each client a rank), spawned, then one round of each
    other algorithm from the burn-in state (fedpa_precision, fedprox,
    mime, scaffold on the host store, fedep and fedlora with the identity
@@ -277,7 +280,25 @@
    ``save_checkpoint_fsdp`` and reads it back bitwise, as it does 16b's
    FedEP store; after the ranks exit this process restores both at W = 1
    on the card, bitwise equal to the state the ranks gathered and to the
-   store's rows put together (``gather_rows``).
+   store's rows put together (``gather_rows``). (h) FedPA rounds on a
+   1 x 2 mesh with the default rules: tensor-parallel over "model"
+   (attention and FFN split in two, the vocabulary replicated), with the
+   port's default ``remat="full"`` (the backward's replay of each layer
+   runs on autograd's device thread under the forward's model group).
+   The full width from 16c's state in bf16 and in fp32: per rank the
+   elements and bytes exchanged a local step against the plan's ``R + T
+   / M`` (62,935,296; the gradient back from model index 1 its split
+   leaves' ``T / M`` only), the activation all-reduces a local step
+   against 12 layers x 8, 6 launches of each DP kernel, peak memory
+   against 16c's, host ms; then the same rounds in one process on the
+   card: the fp32 round within phase 4's bound, the bf16 round no
+   farther than the one-process bf16 round is from its fp32 one (a
+   reordered bf16 sum flips some bf16 gradient roundings; the line says
+   whether phase 4's bound is met).
+
+The LM training phases keep every activation (``REMAT``), as they did
+before the port's default became the reference's recompute; 14b and
+16h run the default.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -359,11 +380,11 @@ STEPS_CUT = ["--local-steps", "6", "--burn-in-steps", "2",
 # reach NaN within the first round at full depth; one FedPA round and no
 # burn-in round (cut from 1 + 2 for the script's time: 3 DP launches of
 # each kernel, and the round's host ms includes its warm-up) of
-# ``STEPS_CUT``'s local steps
+# ``STEPS_CUT``'s local steps, 2 of the 4 clients (cut for the same)
 XLSTM_ARGV = [("xlstm-125m" if a == "fedlm-100m" else a)
               for a in TRAIN_ARGV] + ["--client-lr", "0.01", "--rounds",
-                                      "1", "--burn-in-rounds", "0"] \
-    + STEPS_CUT
+                                      "1", "--burn-in-rounds", "0",
+                                      "--clients", "2"] + STEPS_CUT
 # phase 14b: phase 9's command at 8 x 512 tokens a client step, where the
 # activations a recompute frees weigh against the DP's fp32 vectors
 REMAT_ARGV = TRAIN_ARGV + ["--batch", "8", "--seq-len", "512", "--rounds",
@@ -398,6 +419,18 @@ STATE_RUNS = (
 ASYNC_ARGV = ["--async-rounds", "--max-staleness", "2",
               "--staleness-discount", "0.9"]
 PREFETCH_ARGV = ["--prefetch-rounds", "2", "--prefetch-backend", "process"]
+#: The local steps of the LM training phases keep every activation
+#: (``remat="none"``), as they ran before the port's default became the
+#: reference's recompute (``"full"``); phase 14b runs both.
+REMAT = "none"
+
+
+def train_main(argv, **kw):
+    """``launch.train.main(argv, **kw)`` with ``REMAT`` unless ``kw``
+    names a remat."""
+    from repro_torch.launch import train
+
+    return train.main(argv, **{"remat": REMAT, **kw})
 ASYNC_ROUNDS = 5
 # ... and the CNN runs (phase 3's settings): the goldens' straggler spec
 # (FedAvg, rate 0.5, lateness <= 2, window 3) and FedPA with their async2
@@ -428,15 +461,17 @@ MP_TIMEOUT_S = 600
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 1280, 32
 # phase 13: the other architectures served at full width, bf16: (arch,
 # prompt, generated tokens, repeats cut to or None); the first two
-# profiled
+# profiled. Depth cut to about a quarter for the script's time
+# (qwen3-moe 48 -> 12 layers, recurrentgemma 12 -> 3 repeats, internvl2 48
+# -> 12, minitron 32 -> 8, musicgen 48 -> 12, granite 40 -> 10)
 SERVE_ARCHS = (
-    ("qwen3-moe-30b-a3b", 1024, 16, None),
-    ("recurrentgemma-9b", 3072, 16, None),
-    ("internvl2-26b", 512, 16, None),
-    ("minitron-4b", 512, 16, None),
-    ("musicgen-medium", 512, 16, None),
+    ("qwen3-moe-30b-a3b", 1024, 16, 12),
+    ("recurrentgemma-9b", 3072, 16, 3),
+    ("internvl2-26b", 512, 16, 12),
+    ("minitron-4b", 512, 16, 8),
+    ("musicgen-medium", 512, 16, 12),
     ("xlstm-125m", 512, 16, None),
-    ("granite-34b", 512, 16, 40),
+    ("granite-34b", 512, 16, 10),
     ("llama4-scout-17b-a16e", 512, 16, 2),
 )
 PROFILED = ("qwen3-moe-30b-a3b", "recurrentgemma-9b")
@@ -1735,7 +1770,7 @@ def train_path(card: str, seed: int, argv=TRAIN_ARGV, d_want=LM_D):
     fedpa_dp.reset_launches()
     swa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    res = train.main(argv + ["--seed", str(seed)])
+    res = train_main(argv + ["--seed", str(seed)])
     torch.cuda.synchronize()
     launches = dict(fedpa_dp.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1790,11 +1825,9 @@ def profile_train(round_ms: float, seed: int, rounds: int = 1) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch import train
-
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        train.main(TRAIN_ARGV + ["--seed", str(seed), "--rounds",
+        train_main(TRAIN_ARGV + ["--seed", str(seed), "--rounds",
                                  str(rounds), "--burn-in-rounds", "0"])
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -1824,18 +1857,17 @@ def train_replay(seed: int) -> dict:
 
     from repro_torch import configs
     from repro_torch.kernels import fedpa_dp
-    from repro_torch.launch import train
 
     cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
     argv = REPLAY_ARGV + ["--seed", str(seed)]
     fedpa_dp.reset_launches()
     t0 = time.perf_counter()
-    card = train.main(argv, cfg=cfg, compute_dtype=torch.float32)
+    card = train_main(argv, cfg=cfg, compute_dtype=torch.float32)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launches = dict(fedpa_dp.launches)
     t0 = time.perf_counter()
-    cpu = train.main(argv + ["--device", "cpu"], cfg=cfg,
+    cpu = train_main(argv + ["--device", "cpu"], cfg=cfg,
                      compute_dtype=torch.float32)
     print(f"train replay ({cfg.name} cut to {cfg.num_layers} layer, d="
           f"{cfg.param_count():,}, fp32): {card_s:.1f} s on the card, "
@@ -1922,7 +1954,7 @@ def fedep_train_path(card: str, seed: int):
     fedpa_dp.reset_launches()
     swa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    res = train.main(argv)
+    res = train_main(argv)
     torch.cuda.synchronize()
     launches = dict(fedpa_dp.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -2029,7 +2061,7 @@ def fedep_store_replay(seed: int) -> dict:
         fedpa_dp.reset_launches()
         t0 = time.perf_counter()
         with deterministic():
-            runs[name] = train.main(argv + extra, cfg=cfg,
+            runs[name] = train_main(argv + extra, cfg=cfg,
                                     compute_dtype=torch.float32)
         if "card" in name:
             torch.cuda.synchronize()
@@ -2167,8 +2199,6 @@ def checkpoint_resume(seed: int) -> None:
     import shutil
     import tempfile
 
-    from repro_torch.launch import train
-
     argv = ["--smoke", "--algorithm", "fedep", "--client-state-placement",
             "device", "--clients", "2", "--num-clients", "4",
             "--local-steps", "8", "--burn-in-steps", "2",
@@ -2180,9 +2210,9 @@ def checkpoint_resume(seed: int) -> None:
         ck = argv + ["--ckpt-dir", tmp, "--ckpt-every", "1"]
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            train.main(ck + ["--rounds", "2"])
-            resumed = train.main(ck + ["--rounds", "4"])
-            straight = train.main(argv + ["--rounds", "4"])
+            train_main(ck + ["--rounds", "2"])
+            resumed = train_main(ck + ["--rounds", "4"])
+            straight = train_main(argv + ["--rounds", "4"])
         saved = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
     finally:
         shutil.rmtree(tmp)
@@ -2210,11 +2240,10 @@ def repeatability(params, seed: int) -> None:
     import torch
 
     from repro_torch import configs
-    from repro_torch.launch import train
 
     cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
     argv = fedep_argv(REPLAY_ARGV, 4) + FEDEP_REPLAY + ["--seed", str(seed)]
-    runs = [train.main(argv, cfg=cfg, compute_dtype=torch.float32)
+    runs = [train_main(argv, cfg=cfg, compute_dtype=torch.float32)
             for _ in range(2)]
     same = (equal_bitwise(runs[0]["state"], runs[1]["state"])
             and equal_bitwise(runs[0]["store"].state_dict(),
@@ -2435,7 +2464,7 @@ def async_train_path(card: str, seed: int) -> dict:
     swa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with watch_prefetchers(seen):
-        res = train.main(argv + PREFETCH_ARGV)
+        res = train_main(argv + PREFETCH_ARGV)
     torch.cuda.synchronize()
     launches = dict(fedpa_dp.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -2444,7 +2473,7 @@ def async_train_path(card: str, seed: int) -> dict:
     found, builds = [], []
     t0 = time.perf_counter()
     with profile_after_round_0(found), time_builds(builds):
-        inline = train.main(argv + ["--prefetch-rounds", "0"])
+        inline = train_main(argv + ["--prefetch-rounds", "0"])
     prof_s = time.perf_counter() - t0
     inline_ms = [sec * 1e3 for sec in inline["seconds"]]
     build_ms = [sec * 1e3 for sec in builds]
@@ -2544,7 +2573,7 @@ def async_state_path(card: str, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     RoundEngine._write_back_states = write_back
     try:
-        res = train.main(argv)
+        res = train_main(argv)
     finally:
         RoundEngine._write_back_states = real
     torch.cuda.synchronize()
@@ -2610,7 +2639,7 @@ def async_store_replay(seed: int) -> dict:
         fedpa_dp.reset_launches()
         t0 = time.perf_counter()
         with deterministic():
-            runs[name] = train.main(argv + extra, cfg=cfg,
+            runs[name] = train_main(argv + extra, cfg=cfg,
                                     compute_dtype=torch.float32)
         if "card" in name:
             torch.cuda.synchronize()
@@ -2880,7 +2909,7 @@ def fedlora_train_path(card: str, seed: int) -> dict:
     fedpa_dp.reset_launches()
     swa.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    res = train.main(argv)
+    res = train_main(argv)
     torch.cuda.synchronize()
     launches = dict(fedpa_dp.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -2940,7 +2969,6 @@ def fedlora_replay(seed: int) -> dict:
     from repro_torch.compression.quant import QuantCodec, is_qleaf
     from repro_torch.core import tree_math as tm
     from repro_torch.kernels import fedpa_dp
-    from repro_torch.launch import train
 
     cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
     encode = QuantCodec.encode
@@ -2968,7 +2996,7 @@ def fedlora_replay(seed: int) -> dict:
             QuantCodec.encode = recording
             t0 = time.perf_counter()
             try:
-                runs[device] = train.main(argv + ["--device", device],
+                runs[device] = train_main(argv + ["--device", device],
                                           cfg=cfg,
                                           compute_dtype=torch.float32)
             finally:
@@ -3050,7 +3078,8 @@ def profile_step(cfg, args, params, seed: int) -> None:
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (C, B, S + 1), device="cuda",
         generator=torch.Generator("cuda").manual_seed(seed))}
-    fn = torch.func.vmap(steps.lm_grad_fn(cfg, q_chunk=min(64, S)))
+    fn = torch.func.vmap(steps.lm_grad_fn(cfg, q_chunk=min(64, S),
+                                          remat=REMAT))
     host = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -3121,10 +3150,12 @@ def remat_check(seed: int) -> dict:
 
 def grad_cuts(seed: int) -> None:
     """Phase 14c: ``vmap(grad)`` of the loss over 2 clients (the same
-    params, their own batches) on one-layer fp32 cuts at full width, card
-    against the CPU from the same weights: losses and grads within phase
-    4's bound. An MoE cut records the card's expert choices and forces
-    the CPU onto them (``routed``), counting the CPU router's flips."""
+    params, their own batches; 1 client for the three cuts whose CPU half
+    is the slowest, cut for the script's time) on one-layer fp32
+    cuts at full width, card against the CPU from the same weights:
+    losses and grads within phase 4's bound. An MoE cut records the
+    card's expert choices and forces the CPU onto them (``routed``),
+    counting the CPU router's flips."""
     import torch
 
     from repro_torch import configs
@@ -3137,22 +3168,23 @@ def grad_cuts(seed: int) -> None:
                               repeats=1)
     llama = configs.get_config("llama4-scout-17b-a16e")
     cuts = (
-        ("moe onehot", moe_cfg, 32),
+        ("moe onehot", moe_cfg, 32, 2),
         ("moe sort", configs.replace(moe_cfg, moe=configs.replace(
-            moe_cfg.moe, routing="sort")), 32),
+            moe_cfg.moe, routing="sort")), 32, 2),
         ("llama4 moe", configs.replace(llama, pattern=llama.pattern[-1:],
-                                       repeats=1), 32),
+                                       repeats=1), 32, 1),
         ("rglru, rglru, swa", configs.replace(
-            configs.get_config("recurrentgemma-9b"), repeats=1, tail=()), 32),
+            configs.get_config("recurrentgemma-9b"), repeats=1, tail=()), 32,
+         1),
         ("audio frontend", configs.replace(
-            configs.get_config("musicgen-medium"), repeats=1), 32),
+            configs.get_config("musicgen-medium"), repeats=1), 32, 2),
         ("vision frontend", configs.replace(
-            configs.get_config("internvl2-26b"), repeats=1), 32),
+            configs.get_config("internvl2-26b"), repeats=1), 32, 1),
         ("slstm, mlstm", configs.replace(configs.get_config("xlstm-125m"),
-                                         repeats=1), 128),
+                                         repeats=1), 128, 2),
     )
-    f32, B, C = torch.float32, 2, 2
-    for name, cfg, S in cuts:
+    f32, B = torch.float32, 2
+    for name, cfg, S, C in cuts:
         t0 = time.perf_counter()
         params = model.init_params(
             torch.Generator("cuda").manual_seed(seed), cfg, f32,
@@ -3189,7 +3221,7 @@ def grad_cuts(seed: int) -> None:
                 res = torch.func.vmap(client, in_dims=(None, 0))(p, b)
             else:
                 res = torch.func.vmap(steps.lm_grad_fn(
-                    cfg, compute_dtype=f32, q_chunk=64),
+                    cfg, compute_dtype=f32, q_chunk=64, remat=REMAT),
                     in_dims=(None, 0))(p, b) + ((),)
             if dev == "cuda":
                 torch.cuda.synchronize()
@@ -3360,8 +3392,11 @@ def two_rank_train(card: str, seed: int, want_records: list) -> dict:
                 "--dist-timeout", str(MP_CONNECT_S), "--ckpt-dir", tmp,
                 "--ckpt-every", "3", "--log", os.path.join(tmp, "log.jsonl")]
         t0 = time.perf_counter()
-        outs = spawn_ranks([[sys.executable, "-m", "repro_torch.launch.train",
-                             *argv, *dist, "--process-id", str(r)]
+        # the entry point's main with REMAT (the CLI takes the default)
+        main = ("import sys; from repro_torch.launch import train; "
+                f"train.main(sys.argv[1:], remat={REMAT!r})")
+        outs = spawn_ranks([[sys.executable, "-c", main, *argv, *dist,
+                             "--process-id", str(r)]
                             for r in (0, 1)], MP_TIMEOUT_S)
         wall = time.perf_counter() - t0
         recs = [json_lines(out, '{"round"') for out in outs]
@@ -3449,7 +3484,6 @@ def replay_rank(rank: int, port: int, argv: list, out: str) -> None:
     from repro_torch import configs
     from repro_torch.core import tree_math as tm
     from repro_torch.kernels import fedpa_dp
-    from repro_torch.launch import train
 
     cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
     dist = ["--num-processes", "2", "--process-id", str(rank),
@@ -3457,7 +3491,7 @@ def replay_rank(rank: int, port: int, argv: list, out: str) -> None:
             "--dist-timeout", str(MP_CONNECT_S)]
     with open(os.path.join(out, f"rank{rank}.log"), "w") as log, \
             ctl.redirect_stdout(log):
-        res = train.main(argv + dist, cfg=cfg, compute_dtype=torch.float32)
+        res = train_main(argv + dist, cfg=cfg, compute_dtype=torch.float32)
     local, offset = res["store"].local_state_dict()
     np.savez(os.path.join(out, f"rank{rank}.npz"), offset=offset,
              stamps=local["stamps"],
@@ -3484,12 +3518,11 @@ def two_rank_replay(seed: int) -> dict:
 
     from repro_torch import configs
     from repro_torch.core import tree_math as tm
-    from repro_torch.launch import train
 
     cfg = configs.replace(configs.get_config("fedlm-100m"), repeats=1)
     argv = fedep_argv(REPLAY_ARGV, 4) + FEDEP_REPLAY + ["--seed", str(seed)]
     t0 = time.perf_counter()
-    one = train.main(argv, cfg=cfg, compute_dtype=torch.float32)
+    one = train_main(argv, cfg=cfg, compute_dtype=torch.float32)
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_replay_")
@@ -3563,7 +3596,8 @@ def multi_process(card: str, params, seed: int, fedep_records) -> dict:
 # clients; each one burn-in round and one FedPA round at ``sequential``.
 # 16b then runs one round of each other algorithm from the one-layer
 # burn-in state, 16e one FedEP round and 16f one FedLoRA round at full
-# width from 16c's state, and 16g checks the FSDP checkpoints they write.
+# width from 16c's state, 16g checks the FSDP checkpoints they write, and
+# 16h runs FedPA rounds from 16c's state tensor-parallel over "model".
 FSDP_CLIENTS = 2
 #: 16b's other algorithms: (name, FedConfig changes). SCAFFOLD steps with
 #: plain SGD on the host store's slice, FedEP and FedLoRA (identity codec,
@@ -3599,6 +3633,10 @@ FSDP_LORA_FULL = "fedlora_lowrank_int8"
 #: store holds 2 fp32 vectors of its n elements a client) and the
 #: cohort's ids
 FSDP_STORE_CLIENTS, FSDP_STORE_IDS = 16, (5, 12)
+#: The reference's rule override that maps "tp" to no mesh axis: the
+#: phases on a ("data", "model") mesh that hold the round without tensor
+#: parallelism (16e, 16f); 16h takes the default rules
+NO_TP = {"tp": ()}
 
 
 def fsdp_inputs(argv: list, cfg, seed: int):
@@ -3676,10 +3714,11 @@ def timed_round(fn, cuda: bool) -> tuple:
 
 
 def fsdp_rounds(cfg, fed, toks, device: str, compute_dtype, seed: int,
-                mesh=None) -> dict:
+                mesh=None, layout=None) -> dict:
     """A burn-in round then a FedPA round of ``make_fed_round`` at
     ``sequential`` from ``init_params`` at ``seed`` (sharded over ``mesh``
-    when given). Returns per round the whole params after it (gathered),
+    when given, by ``layout``: default the FSDP layout without tensor
+    parallelism). Returns per round the whole params after it (gathered),
     its losses, host ms, peak memory, DP launches and collective traffic;
     the state's elements a rank holds; the FSDP layout; and the (sharded)
     states after the burn-in round (``burn_state``) and after both
@@ -3698,15 +3737,15 @@ def fsdp_rounds(cfg, fed, toks, device: str, compute_dtype, seed: int,
     opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
     state = init_server_state(params, opt)
     del params
-    layout = None
     if mesh is not None:
-        layout = sharded_round.fsdp_layout(cfg, mesh)
+        layout = layout or sharded_round.fsdp_layout(cfg, mesh, NO_TP)
         state = layout.shard_state(state)
     out = {"rounds": [], "layout": layout}
     for use_sampling, t in zip((False, True), toks):
         fn = sharded_round.make_fed_round(
             cfg, fed, placement="sequential", compute_dtype=compute_dtype,
-            use_sampling=use_sampling, mesh=mesh)
+            use_sampling=use_sampling, mesh=mesh, layout=layout,
+            remat=REMAT)
         (state, metrics), ms, peak, launches, traffic = timed_round(
             lambda: fn(state, {"tokens": t}), cuda)
         rec = dict(ms=ms, launches=launches, traffic=traffic,
@@ -3802,11 +3841,11 @@ def code_flips(got: dict, want: dict, what: str) -> tuple:
 def fsdp_algo_round(cfg, fed, tokens, device: str, compute_dtype, state,
                     layout=None, mesh=None, num_clients: int = FSDP_CLIENTS,
                     ids=None, whole_states: bool = True,
-                    ckpt=None) -> dict:
+                    ckpt=None, remat: str = REMAT) -> dict:
     """One round of ``fed``'s algorithm (``make_fed_round`` at
     ``sequential``) from ``state`` (this rank's shard under ``layout``,
     through FSDP over ``mesh``) on the first ``fed.local_steps`` steps of
-    ``tokens`` (``(C, K, B, S + 1)``):
+    ``tokens`` (``(C, K, B, S + 1)``), with ``remat``:
     SCAFFOLD's ``c`` starts at zero, a stateful algorithm's clients from a
     zero store of ``num_clients`` made for the layout, in the placement
     ``fed`` names, the cohort ``ids`` (default the first C). Returns the
@@ -3832,7 +3871,8 @@ def fsdp_algo_round(cfg, fed, tokens, device: str, compute_dtype, state,
     if fed.algorithm == "scaffold":
         state = state._replace(algo_state=alg.init_algo_state(state.params))
     fn = sharded_round.make_fed_round(cfg, fed, placement="sequential",
-                                      compute_dtype=compute_dtype, mesh=mesh)
+                                      compute_dtype=compute_dtype, mesh=mesh,
+                                      layout=layout, remat=remat)
     args, store = (), None
     device_store = fed.client_state_placement == "device"
     if alg.stateful:
@@ -3920,24 +3960,29 @@ def fsdp_summary(rank: int, mesh, rec: dict, seconds: float) -> dict:
 
 
 def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
-    """One rank of phase 16b, 16c, 16e and 16f (a spawned child): two
+    """One rank of phase 16b, 16c, 16e, 16f and 16h (a spawned child): two
     gloo ranks sharing the card on a ``("data",)`` mesh. 16b:
     ``fsdp_rounds`` on the one-layer cut, then ``fsdp_algo_round`` of each
     of ``FSDP_ALGOS`` from its burn-in state (FedEP's store written with
     the FSDP writer, 16g); 16c: ``fsdp_rounds`` at full width; 16e: a
     FedEP round from 16c's state with a device store of
     ``FSDP_STORE_CLIENTS``; 16f: a FedLoRA ``lowrank+int8`` round from
-    16c's state, its new server state written with the FSDP writer (16g).
+    16c's state, its new server state written with the FSDP writer (16g);
+    16h: FedPA rounds tensor-parallel over "model" on a 1 x 2 mesh with
+    ``remat="full"``, the full width's from 16c's state in bf16 and in
+    fp32.
     Writes ``out/rank<r>.<case>.json`` (numbers, the elements held,
     digests, seconds) for the cases ``one-layer``, ``full``,
-    ``fedep-full`` and ``fedlora-full`` and per algorithm
+    ``fedep-full``, ``fedlora-full``, ``fedpa-tp`` and ``fedpa-tp-fp32``
+    and per algorithm
     ``rank<r>.algos.json``; rank 0 also writes the one-layer params
     (``one-layer.npz``, both rounds, and ``algos.npz``, each algorithm's
     params and ``c``, FedEP's gathered store rows and the int8 rounds'
     wire codes), 16c's whole state (``full-state.pt``), 16e's params
     (``fedep-full.pt``), 16f's gathered state
     (``fedlora-full-state.pt``) and wire codes
-    (``fedlora-full-codes.npz``); the checkpoints go under ``out``."""
+    (``fedlora-full-codes.npz``), 16h's params (``fedpa-tp.pt``,
+    ``fedpa-tp-fp32.pt``); the checkpoints go under ``out``."""
     sys.path.insert(0, str(SRC))
     import dataclasses
 
@@ -4034,7 +4079,7 @@ def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
         del whole
         mesh = mesh_from_config(MeshConfig(shape=(1, 2),
                                            axes=("data", "model")), "cuda")
-        layout = sharded_round.fsdp_layout(cfg, mesh)
+        layout = sharded_round.fsdp_layout(cfg, mesh, NO_TP)
         t0 = time.perf_counter()
         rec = fsdp_algo_round(
             cfg, dataclasses.replace(fed, **dict(FSDP_ALGOS)["fedep"]),
@@ -4066,20 +4111,43 @@ def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
             np.savez(os.path.join(out, "fedlora-full-codes.npz"),
                      **{f"codes|{k}": q
                         for k, (q, _) in rec["codes"].items()})
+        del rec
+        torch.cuda.empty_cache()
+        # -- 16h: FedPA rounds from 16c's state on the same mesh with the
+        # default rules: tensor-parallel over "model", each rank gathering
+        # its heads' and FFN columns' elements of the same shards; in bf16,
+        # then in fp32; the port's default remat
+        tp_layout = sharded_round.fsdp_layout(cfg, mesh)
+        for case, cd in (("fedpa-tp", dtype),
+                         ("fedpa-tp-fp32", torch.float32)):
+            t0 = time.perf_counter()
+            rec = fsdp_algo_round(cfg, fed, toks[1], "cuda", cd,
+                                  res["state"], tp_layout, mesh,
+                                  remat="full")
+            summary = fsdp_summary(rank, mesh, rec,
+                                   time.perf_counter() - t0)
+            summary.update(n=tp_layout.n,
+                           model_index=tp_layout.model.index)
+            write(case, summary)
+            if rank == 0:
+                torch.save(rec["params"], os.path.join(out, f"{case}.pt"))
+            del rec
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
 
 def fsdp_spawn(seed: int, meanwhile=None):
-    """Phase 16b, 16c, 16e and 16f's two ranks (spawned children sharing
+    """Phase 16b, 16c, 16e, 16f and 16h's two ranks (spawned children sharing
     the card); runs ``meanwhile()`` in this process while they work.
     Returns ``({case: the ranks' summaries}, {name: rank 0's arrays},
     meanwhile's result, seconds from the spawn to both exits)``; the
     arrays are the one-layer rounds' params (``one-layer``), each
     algorithm's (``algos``), 16c's whole state (``full-state``), 16e's
-    params (``fedep-full``), 16f's state and codes, on the host, and
-    16g's restores in this process (``restored``), read before the
-    ranks' files are removed."""
+    params (``fedep-full``), 16f's state and codes, 16h's params
+    (``fedpa-tp``, ``fedpa-tp-fp32``), on the host, and 16g's restores in
+    this process
+    (``restored``), read before the ranks' files are removed."""
     import multiprocessing as mp
     import shutil
     import tempfile
@@ -4108,7 +4176,7 @@ def fsdp_spawn(seed: int, meanwhile=None):
             fail(f"fsdp ranks exited {[p.exitcode for p in procs]}")
         sums = {}
         for case in ("one-layer", "algos", "full", "fedep-full",
-                     "fedlora-full"):
+                     "fedlora-full", "fedpa-tp", "fedpa-tp-fp32"):
             sums[case] = []
             for r in (0, 1):
                 with open(os.path.join(tmp, f"rank{r}.{case}.json")) as f:
@@ -4118,7 +4186,8 @@ def fsdp_spawn(seed: int, meanwhile=None):
         files.update({k: torch.load(os.path.join(tmp, f"{k}.pt"),
                                     map_location="cpu")
                       for k in ("full-state", "fedep-full",
-                                "fedlora-full-state")})
+                                "fedlora-full-state", "fedpa-tp",
+                                "fedpa-tp-fp32")})
         files["restored"] = fsdp_restore_one_process(tmp)
     finally:
         shutil.rmtree(tmp)
@@ -4177,16 +4246,23 @@ def fsdp_nccl_one_rank(seed: int):
     """Phase 16a: the one-layer fp32 cut's rounds with no mesh against the
     same rounds through a one-rank NCCL mesh: the burn-in round bitwise,
     the FedPA round within 1e-6 of the largest entry (the sharded step's
-    coefficients come from the glue, not the reduce kernel's epilogue).
-    Returns the DP launches of both FedPA rounds and the run with no
-    mesh."""
+    coefficients come from the glue, not the reduce kernel's epilogue);
+    then the same through the tensor-parallel path's NCCL calls (16h's
+    exchange and model-group all-reduces, on a one-rank ``("data",
+    "model")`` mesh whose plan is forced to one model rank), held the
+    same way. Returns the DP launches of both FedPA rounds and the run
+    with no mesh."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.core import fsdp
     from repro_torch.core import tree_math as tm
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, mesh_from_config
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.rules import TPPlan
 
     cfg, argv, dtype = fsdp_case("one-layer")
     fed, toks = fsdp_inputs(argv, cfg, seed)
@@ -4202,6 +4278,16 @@ def fsdp_nccl_one_rank(seed: int):
         mesh = make_host_mesh("cuda")
         nccl = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, mesh)
         backend = mesh.backend
+        # the tensor-parallel path's NCCL calls (the exchange, the model
+        # group's all-reduces) on a one-rank ("data", "model") mesh, its
+        # plan forced to one model rank (a real mesh of M = 1 takes
+        # today's path)
+        tp_mesh = mesh_from_config(MeshConfig(shape=(1, 1),
+                                              axes=("data", "model")), "cuda")
+        template = init_params(None, cfg, device="meta")
+        tp = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, tp_mesh,
+                         fsdp.FlatShard(template, tp_mesh,
+                                        tp=TPPlan(cfg, template, 1)))
     finally:
         dist.destroy_process_group()
     first = equal_bitwise(one["rounds"][0]["params"],
@@ -4210,6 +4296,13 @@ def fsdp_nccl_one_rank(seed: int):
     scale = max(w.abs().max().item() for w in want)
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     calls = [r["traffic"]["calls"] for r in nccl["rounds"]]
+    tp_first = equal_bitwise(one["rounds"][0]["params"],
+                             tp["rounds"][0]["params"])
+    tp_err = max((g - w).abs().max().item() for g, w in zip(
+        tm.tleaves(tp["rounds"][1]["params"]), want))
+    tp_t = [r["traffic"] for r in tp["rounds"]]
+    steps = FSDP_CLIENTS * fed.local_steps
+    acts = cfg.num_layers * (4 + 2 * cfg.qk_norm)
     launches = {f"{name} fp32 sequential, no mesh": fsdp_launches(
         one["rounds"]), f"{name} fp32 sequential, one-rank nccl fsdp":
         fsdp_launches(nccl["rounds"])}
@@ -4222,9 +4315,25 @@ def fsdp_nccl_one_rank(seed: int):
           f"{[round(r['ms'], 1) for r in one['rounds']]}, one-rank mesh "
           f"{[round(r['ms'], 1) for r in nccl['rounds']]}; DP launches "
           f"{launches} (expected {expected} each)", flush=True)
+    print(f"fsdp nccl one rank, tensor-parallel ({name}, plan forced to "
+          f"one model rank on a {tp_mesh.shape} mesh): NCCL calls per round "
+          f"{[t['calls'] for t in tp_t]}, of them exchanges "
+          f"{[t['param_gathers'] + t['grad_reduces'] for t in tp_t]} "
+          f"(expected {2 * steps}) and model-group all-reduces "
+          f"{[t['activation_reduces'] for t in tp_t]} (expected "
+          f"{steps * acts}); burn-in round bitwise equal to no mesh "
+          f"{tp_first}; FedPA round max abs diff {tp_err:.3g} of largest "
+          f"{scale:.3g}; host ms per round "
+          f"{[round(r['ms'], 1) for r in tp['rounds']]}", flush=True)
     if not first or not err <= 1e-6 * scale or not all(calls):
         fail("fsdp nccl one rank: the mesh run differs from the run with "
              "no mesh (or made no NCCL call)")
+    if (not tp_first or not tp_err <= 1e-6 * scale
+            or any(t["param_gathers"] + t["grad_reduces"] != 2 * steps
+                   or t["activation_reduces"] != steps * acts
+                   for t in tp_t)):
+        fail("fsdp nccl one rank: the tensor-parallel run differs from the "
+             "run with no mesh (or missed its NCCL calls)")
     for n in launches.values():
         if any(v != expected for v in n.values()):
             fail(f"fsdp nccl one rank: DP launches {launches}")
@@ -4598,6 +4707,146 @@ def fsdp_full_fedlora(card: str, sums, files, seed: int) -> dict:
     return launches
 
 
+def max_diff(got, want) -> float:
+    """The largest absolute difference between two param trees."""
+    from repro_torch.core import tree_math as tm
+
+    return max((a.cpu() - b.cpu()).abs().max().item()
+               for a, b in zip(tm.tleaves(got), tm.tleaves(want)))
+
+
+def tp_counts(cfg, steps: int, t: dict, what: str, index: int):
+    """The tensor-parallel plan of ``cfg`` over 2 model ranks, and the
+    traffic line of model rank ``index`` in a round of ``steps`` local
+    steps with ``remat="full"``: the elements and bytes exchanged a local
+    step against the plan's ``R + T / M``, the gradient elements it
+    returns a step (``R + T / M`` from model index 0, ``T / M`` from
+    model index 1), the activation all-reduces a local step against a
+    count by layers (the two blocks' outputs in the forward and again in
+    the replay; the gradients of their inputs, ``q_scale`` and
+    ``k_scale`` in the backward). Returns ``(line, whether the counts are
+    the plan's, the plan)``."""
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.rules import TPPlan
+
+    plan = TPPlan(cfg, init_params(None, cfg, device="meta"), 2)
+    per = plan.rank_elements
+    back = per if index == 0 else plan.split_elements // 2
+    acts = cfg.num_layers * (6 + 2 * cfg.qk_norm)
+    size = 2 if what == "bf16" else 4
+    line = (f"elements exchanged a local step "
+            f"{t['param_elements'] / steps:,.0f} (formula R + T / M = "
+            f"{plan.replicated_elements:,} + {plan.split_elements:,} / 2 = "
+            f"{per:,} of d {sum(x.size for x in plan.leaves):,}), {what} "
+            f"bytes {size * t['param_elements'] / steps:,.0f} (formula "
+            f"{size * per:,}); gradient elements returned a step "
+            f"{t['grad_elements'] / steps:,.0f} (formula {back:,}); bytes "
+            f"to the other rank params {t['params']:,} grads "
+            f"{t['grads']:,}; activation all-reduces a local step "
+            f"{t['activation_reduces'] / steps:g} (by layers "
+            f"{cfg.num_layers} x {acts // cfg.num_layers} = {acts}), their "
+            f"bytes {t['activations']:,}; staged {t['staged']:,}, host s "
+            f"inside the collectives {t['seconds']:.2f}")
+    ok = (t["param_elements"] == steps * per
+          and t["grad_elements"] == steps * back
+          and t["param_gathers"] == steps
+          and t["activation_reduces"] == steps * acts)
+    return line, ok, plan
+
+
+def fsdp_full_tp(card: str, sums: dict, sums_full, files, seed: int
+                 ) -> dict:
+    """Phase 16h: one FedPA round of the full-width fedlm-100m (16c's
+    clients, local steps and l) on the two gloo ranks from 16c's state,
+    on 16e's ``("data", "model")`` mesh of 1 x 2 with the default rules
+    and ``remat="full"``, in bf16 (``sums["bf16"]``) and in fp32:
+    tensor-parallel over "model" (each rank gathers the replicated
+    leaves and its half of the attention heads' and FFN columns' elements
+    of the same shards, and each block's output is summed over the two
+    ranks). Prints each rank's ``tp_counts`` line, DP launches (6 each),
+    peak memory against 16c's and host ms; then the same rounds in one
+    process on the card. The fp32 round must meet phase 4's bound. A
+    reordered bf16 sum flips some roundings of the bf16 gradients (16e's
+    note), so the bf16 ranks' params must be no farther from the
+    one-process bf16 round's than that round is from its fp32 round
+    (bf16's own rounding); the line says whether they meet phase 4's
+    bound. Returns the DP launches."""
+    import torch
+
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.server import ServerState
+    from repro_torch.launch import train
+
+    cfg, argv, dtype = fsdp_case("full")
+    fed, toks = fsdp_inputs(argv, cfg, seed)
+    args = train.parse_args(argv)
+    ell = (args.local_steps - args.burn_in_steps) // args.steps_per_sample
+    steps = FSDP_CLIENTS * args.local_steps
+    expected = FSDP_CLIENTS * (ell - 1)
+    peaks = {s["rank"]: [round(r["peak"] / 2**30, 2) for r in s["rounds"]]
+             for s in sums_full}
+    launches = {}
+    for what in ("bf16", "fp32"):
+        print(f"fsdp two gloo ranks tensor-parallel fedpa {cfg.name}: "
+              f"{what}, remat full, {FSDP_CLIENTS} clients, "
+              f"{args.local_steps} local steps (l = {ell}), one FedPA round "
+              f"from 16c's state on a ('data', 'model') mesh of 1 x 2 on "
+              f"one card ({card}): "
+              f"{max(s['seconds'] for s in sums[what]):.1f} s a rank",
+              flush=True)
+        for s in sums[what]:
+            line, ok, plan = tp_counts(cfg, steps, s["traffic"], what,
+                                       s["model_index"])
+            print(f"  rank {s['rank']} on {s['device']} (model index "
+                  f"{s['model_index']}): attention split {plan.attn}, FFN "
+                  f"split {plan.ffn}; {line}; DP launches {s['launches']} "
+                  f"(expected {expected} each); peak memory allocated "
+                  f"{s['peak'] / 2**30:.2f} GiB (16c's per round "
+                  f"{peaks[s['rank']]}); host ms {s['ms']:.1f}; losses "
+                  f"{s['losses']}", flush=True)
+            launches[f"fedlm-100m {what} sequential fedpa, 2 gloo ranks "
+                     f"fsdp tensor-parallel: rank {s['rank']}"] = \
+                s["launches"]
+            if (not ok or not plan.attn or not plan.ffn
+                    or any(v != expected for v in s["launches"].values())
+                    or not all(map(math.isfinite, s["losses"].values()))):
+                fail(f"fsdp full tensor-parallel {what}: rank "
+                     f"{s['rank']} {s}")
+        if sums[what][0]["digest_params"] != sums[what][1]["digest_params"]:
+            fail(f"fsdp full tensor-parallel {what}: the ranks' params "
+                 f"differ")
+    saved = files["full-state"]
+    state = ServerState(_to_cuda(saved["params"]),
+                        _to_cuda(saved["opt_state"]), saved["round"], ())
+    one = {}
+    for what, cd in (("bf16", dtype), ("fp32", torch.float32)):
+        rec = fsdp_algo_round(cfg, fed, toks[1], "cuda", cd, state,
+                              remat="full")
+        launches[f"fedlm-100m {what} sequential fedpa, no mesh"] = \
+            rec["launches"]
+        print(f"  one process on the card, {what}, remat full: host ms "
+              f"{rec['ms']:.1f}; peak {rec['peak'] / 2**30:.2f} GiB; DP "
+              f"launches {rec['launches']}", flush=True)
+        one[what] = rec["params"]
+        del rec
+    params_close(files["fedpa-tp-fp32"], one["fp32"],
+                 "fedpa tensor-parallel full width fp32: two ranks vs one "
+                 "process on the card")
+    err = max_diff(files["fedpa-tp"], one["bf16"])
+    own = max_diff(one["bf16"], one["fp32"])
+    inside = all(torch.allclose(a.cpu(), b.cpu(), rtol=1e-3, atol=1e-4)
+                 for a, b in zip(tm.tleaves(files["fedpa-tp"]),
+                                 tm.tleaves(one["bf16"])))
+    print(f"  fedpa tensor-parallel full width bf16: two ranks vs one "
+          f"process on the card max abs diff {err:.3g} (within phase 4's "
+          f"bound {inside}); the one-process bf16 round vs its fp32 round "
+          f"{own:.3g}", flush=True)
+    if not err <= own:
+        fail(f"fsdp full tensor-parallel bf16: {err} from one process, "
+             f"farther than bf16's own rounding {own}")
+    return launches
+
+
 def fsdp_checkpoints(sums_algos, sums_full, files) -> None:
     """Phase 16g: the FSDP checkpoints the ranks wrote (16f's full-width
     server state, 16b's FedEP store): each rank read its own file back
@@ -4645,7 +4894,7 @@ def _to_cuda(tree):
 
 
 def sequential_fsdp(card: str, seed: int) -> dict:
-    """Phase 16 (16a-16c, 16e-16g); returns the DP launches of its
+    """Phase 16 (16a-16c, 16e-16h); returns the DP launches of its
     runs."""
     import torch
 
@@ -4674,6 +4923,10 @@ def sequential_fsdp(card: str, seed: int) -> dict:
     by_run.update(fsdp_full_fedlora(card, sums["fedlora-full"], files,
                                     seed))
     fsdp_checkpoints(sums["algos"], sums["fedlora-full"], files)
+    torch.cuda.empty_cache()
+    by_run.update(fsdp_full_tp(card, {"bf16": sums["fedpa-tp"],
+                                      "fp32": sums["fedpa-tp-fp32"]},
+                               sums["full"], files, seed))
     return by_run
 
 

@@ -78,8 +78,8 @@ CLIENT_AXES = ("pod", "data")
 #: ROADMAP.md queue-1 item that computes over the ``model`` axis: a
 #: population split over a mesh whose other axes are wider than 1 would
 #: replicate each shard over them (the ``parallel`` placement has no
-#: tensor parallelism yet).
-MODEL_AXIS_ITEM = "10 part 4"
+#: tensor parallelism yet; the ``sequential`` one's came with part 4a).
+MODEL_AXIS_ITEM = "10 part 4c"
 
 
 def _require_unique_ids(client_ids: np.ndarray, op: str) -> None:
@@ -186,7 +186,7 @@ def rank_of_shard(mesh, axes) -> list:
     """``rank_of_shard[s]``: the rank holding shard ``s`` over ``axes``,
     which must span every rank (each rank one shard); a mesh with other
     axes wider than 1 would replicate shards across them (compute over the
-    model axis, item 10 part 4; under FSDP the store is element-sharded
+    model axis, item 10 part 4c; under FSDP the store is element-sharded
     instead and splits no population)."""
     extent = math.prod(mesh.shape[a] for a in axes)
     if extent != mesh.size:

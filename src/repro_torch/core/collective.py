@@ -21,7 +21,12 @@ functions on tensors that take the mesh (``launch.mesh.ProcessMesh``).
     (the DP's dot products, the losses) summed over the ranks;
   * ``all_reduce_codec`` — a payload codec's partials over the ranks of an
     FSDP round: the ``lowrank`` factors of a client's leaves summed, the
-    ``int8`` maxima of its leaves' pieces maxed.
+    ``int8`` maxima of its leaves' pieces maxed;
+  * ``exchange_flat`` — the tensor-parallel FSDP round's params gather and
+    gradient reduce (``core/fsdp.py``): one all-to-all with uneven splits
+    that moves each rank exactly the elements it computes on (and back);
+  * ``all_reduce_model`` — an activation (or its gradient) summed over the
+    model ranks of a data slot (``sharding/tensor_parallel.py``).
 
 A mesh without a group (one process) makes each of them the identity; a
 group of one rank still runs its collective, so a one-rank NCCL group
@@ -41,12 +46,19 @@ reduce-scatter of ``W n`` elements sends ``(W - 1) n``; gloo has none, so
 its route all-reduces the whole vector, which a ring does by sending ``2
 (W - 1) n``) and as small sums (``small``: ``(W - 1)`` times the
 tensor's bytes), as codec partials (``codec``: ``(W - 1)`` times the
-tensor's bytes, as ``small``), the bytes staged between device and host
-(``staged``), the host seconds spent inside these functions (``seconds``:
-on gloo every call blocks until its data has moved; NCCL calls return once
-queued), and the calls of the FSDP kinds (``param_gathers``,
-``grad_reduces``, ``small_reduces``, ``codec_reduces``); ``sent_bytes()``
-sums the kinds sent.
+tensor's bytes, as ``small``), as activations summed over a model group
+(``activations``: ``(M - 1)`` times the tensor's bytes), the bytes staged
+between device and host (``staged``), the host seconds spent inside these
+functions (``seconds``: on gloo every call blocks until its data has
+moved; NCCL calls return once queued), the calls of the FSDP kinds
+(``param_gathers``, ``grad_reduces``, ``small_reduces``,
+``codec_reduces``, ``activation_reduces``), and the elements this rank
+received in its params gathers (``param_elements``: ``W n`` an all-gather,
+its compute elements an exchange, its own included) and sent in its
+gradient reduces (``grad_elements``: ``W n``, or the compute elements it
+returns: all of them from model index 0, the split leaves' from the
+other model ranks);
+``sent_bytes()`` sums the kinds sent.
 """
 from __future__ import annotations
 
@@ -63,13 +75,15 @@ from repro_torch.core import tree_math as tm
 #: This rank's collective calls, bytes sent to other ranks by kind, and
 #: bytes staged through the host.
 traffic = {"calls": 0, "rows": 0, "accumulator": 0, "gathered": 0,
-           "params": 0, "grads": 0, "small": 0, "codec": 0, "staged": 0,
-           "seconds": 0.0, "param_gathers": 0, "grad_reduces": 0,
-           "small_reduces": 0, "codec_reduces": 0}
+           "params": 0, "grads": 0, "small": 0, "codec": 0,
+           "activations": 0, "staged": 0, "seconds": 0.0,
+           "param_gathers": 0, "grad_reduces": 0, "small_reduces": 0,
+           "codec_reduces": 0, "activation_reduces": 0,
+           "param_elements": 0, "grad_elements": 0}
 
 #: The kinds of bytes sent to other ranks.
 SENT_KINDS = ("rows", "accumulator", "gathered", "params", "grads", "small",
-              "codec")
+              "codec", "activations")
 
 #: A Mersenne prime: the modulus of the digest's terms.
 _P = 2**31 - 1
@@ -199,18 +213,40 @@ def exchange_rows(mesh, rows: torch.Tensor, send_counts: Sequence[int],
             raise ValueError(f"one rank sends {send_counts} rows to itself "
                              f"but expects {recv_counts}")
         return rows
-    rows = rows.contiguous()
     row_bytes = rows.element_size() * math.prod(rows.shape[1:])
-    staged = _staged(mesh, rows)
-    src = _to_host(rows) if staged else rows
-    out = torch.empty((sum(recv_counts),) + tuple(rows.shape[1:]),
-                      dtype=rows.dtype, device=src.device)
-    dist.all_to_all_single(out, src, output_split_sizes=recv_counts,
-                           input_split_sizes=send_counts, group=mesh.group)
-    traffic["calls"] += 1
     traffic["rows"] += row_bytes * (sum(send_counts)
                                     - send_counts[mesh.rank])
-    return _from_host(out, rows.device) if staged else out
+    return _all_to_all(mesh, rows, send_counts, recv_counts)
+
+
+def _all_to_all(mesh, x: torch.Tensor, send_counts: list,
+                recv_counts: list) -> torch.Tensor:
+    """``dist.all_to_all_single`` of ``x``'s rows with uneven splits on
+    ``x``'s device, counted as one call. Staged through pinned host memory
+    on gloo with CUDA, where only the rows to and from the other ranks
+    cross the host: this rank's own rows are copied on the device."""
+    x = x.contiguous()
+    out = torch.empty((sum(recv_counts),) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    traffic["calls"] += 1
+    if not _staged(mesh, x):
+        dist.all_to_all_single(out, x, output_split_sizes=recv_counts,
+                               input_split_sizes=send_counts,
+                               group=mesh.group)
+        return out
+    r = mesh.rank
+    s0, r0 = sum(send_counts[:r]), sum(recv_counts[:r])
+    s1, r1 = s0 + send_counts[r], r0 + recv_counts[r]
+    src = _to_host(torch.cat([x[:s0], x[s1:]]))
+    got = torch.empty((out.shape[0] - (r1 - r0),) + tuple(x.shape[1:]),
+                      dtype=x.dtype, pin_memory=True)
+    dist.all_to_all_single(
+        got, src, output_split_sizes=recv_counts[:r] + [0]
+        + recv_counts[r + 1:], input_split_sizes=send_counts[:r] + [0]
+        + send_counts[r + 1:], group=mesh.group)
+    got = _from_host(got, x.device)
+    out[:r0], out[r0:r1], out[r1:] = got[:r0], x[s0:s1], got[r0:]
+    return out
 
 
 def digest(tree) -> torch.Tensor:
@@ -272,6 +308,7 @@ def all_gather_flat(mesh, x: torch.Tensor) -> torch.Tensor:
             out = _from_host(out, x.device)
     traffic["calls"] += 1
     traffic["param_gathers"] += 1
+    traffic["param_elements"] += W * x.numel()
     traffic["params"] += (W - 1) * x.numel() * x.element_size()
     return out
 
@@ -306,6 +343,7 @@ def reduce_scatter_flat(mesh, x: torch.Tensor) -> torch.Tensor:
         traffic["grads"] += 2 * (W - 1) * n * x.element_size()
     traffic["calls"] += 1
     traffic["grad_reduces"] += 1
+    traffic["grad_elements"] += W * n
     return out
 
 
@@ -338,3 +376,50 @@ def all_reduce_codec(mesh, x: torch.Tensor, op: str) -> torch.Tensor:
     itself without a group."""
     return _all_reduce(mesh, x, {"sum": dist.ReduceOp.SUM,
                                  "max": dist.ReduceOp.MAX}[op], "codec")
+
+
+@_timed
+def exchange_flat(mesh, x: torch.Tensor, send_counts: Sequence[int],
+                  recv_counts: Sequence[int], kind: str) -> torch.Tensor:
+    """All-to-all of the 1-D ``x``: its first ``send_counts[0]`` elements
+    go to rank 0, the next ``send_counts[1]`` to rank 1, ...; returns the
+    elements received, ``recv_counts[p]`` from rank ``p`` in rank order,
+    in ``x``'s dtype on its device. ``kind`` is ``"params"`` (a gather:
+    counted in ``param_gathers`` and ``param_elements``, the elements
+    received) or ``"grads"`` (a reduce: ``grad_reduces`` and
+    ``grad_elements``, the elements sent); the bytes to other ranks go to
+    ``kind``. Staged through pinned host memory on gloo with CUDA; ``x``
+    itself without a group."""
+    send_counts, recv_counts = list(send_counts), list(recv_counts)
+    x = x.reshape(-1)
+    if mesh is None or mesh.group is None:
+        if send_counts != recv_counts:
+            raise ValueError(f"one rank sends {send_counts} elements to "
+                             f"itself but expects {recv_counts}")
+        return x
+    out = _all_to_all(mesh, x, send_counts, recv_counts)
+    traffic[kind] += x.element_size() * (sum(send_counts)
+                                         - send_counts[mesh.rank])
+    if kind == "params":
+        traffic["param_gathers"] += 1
+        traffic["param_elements"] += sum(recv_counts)
+    else:
+        traffic["grad_reduces"] += 1
+        traffic["grad_elements"] += sum(send_counts)
+    return out
+
+
+@_timed
+def all_reduce_model(group, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of a model ``group`` (an
+    activation, or its gradient), as a new tensor on ``x``'s device, in its
+    dtype; staged through pinned host memory on gloo with CUDA."""
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    buf = (_to_host(x.contiguous()) if staged
+           else x.clone(memory_format=torch.contiguous_format))
+    dist.all_reduce(buf, group=group)
+    traffic["calls"] += 1
+    traffic["activation_reduces"] += 1
+    traffic["activations"] += ((dist.get_world_size(group) - 1) * x.numel()
+                               * x.element_size())
+    return _from_host(buf, x.device) if staged else buf

@@ -22,13 +22,36 @@ shard, in its dtype (the compute dtype), into the whole params tree; the
 cohort-batched ``grad_fn`` runs on this rank's rows of the client's batch
 (``local_rows``); ``reduce_grads`` sums the flat fp32 gradient over every
 rank, divides by W and keeps this rank's shard. The rows split over the
-client axes ("pod", "data") only, so the ranks along "model" compute the
-same rows: the sum over the W ranks is "model" times the sum over the
-data ranks, and dividing by W gives the mean over the client's batch. The
-losses are averaged the same way, so every rank holds the whole batch's
-loss. The DP's dot products are sums over the shards
-(``kernels.ops.dp_step_sharded``). Every collective runs outside
-``torch.func``: the wrapper sits around the cohort-batched ``grad_fn``.
+client axes ("pod", "data") only. Without tensor parallelism (no
+``"model"`` axis, a model extent of 1, a plan that splits nothing, or the
+rule override ``{"tp": ()}``) the ranks along "model" compute the same
+rows on the same params: the sum over the W ranks is "model" times the
+sum over the data ranks, and dividing by W gives the mean over the
+client's batch. The losses are averaged over every rank, so every rank
+holds the whole batch's loss. The DP's dot products are sums over the
+shards (``kernels.ops.dp_step_sharded``). Every collective of the layout
+runs outside ``torch.func``: the wrapper sits around the cohort-batched
+``grad_fn``.
+
+Tensor parallelism over "model" (a ``sharding.rules.TPPlan``, ``tp=``):
+the flat layout stays as it is, element for element; a local step changes
+in which elements each rank gathers, how the gradient returns to their
+owners, and the compute between. Model rank ``g`` of a data slot gathers
+exactly its compute elements (the replicated leaves whole, its columns or
+rows of each split block: ``TPPlan.runs(g)``) from whichever ranks hold
+them, with one all-to-all in the compute dtype
+(``collective.exchange_flat``), into a compute tree of local shapes; the
+model code computes on its heads and FFN columns under the active
+``sharding.tensor_parallel.ModelGroup`` (the conjugate pair's all-reduces
+over the model ranks of its data slot run inside ``torch.func``, through
+their ``vmap`` rules). The fp32 gradient goes back by the reverse
+exchange, and the owner of each element sums its contributions in rank
+order: a split element's from its model column's D data ranks, a
+replicated element's from the ranks with model index 0 only (the model
+ranks' replicated gradients are equal bit for bit, so the other ranks
+return their split leaves' elements alone), each divided by D.
+The vocabulary stays replicated, so the losses are the same on the model
+ranks of a data slot and ``mean_over_ranks`` stays the loss's mean.
 
 Every algorithm runs on the shards. The stateful ones keep their state
 in the same layout: SCAFFOLD's server control variate is one more ``(n,)``
@@ -77,6 +100,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.compression.base import jax_leaf_index
 from repro_torch.core import collective
 from repro_torch.kernels import ops
+from repro_torch.sharding import tensor_parallel
 
 #: The algorithms an FSDP round runs: all of the port's, with every
 #: payload codec.
@@ -137,14 +161,38 @@ def in_flat_layout(x) -> bool:
     return ref is not None and ref() is x
 
 
+def _below(starts: np.ndarray, lens: np.ndarray,
+           bounds: np.ndarray) -> np.ndarray:
+    """For each of ``bounds``, how many elements of the sorted, disjoint
+    runs ``[starts[i], starts[i] + lens[i])`` lie below it."""
+    ends = np.cumsum(lens)
+    i = np.searchsorted(starts, bounds, side="right") - 1
+    j = np.maximum(i, 0)
+    inside = np.minimum(bounds - starts[j], lens[j])
+    return np.where(i < 0, 0, ends[j] - lens[j] + inside)
+
+
+def _expand(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The indices of the runs ``[starts[i], starts[i] + lens[i])``,
+    concatenated (int64)."""
+    if not lens.sum():
+        return np.zeros(0, np.int64)
+    before = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    return (np.arange(lens.sum(), dtype=np.int64)
+            + np.repeat(starts - before, lens))
+
+
 class FlatShard:
     """The flat partition of a params tree over the ranks of ``mesh``:
     ``d`` elements, ``W`` ranks, ``n = ceil(d / W)`` a rank, this rank's
     elements ``[lo, lo + n)`` (the last rank's tail is zero padding), the
     ``template`` tree (shapes; meta tensors do) and this rank's part of a
-    client's batch rows (``data_extent``, ``data_index``)."""
+    client's batch rows (``data_extent``, ``data_index``). With ``tp`` (a
+    ``sharding.rules.TPPlan`` over the mesh's ``"model"`` extent) the local
+    steps compute tensor-parallel (``model``: this rank's
+    ``tensor_parallel.ModelGroup``); the layout itself is the same."""
 
-    def __init__(self, template, mesh=None):
+    def __init__(self, template, mesh=None, tp=None):
         pairs = _paths(template)
         self.template = template
         self.mesh = mesh
@@ -159,6 +207,64 @@ class FlatShard:
         self.data_extent, self.data_index = ((1, 0) if mesh is None
                                              else mesh.data_slot())
         self._pieces = None
+        self.tp, self.model = tp, None
+        if tp is not None:
+            self._init_tp(tp)
+
+    def _init_tp(self, tp) -> None:
+        """The model group of this rank's data slot (made on every rank)
+        and the two exchanges of the tensor-parallel local step. The
+        gather sends each rank the elements of this shard its model rank
+        computes on, in ravel order. The gradient comes back from model
+        index 0's ranks on all of them, from the other ranks on their
+        split leaves' elements only (the replicated leaves' gradients are
+        the same on every model rank, and the owner keeps model index
+        0's): ``_tp_back[g]``, the positions in this shard that model
+        rank g's ranks return; the split sizes of each all-to-all; the
+        ranks of each model column."""
+        mesh = self.mesh
+        if mesh is None or mesh.shape.get("model") != tp.M:
+            raise ValueError(f"a tensor-parallel plan over {tp.M} model "
+                             f"ranks needs a mesh with a 'model' axis of "
+                             f"{tp.M}; got {mesh and mesh.shape}")
+        W, n, M = self.W, self.n, tp.M
+        col = [mesh.coords(q)["model"] for q in range(W)]
+        slots: dict = {}
+        for q in range(W):
+            slots.setdefault(mesh.data_slot(q)[1], []).append(q)
+        group = tensor_parallel.model_group(mesh, [slots[k] for k in
+                                                   sorted(slots)])
+        self.model = tensor_parallel.ModelGroup(group, M, col[self.rank],
+                                                tp.attn, tp.ffn)
+        def cut(g, split_only):
+            """How many of model rank g's elements each rank's shard
+            holds, and their positions in this rank's shard."""
+            st, ln = tp.runs(g, split_only)
+            a = np.clip(st, self.lo, self.lo + n)
+            b = np.clip(st + ln, self.lo, self.lo + n)
+            keep = b > a
+            # int32 positions (n < 2**31): half the index bytes
+            return (np.diff(_below(st, ln, np.arange(W + 1) * n)),
+                    torch.from_numpy(_expand(a[keep] - self.lo, b[keep]
+                                             - a[keep]).astype(np.int32)
+                                     ).to(mesh.device))
+
+        full = [cut(g, False) for g in range(M)]
+        back = [full[0]] + [cut(g, True) for g in range(1, M)]
+        me = col[self.rank]
+        self._tp_send_idx = torch.cat([full[col[q]][1] for q in range(W)])
+        self._tp_send = [int(full[col[q]][0][self.rank]) for q in range(W)]
+        self._tp_recv = [int(full[me][0][p]) for p in range(W)]
+        self._tp_back = [i for _, i in back]
+        self._tp_grad_send = [int(back[me][0][q]) for q in range(W)]
+        self._tp_grad_recv = [int(back[col[p]][0][self.rank])
+                              for p in range(W)]
+        self._tp_returned = [me == 0 or s.dim is not None
+                             for s in tp.leaves]
+        self._tp_cols = [[q for q in range(W) if col[q] == g]
+                         for g in range(M)]
+        self._tp_shapes = tp.local_shapes()
+        self._tp_sizes = [int(np.prod(s)) for s in self._tp_shapes]
 
     # -- layout ---------------------------------------------------------------
     def _leaves(self, tree) -> list:
@@ -215,6 +321,46 @@ class FlatShard:
             off += k
         return pytree.tree_unflatten(out, pytree.tree_structure(
             self.template))
+
+    def gather_compute(self, shard: torch.Tensor):
+        """The compute tree of this rank's model rank (the leaves' local
+        shapes, ``sharding.rules.TPPlan``) from every rank's ``shard``
+        (``(n,)`` or ``(1, n)``, the lead kept on every leaf), in the
+        shard's dtype: one all-to-all that moves this rank exactly its
+        compute elements."""
+        lead = tuple(shard.shape[:-1])
+        got = collective.exchange_flat(
+            self.mesh, shard.reshape(-1).index_select(0, self._tp_send_idx),
+            self._tp_send, self._tp_recv, "params")
+        rows = got.reshape(*lead, -1)
+        out, off = [], 0
+        for k, shape in zip(self._tp_sizes, self._tp_shapes):
+            out.append(rows[..., off:off + k].reshape(*lead, *shape))
+            off += k
+        return pytree.tree_unflatten(out, pytree.tree_structure(
+            self.template))
+
+    def reduce_compute(self, grads) -> torch.Tensor:
+        """This rank's ``(1, n)`` shard of the batch-mean fp32 gradient
+        from every rank's compute-tree ``grads`` (local shapes, a lead of
+        1): the reverse exchange (model index 0's ranks return every
+        element, the others their split leaves' only), then per element
+        the contributions of its model column's data ranks (model index
+        0's for a replicated element) summed in rank order and divided by
+        D."""
+        flat = torch.cat([x.reshape(-1).to(torch.float32) for x, keep in
+                          zip(self._leaves(grads), self._tp_returned)
+                          if keep])
+        got = collective.exchange_flat(self.mesh, flat, self._tp_grad_send,
+                                       self._tp_grad_recv, "grads")
+        parts = got.split(self._tp_grad_recv)
+        out = torch.zeros(self.n, dtype=torch.float32, device=got.device)
+        for g in range(self.model.size):
+            total = None
+            for q in self._tp_cols[g]:
+                total = parts[q] if total is None else total + parts[q]
+            out.index_put_((self._tp_back[g],), total)
+        return (out / (self.W // self.model.size)).reshape(1, self.n)
 
     def reduce_grads(self, flat_grads: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the mean over ranks of ``flat_grads``
@@ -297,10 +443,16 @@ class FlatShard:
         n), rows) -> (loss (1,) over the client's whole batch, this rank's
         shard of the batch-mean gradient (1, n) in the shard's dtype)``."""
         def fsdp_grad_fn(shard, batch):
-            loss, grads = grad_fn(self.gather_tree(shard), batch)
-            flat = self._pack(grads, 0, self.W * self.n, 1, torch.float32)
+            if self.model is None:
+                loss, grads = grad_fn(self.gather_tree(shard), batch)
+                flat = self._pack(grads, 0, self.W * self.n, 1,
+                                  torch.float32)
+                return (self.mean_over_ranks(loss),
+                        self.reduce_grads(flat).to(shard.dtype))
+            with tensor_parallel.model_parallel(self.model):
+                loss, grads = grad_fn(self.gather_compute(shard), batch)
             return (self.mean_over_ranks(loss),
-                    self.reduce_grads(flat).to(shard.dtype))
+                    self.reduce_compute(grads).to(shard.dtype))
 
         return fsdp_grad_fn
 

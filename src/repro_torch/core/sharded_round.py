@@ -31,8 +31,19 @@ so ``make_fed_round_split`` runs under FSDP too. FedLoRA's payload codecs
 run on the shards as well: the ``lowrank`` factors are summed over the
 ranks and each leaf's ``int8`` scale maxed over them (``core/fsdp.py``),
 where the reference's ``map_components`` passes the encoded payload by.
-Compute is not split over ``model`` (the reference's ``tp_constrain``
-computes on tensor-parallel params: ROADMAP.md queue 1, item 10 part 4).
+On a mesh with a ``"model"`` axis the compute is tensor-parallel over it,
+as the reference's ``tp_constrain`` at the gather boundary makes it: by
+``rules`` (``sharding.rules``; the reference's ``DEFAULT_RULES`` map
+``"tp"`` to ``"model"``) each model rank of a data slot gathers only its
+heads' and FFN columns' elements of the attention and dense-FFN blocks
+(the rest replicated), computes on them with Megatron's all-reduces over
+the slot's model ranks, and its gradient returns to the elements' owners
+by the reverse exchange (``core/fsdp.py``); the state layout is the same.
+The override ``rules={"tp": ()}`` maps ``"tp"`` to no axis: the ranks
+along ``model`` then compute the same rows on the whole params. The
+vocabulary, MoE and the other families stay replicated (ROADMAP.md queue
+1, item 10 part 4b), and the ``parallel`` and ``chunked`` placements take
+no ``model`` split (4c).
 Without a mesh every sharding hook is the identity (the
 reference's ``prepare_params``, ``constrain_accum``, ``finalize_params``
 and the payload constraint place nothing), so they are left out. Either
@@ -58,18 +69,26 @@ from repro_torch.core.round_program import (make_cohort_program,
                                             make_server_program)
 from repro_torch.models.model import init_params
 from repro_torch.models.steps import lm_grad_fn
+from repro_torch.sharding import rules as sharding_rules
 
 
-def fsdp_layout(cfg: ModelConfig, mesh) -> fsdp.FlatShard:
+def fsdp_layout(cfg: ModelConfig, mesh,
+                rules: Optional[dict] = None) -> fsdp.FlatShard:
     """The flat FSDP layout of ``cfg``'s params over ``mesh``'s ranks
-    (``core.fsdp.FlatShard``; the params' shapes from the meta device)."""
-    return fsdp.FlatShard(init_params(None, cfg, device="meta"), mesh)
+    (``core.fsdp.FlatShard``; the params' shapes from the meta device),
+    tensor-parallel over the mesh axes ``rules`` map ``"tp"`` to (the
+    reference's ``DEFAULT_RULES`` by default: ``"model"``) when a block
+    splits there (``sharding.rules.tp_plan``). Every rank of the mesh
+    builds it (a tensor-parallel layout makes the model groups)."""
+    template = init_params(None, cfg, device="meta")
+    return fsdp.FlatShard(template, mesh, tp=sharding_rules.tp_plan(
+        cfg, template, mesh, rules))
 
 
 def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
                     compute_dtype, q_chunk: int, remat: str,
                     use_sampling: bool, chunk_size: Optional[int],
-                    mesh=None, spmd_axes=None):
+                    mesh=None, spmd_axes=None, rules=None, layout=None):
     """Shared wiring: ``(grad_fn, round_kwargs)`` for a placement."""
     grad_fn = lm_grad_fn(cfg, compute_dtype=compute_dtype, q_chunk=q_chunk,
                          remat=remat)
@@ -79,8 +98,10 @@ def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
                              spmd_axes=spmd_axes)
     if placement != "sequential":
         raise ValueError(f"unknown placement {placement!r}")
-    if mesh is not None:
-        kw["fsdp"] = fsdp_layout(cfg, mesh)
+    if layout is not None:
+        kw["fsdp"] = layout
+    elif mesh is not None:
+        kw["fsdp"] = fsdp_layout(cfg, mesh, rules)
 
     def wrap_client(client_update):
         def cast_client_update(master_params, batches, *extra):
@@ -101,9 +122,10 @@ def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
 def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
                    placement: str = "parallel",
                    compute_dtype=torch.bfloat16, q_chunk: int = 1024,
-                   remat: str = "none", use_sampling: bool = True,
+                   remat: str = "full", use_sampling: bool = True,
                    chunk_size: Optional[int] = None, mesh=None,
-                   spmd_axes=None) -> Callable:
+                   spmd_axes=None, rules: Optional[dict] = None,
+                   layout=None) -> Callable:
     """Build ``round_fn(server_state, client_batches, client_weights=None,
     survivor_mask=None) -> (state, metrics)``; a stateful algorithm's
     round takes and returns its client state as
@@ -113,11 +135,10 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     client_batches: ``{"tokens": (C, K, B_local, S+1) int}``, plus
     ``"frontend": (C, K, B_local, F, d)`` for a frontend arch (numpy or
     tensors). ``use_sampling=False`` gives the burn-in-round variant
-    (FedAvg regime) of the same FedPA config. ``remat="full"`` recomputes
-    each pattern repeat in the backward pass under the round's
-    ``vmap(grad)`` (``models.model.recompute``), as the reference's
-    default does; the port's default is ``"none"``, since its rounds are
-    bound by the host's launches and the recompute adds device ops.
+    (FedAvg regime) of the same FedPA config. ``remat="full"`` (the
+    default, as the reference's) recomputes each pattern repeat in the
+    backward pass under the round's ``vmap(grad)``
+    (``models.model.recompute``); ``"none"`` keeps every activation;
     ``"dots"`` raises (``models.model.forward``). At ``parallel`` and
     ``chunked`` a ``mesh`` splits the cohort's rows over its ranks
     (``client_batches`` are then this rank's rows), over the client axes
@@ -127,26 +148,30 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     mesh).shard_state``), a stateful algorithm's client states this
     rank's rows (``shard_rows``, or a store made with
     ``make_client_store(..., fsdp=layout)``), ``client_batches`` the
-    whole cohort's, and the new state comes back sharded.
+    whole cohort's, and the new state comes back sharded; ``rules``
+    override the reference's logical-axis rules (``{"tp": ()}``: no
+    tensor parallelism over ``model``), and ``layout`` gives the FSDP
+    layout to run instead of ``fsdp_layout(cfg, mesh, rules)``.
     """
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
                                   q_chunk, remat, use_sampling, chunk_size,
-                                  mesh, spmd_axes)
+                                  mesh, spmd_axes, rules, layout)
     return make_round_program(grad_fn, fed, **kw)
 
 
 def make_fed_round_split(cfg: ModelConfig, fed: FedConfig, *,
                          placement: str = "parallel",
                          compute_dtype=torch.bfloat16, q_chunk: int = 1024,
-                         remat: str = "none", use_sampling: bool = True,
+                         remat: str = "full", use_sampling: bool = True,
                          chunk_size: Optional[int] = None, mesh=None,
-                         spmd_axes=None) -> Tuple[Callable, Callable]:
+                         spmd_axes=None, rules: Optional[dict] = None,
+                         layout=None) -> Tuple[Callable, Callable]:
     """Same wiring as ``make_fed_round``, split into the engine's two
     stages: ``(cohort_fn, server_fn)`` (``round_program``'s
     ``make_cohort_program`` / ``make_server_program``)."""
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
                                   q_chunk, remat, use_sampling, chunk_size,
-                                  mesh, spmd_axes)
+                                  mesh, spmd_axes, rules, layout)
     return (make_cohort_program(grad_fn, fed, **kw),
             make_server_program(fed, use_sampling=use_sampling,
                                 fsdp=kw.get("fsdp")))

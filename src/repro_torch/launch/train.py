@@ -60,12 +60,27 @@ peak memory, store rows and bytes, host ms and bytes sent to other ranks
 per round). ``--shard-population`` alone runs the sharded path in one
 process. ``--async-rounds`` stays single-process, as in the reference.
 
+``--model-parallel M`` (a multi-process run whose ``--num-processes`` W
+it divides) lays the ranks out as a ``("data", "model")`` mesh of ``(W /
+M, M)`` and runs every round at the ``sequential`` placement
+(``core/sharded_round.py``): the server state, the client iterate and the
+per-client states (a store made for the layout) are FSDP-sharded over
+all W ranks, every rank runs every client of the cohort on its rows of
+the client's batch, and the attention and dense-FFN blocks compute
+tensor-parallel over "model" (``core/fsdp.py``, ``sharding/``). Every
+rank writes its shards at a checkpoint (``save_checkpoint_fsdp``) and a
+restore reads the set back; the eval loss is computed on the gathered
+params, on every rank; rank 0 prints the records. This path is the
+port's addition: the reference's entry point runs the ``parallel``
+placement only.
+
+The local steps recompute each pattern repeat in the backward pass by
+default (``main(remat="full")``, the reference's default, through
+``models.model.recompute`` under the round's ``vmap(grad)``);
+``main(remat="none")`` keeps every activation.
+
 Differences from the reference:
 
-* The local steps keep every activation by default (``main(remat=
-  "none")``); the reference recomputes each pattern repeat
-  (``remat="full"``), which ``main(remat="full")`` gives here too
-  (``models.model.recompute``, under the round's ``vmap(grad)``).
 * ``--dist-backend {nccl,gloo}`` (default: nccl on CUDA, gloo on the
   CPU) stands for the reference's ``jax_cpu_collectives_implementation``
   setting; gloo on CUDA is how two ranks share one card, which NCCL
@@ -86,10 +101,12 @@ import torch
 from repro_torch import configs
 from repro_torch.algorithms import algorithm_names, get_algorithm, phase_name
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-from repro_torch.checkpoint.io import (restore_store_sharded,
+from repro_torch.checkpoint.io import (restore_checkpoint_fsdp,
+                                       restore_store_sharded,
+                                       save_checkpoint_fsdp,
                                        save_store_sharded)
 from repro_torch.compression.accounting import round_bytes
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import FedConfig, MeshConfig
 from repro_torch.core import collective
 from repro_torch.core import tree_math as tm
 from repro_torch.core.client_state import make_client_store
@@ -97,14 +114,14 @@ from repro_torch.core.engine import RoundEngine
 from repro_torch.core.round import resolve_device
 from repro_torch.core.round_program import to_device
 from repro_torch.core.server import init_server_state
-from repro_torch.core.sharded_round import make_fed_round_split
+from repro_torch.core.sharded_round import fsdp_layout, make_fed_round_split
 from repro_torch.data.cohort_source import CohortSource
 from repro_torch.data.lm_synthetic import SyntheticLMData
 from repro_torch.data.prefetch import (globalize_cohort_batches,
                                        local_row_range)
 from repro_torch.kernels import fedpa_dp
 from repro_torch.launch.mesh import (DEFAULT_TIMEOUT_S, init_distributed,
-                                     make_host_mesh)
+                                     make_host_mesh, mesh_from_config)
 from repro_torch.models.model import init_params
 from repro_torch.models.steps import lm_loss
 from repro_torch.optim import get_optimizer
@@ -225,6 +242,13 @@ def parse_args(argv=None):
                          "gloo on the CPU; gloo lets ranks share a card)")
     ap.add_argument("--dist-timeout", type=float, default=DEFAULT_TIMEOUT_S,
                     help="seconds to wait for the other ranks")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks along the mesh's 'model' axis: above 1, "
+                         "the ranks form a ('data', 'model') mesh and every "
+                         "round runs at the sequential placement with its "
+                         "state FSDP-sharded over all ranks and its "
+                         "attention and FFN compute tensor-parallel over "
+                         "'model'")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -309,15 +333,19 @@ def make_eval_fn(args, cfg, data, s_text, q_chunk, device, compute_dtype):
     return eval_fn
 
 
-def restore_if_present(args, state, store, ckpt_tree, verbose=True):
-    """Resume from ``--ckpt-dir`` when it holds a checkpoint; returns
+def restore_if_present(args, state, store, ckpt_tree, verbose=True,
+                       layout=None):
+    """Resume from ``--ckpt-dir`` when it holds a checkpoint (under an FSDP
+    ``layout``, a set of ``save_checkpoint_fsdp`` files); returns
     ``(state, start_round)`` and loads the client state into ``store`` in
     place."""
     start_round = 0
     if args.ckpt_dir and os.path.isdir(args.ckpt_dir):
         try:
-            restored, start_round, _ = restore_checkpoint(args.ckpt_dir,
-                                                          ckpt_tree(state))
+            restored, start_round, _ = (
+                restore_checkpoint(args.ckpt_dir, ckpt_tree(state))
+                if layout is None else restore_checkpoint_fsdp(
+                    args.ckpt_dir, ckpt_tree(state), None, layout))
         except FileNotFoundError:
             return state, 0
         if store is None:
@@ -349,16 +377,21 @@ class RankRows:
 
 def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
                eval_fn, emit, maybe_checkpoint, q_chunk, compute_dtype,
-               remat, mesh=None):
+               remat, mesh=None, layout=None, params=None):
     """Drive the ``RoundEngine`` over the burn-in and sampling programs
     from ``start_round`` to ``args.rounds``; returns ``(state, history)``.
     Synchronous runs keep an in-flight window of one; ``--async-rounds``
     widens it to ``max_staleness + 1``. With a ``mesh`` the cohort splits
     over its ranks, and the ranks' server states are compared after every
-    round (``collective.check_replicas``)."""
+    round (``collective.check_replicas``). With an FSDP ``layout``
+    (``--model-parallel``) the rounds run at ``sequential`` on this rank's
+    shards and ``params`` (the whole tree) gives the wire bytes."""
     has_burn = alg.burns_in
     kw = dict(placement="parallel", compute_dtype=compute_dtype,
               q_chunk=q_chunk, remat=remat, mesh=mesh)
+    if layout is not None:
+        kw.update(placement="sequential", mesh=layout.mesh, layout=layout)
+    params = state.params if params is None else params
 
     def stages(use_sampling):
         return make_fed_round_split(cfg, fed, use_sampling=use_sampling,
@@ -367,7 +400,7 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
     cohort_fn, server_fn = stages(True)
     burn_cohort_fn, burn_server_fn = (stages(False) if has_burn
                                       else (None, None))
-    rb = round_bytes(fed, state.params)
+    rb = round_bytes(fed, params)
     engine = RoundEngine(
         cohort_fn=cohort_fn,
         server_fn=server_fn,
@@ -379,7 +412,7 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
         prefetch_rounds=fed.prefetch_rounds,
         prefetch_backend=fed.prefetch_backend,
         round_bytes=rb,
-        burn_round_bytes=(round_bytes(fed, state.params, use_sampling=False)
+        burn_round_bytes=(round_bytes(fed, params, use_sampling=False)
                           if has_burn else rb),
         client_store=store,
         stateful=alg.stateful,
@@ -415,14 +448,15 @@ def run_rounds(args, cfg, fed, alg, state, store, start_round, source,
 
 
 def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE,
-         remat: str = "none") -> dict:
+         remat: str = "full") -> dict:
     """Parse flags, build the round programs, drive the training loop.
 
     ``cfg`` replaces the config that ``--arch`` / ``--smoke`` name,
     ``compute_dtype`` the bf16 compute of the local steps (a full-width
     model cut in depth, in fp32, for comparing devices) and ``remat`` the
     local steps' recompute (``"full"``: each pattern repeat recomputed in
-    the backward pass, as the reference's default). Returns ``cfg``,
+    the backward pass, the default, as the reference's; ``"none"`` keeps
+    every activation). Returns ``cfg``,
     the final ``state``, the per-client ``store`` (None when stateless),
     the engine's ``history``, the printed ``records``, each round's host
     ``seconds``, the ``mesh`` (None unless sharded) and each round's
@@ -445,19 +479,37 @@ def main(argv=None, *, cfg=None, compute_dtype=COMPUTE_DTYPE,
             torch.distributed.destroy_process_group()
 
 
+def _fsdp_mesh(args, distributed: bool, device):
+    """The ``("data", "model")`` mesh of a ``--model-parallel`` run (None
+    without one)."""
+    M = args.model_parallel
+    if M <= 1:
+        return None
+    if not distributed or args.num_processes % M:
+        raise SystemExit(f"--model-parallel {M} needs a multi-process run "
+                         f"whose --num-processes it divides")
+    if args.shard_population:
+        raise SystemExit("--model-parallel shards every client's state "
+                         "over the ranks; drop --shard-population")
+    return mesh_from_config(MeshConfig(shape=(args.num_processes // M, M),
+                                       axes=("data", "model")), device)
+
+
 def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
     """``main`` once the process group (if any) is up."""
-    shard_pop = args.shard_population or distributed
     device = resolve_device(args.device)
+    fsdp_mesh = _fsdp_mesh(args, distributed, device)
+    shard_pop = (args.shard_population or distributed) and fsdp_mesh is None
     mesh = make_host_mesh(device) if shard_pop else None
-    if mesh is not None:
-        device = mesh.device
-    is_main = mesh is None or mesh.rank == 0
+    ranks = mesh or fsdp_mesh
+    if ranks is not None:
+        device = ranks.device
+    is_main = ranks is None or ranks.rank == 0
     if cfg is None:
         cfg = (configs.get_smoke(args.arch) if args.smoke
                else configs.get_config(args.arch))
     fed = build_fed(args)
-    if shard_pop and fed.prefetch_backend == "process":
+    if ranks is not None and fed.prefetch_backend == "process":
         # a rank's cohort builder places its rows on the rank's device,
         # which a spawned builder child must never touch
         fed = dataclasses.replace(fed, prefetch_backend="thread")
@@ -465,9 +517,10 @@ def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
         print(f"arch={cfg.name} params={cfg.param_count():,} "
               f"algorithm={fed.algorithm} rounds={args.rounds} "
               f"device={device}"
-              + (f" processes={mesh.size} backend={mesh.backend}"
+              + (f" processes={ranks.size} backend={ranks.backend}"
                  if distributed else "")
-              + (f" population_mesh={tuple(mesh.sizes)}" if mesh else ""))
+              + (f" population_mesh={tuple(mesh.sizes)}" if mesh else "")
+              + (f" fsdp_mesh={fsdp_mesh.shape}" if fsdp_mesh else ""))
 
     data = SyntheticLMData(vocab_size=cfg.vocab_size,
                            num_clients=args.num_clients, seed=args.seed)
@@ -478,6 +531,10 @@ def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
                                fed.server_momentum)
     alg = get_algorithm(fed)
     state = init_server_state(params, server_opt, algorithm=alg)
+    layout = None
+    if fsdp_mesh is not None:
+        layout = fsdp_layout(cfg, fsdp_mesh)
+        state = layout.shard_state(state)
     device_store = fed.client_state_placement == "device"
     stateful = alg.stateful or alg.burn_stateful
     if shard_pop and stateful and not device_store:
@@ -486,8 +543,9 @@ def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
                          "--client-state-placement device")
     store = (make_client_store(fed.client_state_placement, args.num_clients,
                                device=device,
-                               mesh=mesh if device_store else None)
-             .ensure(alg.init_client_state(params))
+                               mesh=mesh if device_store else None,
+                               fsdp=layout)
+             .ensure(alg.init_client_state(state.params))
              if stateful else None)
     # a sharded store never ships in the server checkpoint: each rank
     # writes its own rows (checkpoint.io.save_store_sharded)
@@ -505,6 +563,10 @@ def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
         if args.ckpt_dir and ((r + 1) % args.ckpt_every == 0
                               or r == args.rounds - 1):
             meta = {"arch": cfg.name, "algorithm": fed.algorithm}
+            if layout is not None:      # every rank writes its shards
+                save_checkpoint_fsdp(args.ckpt_dir, ckpt_tree(round_state),
+                                     r + 1, layout, meta)
+                return
             if is_main:
                 save_checkpoint(args.ckpt_dir, ckpt_tree(round_state), r + 1,
                                 meta)
@@ -513,7 +575,7 @@ def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
 
     state, start_round = restore_if_present(
         args, state, None if sharded_store else store, ckpt_tree,
-        verbose=is_main)
+        verbose=is_main, layout=layout)
     if sharded_store and start_round:
         restore_store_sharded(args.ckpt_dir, store, step=start_round)
     q_chunk = min(64, s_text)
@@ -525,7 +587,13 @@ def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
                                                                 mesh),
                           seed=args.seed)
     eval_fn = (make_eval_fn(args, cfg, data, s_text, q_chunk, device,
-                            compute_dtype) if is_main else None)
+                            compute_dtype)
+               if is_main or layout is not None else None)
+    if layout is not None:      # every rank gathers the whole params
+        eval_whole = eval_fn
+
+        def eval_fn(shard):
+            return eval_whole(layout.gather_tree(shard))
 
     records, seconds, sent = [], [], []
     collective.reset_traffic()
@@ -545,13 +613,14 @@ def _train(args, distributed: bool, cfg, compute_dtype, remat) -> dict:
         state, history = run_rounds(args, cfg, fed, alg, state, store,
                                     start_round, source, eval_fn, emit,
                                     maybe_checkpoint, q_chunk,
-                                    compute_dtype, remat, mesh)
+                                    compute_dtype, remat, mesh, layout,
+                                    params)
     if distributed:
         print(json.dumps({"rank_summary": rank_summary(
-            mesh, device, store, seconds, sent)}), flush=True)
+            ranks, device, store, seconds, sent)}), flush=True)
     return {"cfg": cfg, "state": state, "store": store, "history": history,
-            "records": records, "seconds": seconds, "mesh": mesh,
-            "sent": sent}
+            "records": records, "seconds": seconds, "mesh": ranks,
+            "sent": sent, "layout": layout}
 
 
 def rank_summary(mesh, device, store, seconds, sent) -> dict:

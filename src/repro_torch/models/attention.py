@@ -25,6 +25,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import rms_norm, rope
+from repro_torch.sharding import tensor_parallel
 
 
 class AttnCache(NamedTuple):
@@ -54,14 +55,26 @@ def init_attn_params(init, cfg: ModelConfig, lead=()):
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions):
+    """q (B, S, H, dh), k and v (B, S, KV, dh) with rope (and qk-norm).
+    The head counts are the projections' columns over ``head_dim``: the
+    config's, or a model rank's ``H / M`` and ``KV / M`` under tensor
+    parallelism (``sharding/rules.py``), whose partial gradients of the
+    replicated qk-norm scales are summed over the model group
+    (``tensor_parallel.copy_to_model``)."""
     B, S, _ = x.shape
-    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    H, KV = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     q = (x @ p["wq"]).reshape(B, S, H, dh)
     k = (x @ p["wk"]).reshape(B, S, KV, dh)
     v = (x @ p["wv"]).reshape(B, S, KV, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_scale"], cfg.norm_eps)
-        k = rms_norm(k, p["k_scale"], cfg.norm_eps)
+        q_scale, k_scale = p["q_scale"], p["k_scale"]
+        tp = tensor_parallel.active()
+        if tp is not None and tp.attn:
+            q_scale = tensor_parallel.copy_to_model(q_scale)
+            k_scale = tensor_parallel.copy_to_model(k_scale)
+        q = rms_norm(q, q_scale, cfg.norm_eps)
+        k = rms_norm(k, k_scale, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v

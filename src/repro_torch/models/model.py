@@ -16,7 +16,11 @@ over repeats. Its position ``pos`` is a host int, so a decode step reads
 nothing back from the device, and the caches are updated in place (clone
 the state to keep an earlier one). The JAX package's sharding constraints
 (``repro.sharding.constrain``) have no counterpart on one device and are
-dropped.
+dropped; under tensor parallelism over ``model`` (a
+``sharding.tensor_parallel.ModelGroup`` active around a local step) the
+attention and dense-FFN blocks compute on the model rank's heads and
+columns, with Megatron's conjugate pair at their edges (``_apply_layer``,
+``_ffn``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import rms_norm, swiglu
+from repro_torch.sharding import tensor_parallel
 
 #: ROADMAP.md queue-1 item that brings ``remat="dots"`` (keep the weight
 #: products, recompute the rest) under ``torch.func`` transforms.
@@ -193,6 +198,12 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
     if spec.ffn == "moe":
         y, aux = moe_mod.moe_ffn(f["moe"], u, cfg)
         return x + y, aux
+    tp = tensor_parallel.active()
+    if tp is not None and tp.ffn:
+        # this model rank's d_ff / M columns, the output summed over them
+        y = swiglu(tensor_parallel.copy_to_model(u), f["w_gate"],
+                   f["w_up"], f["w_down"])
+        return x + tensor_parallel.reduce_from_model(y), None
     return x + swiglu(u, f["w_gate"], f["w_up"], f["w_down"]), None
 
 
@@ -202,9 +213,14 @@ def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, q_chunk: int,
     cache: raw (k, v) for attention, else its decode state)."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if spec.mixer in ("attn", "swa"):
-        y, cache = attn.attn_forward(p["mixer"], h, cfg, spec,
-                                     q_chunk=q_chunk,
-                                     return_cache=return_cache)
+        tp = tensor_parallel.active()
+        split = tp is not None and tp.attn
+        # split: this model rank's heads, the output projection summed
+        y, cache = attn.attn_forward(
+            p["mixer"], tensor_parallel.copy_to_model(h) if split else h,
+            cfg, spec, q_chunk=q_chunk, return_cache=return_cache)
+        if split:
+            y = tensor_parallel.reduce_from_model(y)
     else:
         y, cache = _MIXER_FORWARD[spec.mixer](p["mixer"], h, cfg,
                                               return_cache=return_cache)
@@ -244,7 +260,13 @@ class _Recompute(torch.autograd.Function):
     ``torch.func.grad`` takes its gradient with ``create_graph=True``,
     which would otherwise keep every recomputed activation (and without a
     recompute, every backward intermediate) alive until the end of the
-    call."""
+    call.
+
+    The forward's model group (``sharding.tensor_parallel.active()``) is
+    kept in the context and made active again around the replay: autograd
+    runs a CUDA backward on its own device thread, where no model group is
+    active, and a replay without it would compute the split blocks with
+    none of their all-reduces."""
 
     generate_vmap_rule = True
 
@@ -257,6 +279,7 @@ class _Recompute(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         fn, spec, *flat = inputs
         ctx.fn, ctx.spec = fn, spec
+        ctx.model = tensor_parallel.active()
         ctx.save_for_backward(*flat)
 
     @staticmethod
@@ -264,7 +287,7 @@ class _Recompute(torch.autograd.Function):
         def fn(*flat):
             return ctx.fn(*pytree.tree_unflatten(list(flat), ctx.spec))
 
-        with torch.no_grad():
+        with torch.no_grad(), tensor_parallel.model_parallel(ctx.model):
             _, vjp_fn = torch.func.vjp(fn, *ctx.saved_tensors)
             return (None, None, *vjp_fn(grads))
 

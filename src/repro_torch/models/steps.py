@@ -36,15 +36,16 @@ def lm_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
 
 
 def lm_grad_fn(cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-               q_chunk: int = 1024, remat: str = "none"):
+               q_chunk: int = 1024, remat: str = "full"):
     """The per-client ``grad_fn(params, batch) -> (loss, grads)`` that
     FedAvg/FedPA step with, written with ``torch.func.grad_and_value`` so
     that the round program can ``vmap`` it over the cohort. Compute runs
     in ``compute_dtype`` on the fp32 master params; grads come back fp32.
 
-    ``remat="full"`` recomputes each pattern repeat in the backward pass
-    (``model.recompute``, which composes with ``vmap(grad)``): only the
-    repeats' inputs are kept. ``remat="dots"`` raises
+    ``remat="full"`` (the default, as the reference's) recomputes each
+    pattern repeat in the backward pass (``model.recompute``, which
+    composes with ``vmap(grad)``): only the repeats' inputs are kept;
+    ``"none"`` keeps every activation. ``remat="dots"`` raises
     ``NotImplementedError`` when called (ROADMAP.md queue 1, item 13).
     """
     def loss(params, batch):

@@ -204,19 +204,28 @@ def nest(flat: dict) -> dict:
     return out
 
 
+#: The FSDP cases that hold the round without tensor parallelism: the
+#: reference's rule override that maps "tp" to no mesh axis, and every
+#: activation kept (the cases' one-process rounds take the same remat).
+NO_TP = {"tp": ()}
+NO_REMAT = "none"
+
+
 def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
     """A rank of the FSDP test (``tests/test_torch_fsdp_round.py``): the
     smoke fedlm-100m on a ``("data", "model")`` mesh of ``shape``, a
     FedAvg burn-in round then a FedPA round (fp32 compute), with batch and
     with streaming DP, from ``out_dir/inputs.npz`` (numpy params by path,
-    the tokens of both rounds, the ``FedConfig`` kwargs). Writes
-    ``<out_dir>/<dp>.rank<r>.npz``: the gathered params after each round
-    (``r<i>/<path>``), the losses, this rank's traffic in each round, and
-    the element counts of every parameter-shaped tensor it held (master,
-    server momentum, accumulator, iterate, samples, ``v_hist``). Then one
-    ``algo_round`` of each algorithm of the inputs' ``algo_kw``
-    (``<name>.rank<r>.npz``) and each ``engine_run`` the inputs'
-    ``engine_kw`` names (``<name>.rank<r>.npz``)."""
+    the tokens of both rounds, the ``FedConfig`` kwargs), under ``NO_TP``
+    and ``NO_REMAT``. Writes ``<out_dir>/<dp>.rank<r>.npz``: the gathered
+    params after each round (``r<i>/<path>``), the losses, this rank's
+    traffic in each round, and the element counts of every
+    parameter-shaped tensor it held (master, server momentum,
+    accumulator, iterate, samples, ``v_hist``). Then one ``algo_round``
+    of each algorithm of the inputs' ``algo_kw`` (``<name>.rank<r>.npz``)
+    and each ``engine_run`` the inputs' ``engine_kw`` names
+    (``<name>.rank<r>.npz``), under the same settings; then ``tp_rounds``
+    (``tp_<dp>.rank<r>.npz``)."""
     import json
 
     from repro_torch import configs
@@ -270,14 +279,15 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
         fed = FedConfig(**kw, streaming_dp=dp == "streaming")
         opt = get_optimizer(fed.server_opt, fed.server_lr,
                             fed.server_momentum)
-        layout = sharded_round.fsdp_layout(cfg, mesh)
+        layout = sharded_round.fsdp_layout(cfg, mesh, NO_TP)
         state = layout.shard_state(init_server_state(
             lm_params_from_jax(params, "cpu"), opt))
         out = {"n": layout.n, "d": layout.d}
         for r, use_sampling in enumerate((False, True)):
             fn = sharded_round.make_fed_round(
                 cfg, fed, placement="sequential", compute_dtype=torch.float32,
-                q_chunk=8, use_sampling=use_sampling, mesh=mesh)
+                q_chunk=8, use_sampling=use_sampling, mesh=mesh,
+                rules=NO_TP, remat=NO_REMAT)
             collective.reset_traffic()
             state, metrics = fn(state, {"tokens": inputs[f"tokens{r}"]})
             for k, v in collective.traffic.items():
@@ -301,6 +311,71 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
         for name, engine_kw in json.loads(str(inputs["engine_kw"])).items():
             np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"),
                      **engine_run(engine_kw, inputs, mesh))
+    fsdp.FlatShard.wrap_grad = wrap_grad
+    for dp in ("batch", "streaming"):
+        np.savez(os.path.join(out_dir, f"tp_{dp}.rank{rank}.npz"),
+                 **tp_rounds(dict(kw, streaming_dp=dp == "streaming"),
+                             inputs, mesh))
+
+
+def tp_rounds(kw: dict, inputs, mesh=None) -> dict:
+    """The FSDP test's tensor-parallel rounds: ``fsdp_rank``'s burn-in and
+    FedPA rounds with the default rules (tensor parallelism over the
+    mesh's "model" axis) and the default remat ("full"). Returns the
+    gathered params (``r<i>/<path>``), the losses and this rank's traffic
+    per round (``r<i>/traffic/<kind>``), this rank's model index and data
+    slot, the plan's elements a model rank computes on, and per local step
+    the digests of the loss this rank computed (before the mean over the
+    ranks) and of its gradients of the replicated leaves (``loss_digest``,
+    ``replicated_digest``: ``(steps, ...)``)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import collective, fsdp, sharded_round
+    from repro_torch.core.server import init_server_state
+    from repro_torch.optim import get_optimizer
+
+    cfg = configs.get_smoke("fedlm-100m")
+    fed = FedConfig(**kw)
+    opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
+    layout = sharded_round.fsdp_layout(cfg, mesh)
+    state = layout.shard_state(init_server_state(_tree(inputs, "p"), opt))
+    losses, grads = [], []
+    reduce_compute = fsdp.FlatShard.reduce_compute
+    mean_over_ranks = fsdp.FlatShard.mean_over_ranks
+
+    def probed_reduce(self, tree):
+        leaves = self._leaves(tree)
+        grads.append(collective.digest([
+            x for x, s in zip(leaves, self.tp.leaves) if s.dim is None]))
+        return reduce_compute(self, tree)
+
+    def probed_mean(self, x):
+        losses.append(collective.digest(x))
+        return mean_over_ranks(self, x)
+
+    fsdp.FlatShard.reduce_compute = probed_reduce
+    fsdp.FlatShard.mean_over_ranks = probed_mean
+    out = {"model_index": layout.model.index,
+           "data_index": layout.data_index,
+           "rank_elements": layout.tp.rank_elements}
+    try:
+        for r, use_sampling in enumerate((False, True)):
+            fn = sharded_round.make_fed_round(
+                cfg, fed, placement="sequential", compute_dtype=torch.float32,
+                q_chunk=8, use_sampling=use_sampling, layout=layout)
+            collective.reset_traffic()
+            state, metrics = fn(state, {"tokens": inputs[f"tokens{r}"]})
+            out.update({f"r{r}/traffic/{k}": v
+                        for k, v in collective.traffic.items()})
+            out.update({f"r{r}/{k}": float(v) for k, v in metrics.items()})
+            out.update({f"r{r}/{path}": leaf.numpy() for path, leaf in
+                        fsdp._paths(layout.gather_state(state).params)})
+    finally:
+        fsdp.FlatShard.reduce_compute = reduce_compute
+        fsdp.FlatShard.mean_over_ranks = mean_over_ranks
+    out["loss_digest"] = np.stack([d.numpy() for d in losses])
+    out["replicated_digest"] = np.stack([d.numpy() for d in grads])
+    return out
 
 
 def _tree(inputs, prefix: str):
@@ -403,7 +478,8 @@ def algo_round(kw: dict, inputs, mesh=None, ckpt=None) -> dict:
     if fed.algorithm == "mime":
         state = state._replace(opt_state={"step": 0,
                                           "m": _tree(inputs, "m")})
-    layout = None if mesh is None else sharded_round.fsdp_layout(cfg, mesh)
+    layout = (None if mesh is None
+              else sharded_round.fsdp_layout(cfg, mesh, NO_TP))
     if layout is not None:
         state = layout.shard_state(state)
     held = {"params": tm.tree_size(state.params)}
@@ -429,7 +505,7 @@ def algo_round(kw: dict, inputs, mesh=None, ckpt=None) -> dict:
         fedlora.FedLoRA.payload_accum = recorded
     fn = sharded_round.make_fed_round(
         cfg, fed, placement="sequential", compute_dtype=torch.float32,
-        q_chunk=8, mesh=mesh)
+        q_chunk=8, mesh=mesh, layout=layout, remat=NO_REMAT)
     ids = np.arange(fed.clients_per_round)
     args, store = (), None
     if alg.stateful:
@@ -508,12 +584,13 @@ def engine_run(kw: dict, inputs, mesh=None) -> dict:
     alg = get_algorithm(fed)
     opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
     state = init_server_state(_tree(inputs, "p"), opt, algorithm=alg)
-    layout = None if mesh is None else sharded_round.fsdp_layout(cfg, mesh)
+    layout = (None if mesh is None
+              else sharded_round.fsdp_layout(cfg, mesh, NO_TP))
     if layout is not None:
         state = layout.shard_state(state)
     cohort_fn, server_fn = sharded_round.make_fed_round_split(
         cfg, fed, placement="sequential", compute_dtype=torch.float32,
-        q_chunk=8, mesh=mesh)
+        q_chunk=8, mesh=mesh, layout=layout, remat=NO_REMAT)
     ids, toks = inputs["engine_ids"], inputs["engine_tokens"]
     store = make_client_store("device", int(ids.max()) + 1, device="cpu",
                               fsdp=layout)

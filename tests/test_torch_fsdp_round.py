@@ -52,6 +52,19 @@ the groups within a deadline, and the tests only compare.
   and a max of the scales' per client), and the bytes of each kind by
   the layout's formula.
 
+All of the above run under the reference's rule override that maps
+``"tp"`` to no mesh axis (``_torch_mp.NO_TP``) and keep every activation
+(``_torch_mp.NO_REMAT``; their one-process rounds too): the model ranks
+compute the same rows on the whole params. Each group then runs the
+burn-in and FedPA rounds again with the default rules and remat, tensor
+parallel over ``model`` (``_torch_mp.tp_rounds``): the gathered params and
+losses equal JAX's one-device ``sequential`` round and the port's
+one-process one at the same tolerances, the two model ranks of a data slot
+compute bitwise-equal losses and replicated-leaf gradients at every local
+step, and each rank gathers exactly its model rank's compute elements
+(722,432 of the smoke's 1,312,256), the bytes to the other ranks by the
+plan's cut of the layout.
+
 Without a group: the sharded DP step over simulated shards against
 ``ref.dp_step_ref``, the glue against ``ref.dp_coeffs``, the mesh's data
 slot, ``fedpa_precision``'s discounted server step over three simulated
@@ -95,6 +108,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models.model import init_params
 from repro_torch.optim import get_optimizer
+from repro_torch.sharding.rules import TPPlan
 
 #: mesh name -> ("data", "model") extents
 MESHES = {"2x2": (2, 2), "1x2": (1, 2)}
@@ -184,7 +198,7 @@ def _one_process(dp: str):
     for use_sampling, toks in zip((False, True), ROUND_TOKENS):
         fn = sharded_round.make_fed_round(
             tcfg, fed, placement="sequential", compute_dtype=F32, q_chunk=8,
-            use_sampling=use_sampling)
+            use_sampling=use_sampling, remat=mpt.NO_REMAT)
         state, metrics = fn(state, {"tokens": toks})
         out.append(({p: x.numpy() for p, x in fsdp._paths(state.params)},
                     {k: float(v) for k, v in metrics.items()}))
@@ -280,8 +294,8 @@ def runs(tmp_path_factory):
     found["jax_lowrank"] = dict(np.load(lowrank))
     for name, (out, world, procs) in groups.items():
         mpt.join_group(procs, JOIN_S)
-        cases = [*DPS, *ALGO_KW] + (list(ENGINE_RUNS) if name == "1x2"
-                                    else [])
+        cases = ([*DPS, *ALGO_KW] + [f"tp_{dp}" for dp in DPS]
+                 + (list(ENGINE_RUNS) if name == "1x2" else []))
         found[name] = {case: [dict(np.load(os.path.join(
             out, f"{case}.rank{r}.npz"))) for r in range(world)]
             for case in cases}
@@ -365,6 +379,121 @@ def test_fsdp_collectives_per_round(runs, mesh):
                 assert t["small"] == (W - 1) * 4 * (
                     C * K + dp_steps * (ell - 1 + 2))
                 assert t["rows"] == t["accumulator"] == t["gathered"] == 0
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("dp", DPS)
+def test_fsdp_tp_equals_jax_and_one_process(runs, mesh, dp):
+    """Tensor parallel over "model" (default rules and remat): the
+    gathered params and the losses after each round against JAX's
+    one-device ``sequential`` round and the port's one-process one, at
+    ``test_fsdp_2x2_equals_jax_and_one_process``' tolerances; the ranks'
+    gathered params bit for bit alike."""
+    got_runs = runs[mesh][f"tp_{dp}"]
+    for r, (want_jax, want_one, atol) in enumerate(zip(
+            runs["jax"], runs["one"][dp], ATOLS)):
+        jax_params, jax_metrics = want_jax
+        one_params, one_metrics = want_one
+        for got in got_runs:
+            for k, v in jax_metrics.items():
+                np.testing.assert_allclose(got[f"r{r}/{k}"], v, rtol=1e-5)
+                np.testing.assert_allclose(got[f"r{r}/{k}"], one_metrics[k],
+                                           rtol=1e-5)
+            for path, want in jax_params:
+                np.testing.assert_allclose(got[f"r{r}/{path}"], want,
+                                           rtol=1e-5, atol=atol,
+                                           err_msg=path)
+                np.testing.assert_allclose(got[f"r{r}/{path}"],
+                                           one_params[path], rtol=1e-5,
+                                           atol=atol, err_msg=path)
+            for path in one_params:
+                np.testing.assert_array_equal(got[f"r{r}/{path}"],
+                                              got_runs[0][f"r{r}/{path}"])
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_fsdp_tp_model_ranks_agree_bitwise(runs, mesh):
+    """At every local step of both rounds, the model ranks of a data slot
+    compute bitwise the same loss and the same gradients of the
+    replicated leaves (the embedding, the norms, ``q_scale`` and
+    ``k_scale``): the owners take model index 0's, which stand for all."""
+    C, K = ROUND_KW["clients_per_round"], ROUND_KW["local_steps"]
+    D, M = MESHES[mesh]
+    for dp in DPS:
+        slots = {}
+        for got in runs[mesh][f"tp_{dp}"]:
+            slots.setdefault(int(got["data_index"]), []).append(got)
+        assert sorted(slots) == list(range(D))
+        for ranks in slots.values():
+            assert sorted(int(g["model_index"]) for g in ranks) == list(
+                range(M))
+            for key in ("loss_digest", "replicated_digest"):
+                assert ranks[0][key].shape[0] == 2 * C * K
+                for g in ranks[1:]:
+                    np.testing.assert_array_equal(g[key], ranks[0][key],
+                                                  err_msg=key)
+        if D > 1:     # the data slots take different rows
+            assert not np.array_equal(slots[0][0]["loss_digest"],
+                                      slots[1][0]["loss_digest"])
+
+
+def _tp_counts(W: int, M: int, split_only: bool = False):
+    """``counts[p, g]``: the elements of model rank g's compute set (of its
+    split leaves only, with ``split_only``) in rank p's shard of the
+    smoke layout (``ceil(d / W)`` a rank), from the plan's runs."""
+    cfg = configs.get_smoke(ARCH)
+    plan = TPPlan(cfg, init_params(None, cfg, device="meta"), M)
+    d = sum(s.size for s in plan.leaves)
+    n = -(-d // W)
+    counts = np.zeros((W, M), np.int64)
+    for g in range(M):
+        st, ln = plan.runs(g, split_only)
+        for p in range(W):
+            counts[p, g] = (np.clip(st + ln, p * n, (p + 1) * n)
+                            - np.clip(st, p * n, (p + 1) * n)).sum()
+    return plan, counts
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_fsdp_tp_exchanges_compute_elements(runs, mesh):
+    """Per local step each rank receives exactly its model rank's compute
+    elements (the plan's ``R + T / M``: 722,432 of 1,312,256) in one
+    all-to-all and sends gradient elements back in another: as many from
+    model index 0, the split leaves' ``T / M`` (589,824) from model index
+    1; it sends the other ranks, in fp32, the elements of their compute
+    sets its shard holds (params), and the gradient of the elements they
+    hold that it returns (grads); 8 activation all-reduces per layer (the two blocks' outputs,
+    again in remat's replay, and in the backward the two blocks' inputs,
+    ``q_scale`` and ``k_scale``); the losses and the DP as without
+    tensor parallelism."""
+    D, M = MESHES[mesh]
+    W = D * M
+    C, K = ROUND_KW["clients_per_round"], ROUND_KW["local_steps"]
+    ell = ((K - ROUND_KW["burn_in_steps"]) // ROUND_KW["steps_per_sample"])
+    plan, counts = _tp_counts(W, M)
+    split = _tp_counts(W, M, split_only=True)[1]
+    per = plan.rank_elements
+    assert per == 722_432 == counts[:, 0].sum() == counts[:, 1].sum()
+    assert plan.split_elements // M == 589_824 == split[:, 1].sum()
+    layers = configs.get_smoke(ARCH).num_layers
+    for dp in DPS:
+        for got in runs[mesh][f"tp_{dp}"]:
+            assert int(got["rank_elements"]) == per
+            g = int(got["model_index"])
+            rank = int(got["data_index"]) * M + g
+            sent = sum(counts[rank, q % M] for q in range(W) if q != rank)
+            returned = counts if g == 0 else split
+            back = sum(returned[q, g] for q in range(W) if q != rank)
+            for r, dp_steps in enumerate((0, C * (ell - 1))):
+                t = {k.split("/")[-1]: got[k] for k in got
+                     if k.startswith(f"r{r}/traffic/")}
+                assert t["param_gathers"] == t["grad_reduces"] == C * K
+                assert t["param_elements"] == C * K * per
+                assert t["grad_elements"] == C * K * returned[:, g].sum()
+                assert t["params"] == C * K * sent * 4
+                assert t["grads"] == C * K * back * 4
+                assert t["activation_reduces"] == C * K * layers * 8
+                assert t["small_reduces"] == C * K + dp_steps
 
 
 @pytest.mark.parametrize("W", [1, 3, 4])
@@ -807,8 +936,13 @@ def test_fsdp_checkpoint_restores_at_every_w(runs, tmp_path):
 def test_fsdp_engine_window_2_equals_one_process(runs):
     """FedEP through ``RoundEngine`` at window 2 on the 1 x 2 mesh: the
     same staleness and CAS drops as one process, the params and the
-    store's rows gathered back within 1e-6 of each leaf's largest entry
-    (the DP's dots summed over the shards)."""
+    store's rows gathered back within the file's after-DP-round bound,
+    1e-5 of each leaf's largest entry (the DP's dots summed over the
+    shards, through three rounds of FedEP's sites: under ATen's AVX2
+    kernels the store's ``num`` rows land up to 4.3e-6 of their largest
+    entry from one process, under its AVX-512 kernels 4e-8, and either
+    way both runs land 7e-5 from the JAX package's ``RoundEngine`` run:
+    ``scripts/fsdp_engine_distance.py``)."""
     want = runs["one_engine"]["engine"]
     assert want["state_drops"].tolist() == [0, 1, 1]
     assert want["staleness"].tolist() == [0, 1, 1]
@@ -817,7 +951,7 @@ def test_fsdp_engine_window_2_equals_one_process(runs):
             np.testing.assert_array_equal(got[k], want[k])
         for k, w in _trees(want).items():
             np.testing.assert_allclose(got[k], w, rtol=0,
-                                       atol=1e-6 * np.abs(w).max(),
+                                       atol=1e-5 * np.abs(w).max(),
                                        err_msg=k)
 
 
@@ -876,8 +1010,8 @@ def test_fsdp_refuses_rows_that_do_not_divide():
     cfg = configs.get_smoke(ARCH)
     fn = sharded_round.make_fed_round(
         cfg, FedConfig(**ROUND_KW), placement="sequential",
-        compute_dtype=F32, use_sampling=False, mesh=mesh)
-    layout = sharded_round.fsdp_layout(cfg, mesh)
+        compute_dtype=F32, use_sampling=False, mesh=mesh, rules=mpt.NO_TP)
+    layout = sharded_round.fsdp_layout(cfg, mesh, mpt.NO_TP)
     state = layout.shard_state(_state())
     assert tm.tree_size(state.params) == layout.n == -(-1_312_256 // 4)
     tokens = np.zeros((2, 8, 3, 17), np.int32)

@@ -277,6 +277,28 @@ def _jax_rounds(placement):
     return out
 
 
+def test_remat_defaults_are_the_reference():
+    """The port's ``lm_grad_fn``, ``make_fed_round(_split)`` and
+    ``launch.train.main`` recompute each pattern repeat by default, as the
+    reference's ``lm_loss`` and ``make_fed_round(_split)`` do:
+    ``test_make_fed_round_vs_jax`` holds the two defaults' rounds to each
+    other."""
+    import inspect
+
+    from repro.core.sharded_round import make_fed_round_split as jax_split
+    from repro_torch.launch import train
+
+    def default(fn):
+        return inspect.signature(fn).parameters["remat"].default
+
+    assert {default(f) for f in (steps.lm_grad_fn, steps.lm_loss,
+                                 sharded_round.make_fed_round,
+                                 sharded_round.make_fed_round_split,
+                                 train.main)} == {"full"}
+    assert {default(f) for f in (jax_steps.lm_loss, jax_make_fed_round,
+                                 jax_split)} == {"full"}
+
+
 @pytest.mark.parametrize("placement", ["parallel", "chunked", "sequential"])
 def test_make_fed_round_vs_jax(placement):
     tcfg = configs.get_smoke(ARCH)

@@ -135,3 +135,142 @@ def test_sharded_restore(runs):
             if line.startswith('{"round"')] == [2]
     _server_equal(runs["two"], runs["one"], 3)
     _shards_concatenate(runs["two"], runs["one"], 3)
+
+
+# -- --model-parallel: FSDP over the ranks, tensor-parallel over "model" ----
+
+#: ``main`` in fp32 (the CLI computes in bf16, whose roundings flip
+#: between summation orders)
+_FP32_MAIN = ("import sys, torch; from repro_torch.launch import train; "
+              "train.main(sys.argv[1:], compute_dtype=torch.float32)")
+
+
+def _tp_cmd(rounds, extra):
+    return [sys.executable, "-c", _FP32_MAIN, "--arch", "fedlm-100m",
+            "--smoke", "--rounds", str(rounds), "--clients", "2",
+            "--local-steps", "4", "--burn-in-steps", "2",
+            "--steps-per-sample", "1", "--burn-in-rounds", "1",
+            "--algorithm", "fedpa", "--prefetch-rounds", "0", "--seed", "0",
+            "--ckpt-every", "2", "--device", "cpu"] + extra
+
+
+def _tp_launch(rounds, two, one):
+    """The two ranks of a ``--model-parallel 2`` run into ``two`` and the
+    one-process run into ``one``, at once; returns their outputs."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    dist = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+            "--dist-backend", "gloo", "--dist-timeout", "60",
+            "--model-parallel", "2", "--ckpt-dir", two]
+    cmds = [_tp_cmd(rounds, dist + ["--process-id", str(r)])
+            for r in (0, 1)] + [_tp_cmd(rounds, ["--ckpt-dir", one])]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DEADLINE_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-4000:]
+    return outs
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    """A FedAvg burn-in round and a FedPA round on a 1 x 2 ``("data",
+    "model")`` mesh and in one process, then a third round from their
+    checkpoints."""
+    base = tmp_path_factory.mktemp("model_parallel")
+    two, one = str(base / "two"), str(base / "one")
+    return {"two": two, "one": one, "first": _tp_launch(2, two, one),
+            "resumed": _tp_launch(3, two, one)}
+
+
+def _records(out):
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith('{"round"')]
+
+
+def _params_close(two, one, step):
+    """The ranks' FSDP checkpoint restored at W = 1 against the one-process
+    server checkpoint: the params and the server momentum within rtol
+    1e-5, atol 1e-5 (a DP round's tolerance: the placements and the
+    tensor-parallel sums differ in fp32 rounding)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import fsdp
+    from repro_torch.core.server import init_server_state
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import get_optimizer
+
+    cfg = configs.get_smoke("fedlm-100m")
+    like = init_server_state(init_params(torch.Generator().manual_seed(0),
+                                         cfg, device="cpu"),
+                             get_optimizer("sgdm", 0.5, 0.9))
+    want, got_step, _ = ckpt_io.restore_checkpoint(one, like, step)
+    layout = fsdp.FlatShard(init_params(None, cfg, device="meta"))
+    got, _, _ = ckpt_io.restore_checkpoint_fsdp(
+        two, layout.shard_state(like), step, layout)
+    got = layout.gather_state(got)
+    assert got_step == step and got.round == want.round
+    for part in ("params", "opt_state"):
+        for (path, g), (_, w) in zip(fsdp._paths(getattr(got, part)),
+                                     fsdp._paths(getattr(want, part))):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                       rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{part} {path}")
+
+
+def test_model_parallel_ranks_match_one_process(tp_runs):
+    """``--model-parallel 2`` on two ranks: the banner names the 1 x 2
+    mesh, rank 0 alone logs the records, which meet the one-process run's
+    to rtol 1e-5; every local step ran tensor-parallel (activation
+    all-reduces in each rank's summary); the params and momentum after
+    round 2 meet the one process's."""
+    rank0, rank1, one = tp_runs["first"]
+    assert "fsdp_mesh={'data': 1, 'model': 2}" in rank0
+    assert '"round"' not in rank1
+    got, want = _records(rank0), _records(one)
+    assert [r["round"] for r in got] == [r["round"] for r in want] == [0, 1]
+    for g, w in zip(got, want):
+        assert g["phase"] == w["phase"]
+        for k in ("eval_loss", "client_loss_first", "client_loss_last"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, err_msg=k)
+    for out in (rank0, rank1):
+        summary = [json.loads(line)["rank_summary"] for line in
+                   out.splitlines() if line.startswith('{"rank_summary"')]
+        assert summary[0]["traffic"]["activation_reduces"] > 0
+    _params_close(tp_runs["two"], tp_runs["one"], 2)
+
+
+def test_model_parallel_restore(tp_runs):
+    """Both runs go on to round 3 from their checkpoints: the ranks read
+    their FSDP set back (rank 0 reports it) and still meet the one
+    process."""
+    rank0, rank1, one = tp_runs["resumed"]
+    assert "restored checkpoint at round 2" in rank0
+    assert "restored checkpoint at round 2" in one
+    assert [r["round"] for r in _records(rank0)] == [2]
+    _params_close(tp_runs["two"], tp_runs["one"], 3)
+
+
+@pytest.mark.parametrize("extra,match", [
+    ([], "needs a multi-process run"),
+    (["--shard-population"], "needs a multi-process run")])
+def test_model_parallel_refused_in_one_process(extra, match):
+    """``--model-parallel`` above 1 needs ranks to lay the model axis
+    over: one process is refused before any round."""
+    from repro_torch.launch import train
+
+    with pytest.raises(SystemExit, match=match):
+        train.main(["--smoke", "--device", "cpu", "--rounds", "1",
+                    "--model-parallel", "2", "--prefetch-rounds", "0"]
+                   + extra)

@@ -249,12 +249,13 @@ CODEC_FLAGS = [
 @pytest.mark.parametrize("flags", CODEC_FLAGS, ids=lambda v: " ".join(v))
 def test_codec_flags_parse_like_jax(flags):
     """The flags parse to the JAX entry point's values (the port adds only
-    ``--device``, ``--dist-backend`` and ``--dist-timeout``), and the
-    configs they build agree: fedlora's constructs, a codec on FedPA
-    raises ValueError in both packages."""
+    ``--device``, ``--dist-backend``, ``--dist-timeout`` and
+    ``--model-parallel``), and the configs they build agree: fedlora's
+    constructs, a codec on FedPA raises ValueError in both packages."""
     got = vars(train.parse_args(flags))
     want = vars(jax_train.parse_args(flags))
     assert got.pop("device") is None and got.pop("dist_backend") is None
+    assert got.pop("model_parallel") == 1
     assert got.pop("dist_timeout") == DEFAULT_TIMEOUT_S and got == want
     args = train.parse_args(flags)
     if args.algorithm == "fedlora":
