@@ -241,8 +241,12 @@
    kernel's epilogue); then the same rounds through the tensor-parallel
    path's NCCL calls (the exchange, the model group's all-reduces) on a
    one-rank ``("data", "model")`` mesh, the plan forced to one model
-   rank, held the same way. (b) The same on two gloo ranks sharing the card
-   (one row of each client a rank), spawned, then one round of each
+   rank, held the same way; and again with the vocabulary in the forced
+   plan (its lookup, the cross entropy's all-reduces and max over NCCL),
+   both rounds within 1e-6 of the largest entry (its cross entropy's
+   gradient takes another, equal formula). (b) The same on two gloo
+   ranks sharing the card (one row of each client a rank), spawned,
+   then one round of each
    other algorithm from the burn-in state (fedpa_precision, fedprox,
    mime, scaffold on the host store, fedep and fedlora with the identity
    codec on the device store, then fedlora with ``lowrank+int8`` and with
@@ -281,24 +285,36 @@
    FedEP store; after the ranks exit this process restores both at W = 1
    on the card, bitwise equal to the state the ranks gathered and to the
    store's rows put together (``gather_rows``). (h) FedPA rounds on a
-   1 x 2 mesh with the default rules: tensor-parallel over "model"
-   (attention and FFN split in two, the vocabulary replicated), with the
-   port's default ``remat="full"`` (the backward's replay of each layer
-   runs on autograd's device thread under the forward's model group).
-   The full width from 16c's state in bf16 and in fp32: per rank the
-   elements and bytes exchanged a local step against the plan's ``R + T
-   / M`` (62,935,296; the gradient back from model index 1 its split
-   leaves' ``T / M`` only), the activation all-reduces a local step
-   against 12 layers x 8, 6 launches of each DP kernel, peak memory
-   against 16c's, host ms; then the same rounds in one process on the
-   card: the fp32 round within phase 4's bound, the bf16 round no
-   farther than the one-process bf16 round is from its fp32 one (a
-   reordered bf16 sum flips some bf16 gradient roundings; the line says
-   whether phase 4's bound is met).
+   1 x 2 mesh with the default rules: tensor- and vocabulary-parallel
+   over "model" (attention, FFN and the vocabulary's rows split in two,
+   the cross entropy vocabulary-parallel), with the port's default
+   ``remat="full"`` (the backward's replay of each layer runs on
+   autograd's device thread under the forward's model group). The full
+   width from 16c's state in bf16 and in fp32: per rank the elements and
+   bytes exchanged a local step against the plan's ``R + T / M``
+   (50,352,384; the gradient back from model index 1 its split leaves'
+   ``T / M``, 50,331,648, only), the activation all-reduces a local step
+   against 12 layers x 8 + 5 for the vocabulary, 6 launches of each DP
+   kernel, peak memory against 16c's, host ms; then the same rounds in
+   one process on the card: the fp32 round within phase 4's bound, the
+   bf16 round no farther than the one-process bf16 round is from its
+   fp32 one (a reordered bf16 sum flips some bf16 gradient roundings; the
+   line says whether phase 4's bound is met). (i) Expert parallelism at
+   full width: the one-layer qwen3-moe-30b-a3b (``repeats=1``, all 128
+   experts, top-8), fp32, on the same 1 x 2 mesh with the default rules
+   (attention heads, experts and vocabulary rows split in two, the
+   router replicated): one local step's gradient through
+   ``FlatShard.wrap_grad`` from the same master shard, 4 x 128 tokens,
+   ``remat="full"``, for the one-hot and the sort route, against the same
+   step in one process on the card (phase 4's bound, each rank its
+   shard); per rank the elements gathered (467,278,080; 4a's plan
+   924,850,432) and returned, the activation all-reduces, the kept
+   (token, expert) pairs of a forward on the same compute tree (equal on
+   the two ranks; against one process's), peak memory and host ms.
 
 The LM training phases keep every activation (``REMAT``), as they did
-before the port's default became the reference's recompute; 14b and
-16h run the default.
+before the port's default became the reference's recompute; 14b, 16h
+and 16i run the default.
 
 Prints one JSON line with every kernel's numbers, the card's line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -3596,8 +3612,9 @@ def multi_process(card: str, params, seed: int, fedep_records) -> dict:
 # clients; each one burn-in round and one FedPA round at ``sequential``.
 # 16b then runs one round of each other algorithm from the one-layer
 # burn-in state, 16e one FedEP round and 16f one FedLoRA round at full
-# width from 16c's state, 16g checks the FSDP checkpoints they write, and
-# 16h runs FedPA rounds from 16c's state tensor-parallel over "model".
+# width from 16c's state, 16g checks the FSDP checkpoints they write,
+# 16h runs FedPA rounds from 16c's state tensor-parallel over "model" and
+# 16i one expert-parallel local step of the one-layer qwen3-moe.
 FSDP_CLIENTS = 2
 #: 16b's other algorithms: (name, FedConfig changes). SCAFFOLD steps with
 #: plain SGD on the host store's slice, FedEP and FedLoRA (identity codec,
@@ -3633,10 +3650,18 @@ FSDP_LORA_FULL = "fedlora_lowrank_int8"
 #: store holds 2 fp32 vectors of its n elements a client) and the
 #: cohort's ids
 FSDP_STORE_CLIENTS, FSDP_STORE_IDS = 16, (5, 12)
-#: The reference's rule override that maps "tp" to no mesh axis: the
-#: phases on a ("data", "model") mesh that hold the round without tensor
-#: parallelism (16e, 16f); 16h takes the default rules
-NO_TP = {"tp": ()}
+#: The reference's rule override that maps "tp", "vocab" and "experts" to
+#: no mesh axis: the phases on a ("data", "model") mesh that hold the round
+#: without tensor parallelism (16e, 16f); 16h and 16i take the default
+#: rules
+NO_TP = {"tp": (), "vocab": (), "experts": ()}
+#: The vocabulary's activation all-reduces a local step: the embedding's
+#: lookup, the cross entropy's max, its sum of exponentials and its gold
+#: logit, and in the backward the unembedding input's gradient
+VOCAB_ACTS = 5
+#: 16i: the arch cut to one repeat of its pattern at full width, and one
+#: local step's batch (phase 9's 4 x 128 tokens)
+MOE_EP_ARCH, MOE_EP_BATCH, MOE_EP_SEQ = "qwen3-moe-30b-a3b", 4, 128
 
 
 def fsdp_inputs(argv: list, cfg, seed: int):
@@ -3960,8 +3985,8 @@ def fsdp_summary(rank: int, mesh, rec: dict, seconds: float) -> dict:
 
 
 def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
-    """One rank of phase 16b, 16c, 16e, 16f and 16h (a spawned child): two
-    gloo ranks sharing the card on a ``("data",)`` mesh. 16b:
+    """One rank of phase 16b, 16c, 16e, 16f, 16h and 16i (a spawned
+    child): two gloo ranks sharing the card on a ``("data",)`` mesh. 16b:
     ``fsdp_rounds`` on the one-layer cut, then ``fsdp_algo_round`` of each
     of ``FSDP_ALGOS`` from its burn-in state (FedEP's store written with
     the FSDP writer, 16g); 16c: ``fsdp_rounds`` at full width; 16e: a
@@ -3970,11 +3995,11 @@ def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
     16c's state, its new server state written with the FSDP writer (16g);
     16h: FedPA rounds tensor-parallel over "model" on a 1 x 2 mesh with
     ``remat="full"``, the full width's from 16c's state in bf16 and in
-    fp32.
+    fp32; 16i: ``moe_ep_steps`` on the same mesh.
     Writes ``out/rank<r>.<case>.json`` (numbers, the elements held,
     digests, seconds) for the cases ``one-layer``, ``full``,
-    ``fedep-full``, ``fedlora-full``, ``fedpa-tp`` and ``fedpa-tp-fp32``
-    and per algorithm
+    ``fedep-full``, ``fedlora-full``, ``fedpa-tp``, ``fedpa-tp-fp32`` and
+    ``moe-ep`` and per algorithm
     ``rank<r>.algos.json``; rank 0 also writes the one-layer params
     (``one-layer.npz``, both rounds, and ``algos.npz``, each algorithm's
     params and ``c``, FedEP's gathered store rows and the int8 rounds'
@@ -4133,21 +4158,26 @@ def fsdp_rank(rank: int, port: int, seed: int, out: str) -> None:
                 torch.save(rec["params"], os.path.join(out, f"{case}.pt"))
             del rec
             torch.cuda.empty_cache()
+        # -- 16i: one expert-parallel local step of the one-layer
+        # qwen3-moe on the same mesh, each route against one process
+        del res, tp_layout
+        torch.cuda.empty_cache()
+        write("moe-ep", moe_ep_steps(mesh, seed))
     finally:
         dist.destroy_process_group()
 
 
 def fsdp_spawn(seed: int, meanwhile=None):
-    """Phase 16b, 16c, 16e, 16f and 16h's two ranks (spawned children sharing
-    the card); runs ``meanwhile()`` in this process while they work.
+    """Phase 16b, 16c, 16e, 16f, 16h and 16i's two ranks (spawned children
+    sharing the card); runs ``meanwhile()`` in this process while they work.
     Returns ``({case: the ranks' summaries}, {name: rank 0's arrays},
     meanwhile's result, seconds from the spawn to both exits)``; the
     arrays are the one-layer rounds' params (``one-layer``), each
     algorithm's (``algos``), 16c's whole state (``full-state``), 16e's
     params (``fedep-full``), 16f's state and codes, 16h's params
     (``fedpa-tp``, ``fedpa-tp-fp32``), on the host, and 16g's restores in
-    this process
-    (``restored``), read before the ranks' files are removed."""
+    this process (``restored``), read before the ranks' files are
+    removed; 16i's summaries are the case ``moe-ep``."""
     import multiprocessing as mp
     import shutil
     import tempfile
@@ -4176,7 +4206,8 @@ def fsdp_spawn(seed: int, meanwhile=None):
             fail(f"fsdp ranks exited {[p.exitcode for p in procs]}")
         sums = {}
         for case in ("one-layer", "algos", "full", "fedep-full",
-                     "fedlora-full", "fedpa-tp", "fedpa-tp-fp32"):
+                     "fedlora-full", "fedpa-tp", "fedpa-tp-fp32",
+                     "moe-ep"):
             sums[case] = []
             for r in (0, 1):
                 with open(os.path.join(tmp, f"rank{r}.{case}.json")) as f:
@@ -4286,8 +4317,13 @@ def fsdp_nccl_one_rank(seed: int):
                                               axes=("data", "model")), "cuda")
         template = init_params(None, cfg, device="meta")
         tp = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, tp_mesh,
-                         fsdp.FlatShard(template, tp_mesh,
-                                        tp=TPPlan(cfg, template, 1)))
+                         fsdp.FlatShard(template, tp_mesh, tp=TPPlan(
+                             cfg, template, 1, ("tp",))))
+        # and with the vocabulary in the plan: its lookup's and its cross
+        # entropy's all-reduces (the max too) through NCCL
+        tpv = fsdp_rounds(cfg, fed, toks, "cuda", dtype, seed, tp_mesh,
+                          fsdp.FlatShard(template, tp_mesh, tp=TPPlan(
+                              cfg, template, 1, ("tp", "vocab"))))
     finally:
         dist.destroy_process_group()
     first = equal_bitwise(one["rounds"][0]["params"],
@@ -4301,6 +4337,10 @@ def fsdp_nccl_one_rank(seed: int):
     tp_err = max((g - w).abs().max().item() for g, w in zip(
         tm.tleaves(tp["rounds"][1]["params"]), want))
     tp_t = [r["traffic"] for r in tp["rounds"]]
+    tpv_err = [max((g - w).abs().max().item() for g, w in zip(
+        tm.tleaves(tpv["rounds"][i]["params"]),
+        tm.tleaves(one["rounds"][i]["params"]))) for i in (0, 1)]
+    tpv_t = [r["traffic"] for r in tpv["rounds"]]
     steps = FSDP_CLIENTS * fed.local_steps
     acts = cfg.num_layers * (4 + 2 * cfg.qk_norm)
     launches = {f"{name} fp32 sequential, no mesh": fsdp_launches(
@@ -4325,6 +4365,13 @@ def fsdp_nccl_one_rank(seed: int):
           f"{tp_first}; FedPA round max abs diff {tp_err:.3g} of largest "
           f"{scale:.3g}; host ms per round "
           f"{[round(r['ms'], 1) for r in tp['rounds']]}", flush=True)
+    print(f"fsdp nccl one rank, tensor- and vocabulary-parallel ({name}, "
+          f"the same plan with the vocabulary): model-group all-reduces "
+          f"{[t['activation_reduces'] for t in tpv_t]} (expected "
+          f"{steps * (acts + VOCAB_ACTS)}); burn-in and FedPA rounds max "
+          f"abs diff from no mesh {[f'{e:.3g}' for e in tpv_err]} of "
+          f"largest {scale:.3g}; host ms per round "
+          f"{[round(r['ms'], 1) for r in tpv['rounds']]}", flush=True)
     if not first or not err <= 1e-6 * scale or not all(calls):
         fail("fsdp nccl one rank: the mesh run differs from the run with "
              "no mesh (or made no NCCL call)")
@@ -4334,6 +4381,11 @@ def fsdp_nccl_one_rank(seed: int):
                    for t in tp_t)):
         fail("fsdp nccl one rank: the tensor-parallel run differs from the "
              "run with no mesh (or missed its NCCL calls)")
+    if (any(e > 1e-6 * scale for e in tpv_err)
+            or any(t["activation_reduces"] != steps * (acts + VOCAB_ACTS)
+                   for t in tpv_t)):
+        fail("fsdp nccl one rank: the vocabulary-parallel run differs from "
+             "the run with no mesh (or missed its NCCL calls)")
     for n in launches.values():
         if any(v != expected for v in n.values()):
             fail(f"fsdp nccl one rank: DP launches {launches}")
@@ -4724,15 +4776,18 @@ def tp_counts(cfg, steps: int, t: dict, what: str, index: int):
     model index 1), the activation all-reduces a local step against a
     count by layers (the two blocks' outputs in the forward and again in
     the replay; the gradients of their inputs, ``q_scale`` and
-    ``k_scale`` in the backward). Returns ``(line, whether the counts are
-    the plan's, the plan)``."""
+    ``k_scale`` in the backward) plus the vocabulary's 5 (the embedding's
+    lookup, the cross entropy's max, sum of exponentials and gold logit,
+    the unembedding input's gradient). Returns ``(line, whether the
+    counts are the plan's, the plan)``."""
     from repro_torch.models.model import init_params
     from repro_torch.sharding.rules import TPPlan
 
     plan = TPPlan(cfg, init_params(None, cfg, device="meta"), 2)
     per = plan.rank_elements
     back = per if index == 0 else plan.split_elements // 2
-    acts = cfg.num_layers * (6 + 2 * cfg.qk_norm)
+    layer_acts = 6 + 2 * cfg.qk_norm
+    acts = cfg.num_layers * layer_acts + VOCAB_ACTS * plan.vocab
     size = 2 if what == "bf16" else 4
     line = (f"elements exchanged a local step "
             f"{t['param_elements'] / steps:,.0f} (formula R + T / M = "
@@ -4743,8 +4798,9 @@ def tp_counts(cfg, steps: int, t: dict, what: str, index: int):
             f"{t['grad_elements'] / steps:,.0f} (formula {back:,}); bytes "
             f"to the other rank params {t['params']:,} grads "
             f"{t['grads']:,}; activation all-reduces a local step "
-            f"{t['activation_reduces'] / steps:g} (by layers "
-            f"{cfg.num_layers} x {acts // cfg.num_layers} = {acts}), their "
+            f"{t['activation_reduces'] / steps:g} (formula layers x per "
+            f"layer + vocabulary = {cfg.num_layers} x {layer_acts} + "
+            f"{VOCAB_ACTS * plan.vocab} = {acts}), their "
             f"bytes {t['activations']:,}; staged {t['staged']:,}, host s "
             f"inside the collectives {t['seconds']:.2f}")
     ok = (t["param_elements"] == steps * per
@@ -4799,7 +4855,8 @@ def fsdp_full_tp(card: str, sums: dict, sums_full, files, seed: int
                                        s["model_index"])
             print(f"  rank {s['rank']} on {s['device']} (model index "
                   f"{s['model_index']}): attention split {plan.attn}, FFN "
-                  f"split {plan.ffn}; {line}; DP launches {s['launches']} "
+                  f"split {plan.ffn}, vocabulary split {plan.vocab}; "
+                  f"{line}; DP launches {s['launches']} "
                   f"(expected {expected} each); peak memory allocated "
                   f"{s['peak'] / 2**30:.2f} GiB (16c's per round "
                   f"{peaks[s['rank']]}); host ms {s['ms']:.1f}; losses "
@@ -4807,7 +4864,7 @@ def fsdp_full_tp(card: str, sums: dict, sums_full, files, seed: int
             launches[f"fedlm-100m {what} sequential fedpa, 2 gloo ranks "
                      f"fsdp tensor-parallel: rank {s['rank']}"] = \
                 s["launches"]
-            if (not ok or not plan.attn or not plan.ffn
+            if (not ok or not plan.attn or not plan.ffn or not plan.vocab
                     or any(v != expected for v in s["launches"].values())
                     or not all(map(math.isfinite, s["losses"].values()))):
                 fail(f"fsdp full tensor-parallel {what}: rank "
@@ -4845,6 +4902,186 @@ def fsdp_full_tp(card: str, sums: dict, sums_full, files, seed: int
         fail(f"fsdp full tensor-parallel bf16: {err} from one process, "
              f"farther than bf16's own rounding {own}")
     return launches
+
+
+def moe_ep_cfg(routing: str = "onehot"):
+    """16i's config: ``MOE_EP_ARCH`` at full width cut to one repeat of its
+    pattern, on the MoE route ``routing``."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(MOE_EP_ARCH)
+    return configs.replace(cfg, repeats=1, moe=configs.replace(
+        cfg.moe, routing=routing))
+
+
+def kept_in_forward(params, tokens, cfg, group=None):
+    """The kept (token, expert) pairs of every MoE layer of a no-grad fp32
+    forward of ``params`` on ``tokens`` (under the model ``group`` when
+    given), from the router's choices and capacity drops: one ``(T, E)``
+    bool mask, the layers' chunks stacked."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding import tensor_parallel
+
+    real, seen = moe_mod._router, []
+
+    def recorded(xc, p, m):
+        out = real(xc, p, m)
+        seen.append(moe_mod.kept_pairs(out[0], out[1], m))
+        return out
+
+    moe_mod._router = recorded
+    try:
+        with torch.no_grad(), tensor_parallel.model_parallel(group):
+            model_lib.forward(params, tokens, cfg,
+                              compute_dtype=torch.float32, remat="none")
+    finally:
+        moe_mod._router = real
+    return torch.cat(seen)
+
+
+def moe_ep_steps(mesh, seed: int) -> dict:
+    """Phase 16i on one rank of the 1 x 2 mesh: the one-layer full-width
+    qwen3-moe-30b-a3b's params from ``seed`` (drawn on the card, the same
+    on both ranks), this rank's fp32 master shard under the default
+    rules' layout, and for each MoE route one local step's gradient
+    through ``FlatShard.wrap_grad`` (``remat="full"``) on 4 x 128 tokens;
+    then the kept (token, expert) pairs of a forward on the rank's compute
+    tree, and the same step and forward in this process with no mesh on
+    the whole params, this rank's shard of its gradient cut by the
+    layout. Returns per route the host ms, peak memory and traffic of the
+    step, both losses, the gradient's max abs diff from one process, its
+    largest entry and whether it meets phase 4's bound, and the kept
+    pairs' digest, count and flips against one process."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collective, sharded_round
+    from repro_torch.core import tree_math as tm
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import lm_grad_fn
+
+    cfg = moe_ep_cfg()
+    layout = sharded_round.fsdp_layout(cfg, mesh)
+    dev = mesh.device
+    params = init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                         device=dev)
+    shard = layout.shard_tree(params).reshape(1, layout.n)
+    r = np.random.default_rng(seed)
+    tokens = torch.from_numpy(r.integers(
+        0, cfg.vocab_size, (1, MOE_EP_BATCH, MOE_EP_SEQ + 1))).to(dev)
+    batch = {"tokens": tokens}
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "model_index": layout.model.index, "n": layout.n, "routes": {}}
+    for routing in ("onehot", "sort"):
+        cfg = moe_ep_cfg(routing)
+        grad_fn = torch.func.vmap(lm_grad_fn(
+            cfg, compute_dtype=torch.float32, remat="full"))
+        step = layout.wrap_grad(grad_fn)
+        cuda = dev.type == "cuda"
+        (loss, got), ms, peak, _, traffic = timed_round(
+            lambda: step(shard, batch), cuda)
+        kept = kept_in_forward(layout.gather_compute(shard.reshape(-1)),
+                               tokens[0, :, :-1], cfg, layout.model)
+        (loss1, grads), ms1, peak1, _, _ = timed_round(
+            lambda: grad_fn(tm.tmap(lambda t: t[None], params), batch),
+            cuda)
+        want = layout._pack(grads, layout.lo, layout.lo + layout.n, 1,
+                            torch.float32)
+        del grads
+        kept1 = kept_in_forward(params, tokens[0, :, :-1], cfg)
+        out["routes"][routing] = dict(
+            ms=ms, peak=peak, ms_one=ms1, peak_one=peak1,
+            traffic={k: traffic[k] for k in (
+                "param_elements", "grad_elements", "param_gathers",
+                "grad_reduces", "activation_reduces", "params", "grads",
+                "activations", "staged", "seconds")},
+            loss=float(loss[0]), loss_one=float(loss1[0]),
+            err=(got - want).abs().max().item(),
+            scale=want.abs().max().item(),
+            inside=bool(torch.allclose(got, want, rtol=1e-3, atol=1e-4)),
+            finite=bool(torch.isfinite(got).all()),
+            kept_digest=collective.digest(kept).tolist(),
+            kept=int(kept.sum()), pairs=kept.shape[0] * cfg.moe.top_k,
+            kept_flips=int((kept != kept1).sum()))
+        del got, want, kept, kept1
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_full_moe(card: str, sums: list) -> None:
+    """Phase 16i's lines (``moe_ep_steps`` on each rank): per route and
+    rank the plan's elements gathered a local step (against 4a's plan) and
+    returned, the activation all-reduces against the count by layer, the
+    kept pairs, peak memory and host ms, and the gradient against one
+    process on the card (phase 4's bound). Fails unless the counts are
+    the plan's, both ranks keep the same pairs and the gradients meet the
+    bound."""
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding.rules import TPPlan
+
+    cfg = moe_ep_cfg()
+    template = init_params(None, cfg, device="meta")
+    plan = TPPlan(cfg, template, 2)
+    plan_4a = TPPlan(cfg, template, 2, ("tp",))
+    per = plan.rank_elements
+    tokens = MOE_EP_BATCH * MOE_EP_SEQ
+    chunks = -(-tokens // cfg.moe.chunk_tokens)
+    # per layer: attention's output twice (forward, replay) and its input,
+    # q_scale, k_scale; the MoE's output twice, its input and each
+    # chunk's gate values; then the vocabulary's
+    acts = (cfg.num_layers * (2 + 1 + 2 * cfg.qk_norm + 2 + 1 + chunks)
+            + VOCAB_ACTS)
+    for routing in ("onehot", "sort"):
+        print(f"fsdp two gloo ranks expert-parallel {cfg.name} cut to "
+              f"{cfg.num_layers} layer (d={cfg.param_count():,}, "
+              f"{cfg.moe.num_experts} experts, top-{cfg.moe.top_k}, "
+              f"expert d_ff {cfg.moe.expert_d_ff}), {routing} route, fp32, "
+              f"remat full, one local step of {MOE_EP_BATCH} x {MOE_EP_SEQ}"
+              f" tokens through wrap_grad on a ('data', 'model') mesh of 1 x"
+              f" 2 on one card ({card}): blocks split attention "
+              f"{plan.attn}, experts {plan.experts}, vocabulary "
+              f"{plan.vocab}, the router replicated", flush=True)
+        for s in sums:
+            rec = s["routes"][routing]
+            t = rec["traffic"]
+            back = per if s["model_index"] == 0 else plan.split_elements // 2
+            ok = (t["param_elements"] == per and t["param_gathers"] == 1
+                  and t["grad_elements"] == back
+                  and t["activation_reduces"] == acts)
+            print(f"  rank {s['rank']} on {s['device']} (model index "
+                  f"{s['model_index']}): elements gathered a local step "
+                  f"{t['param_elements']:,} (plan R + T / M = "
+                  f"{plan.replicated_elements:,} + {plan.split_elements:,} "
+                  f"/ 2 = {per:,}; 4a's plan {plan_4a.rank_elements:,}); "
+                  f"returned {t['grad_elements']:,} (formula {back:,}); "
+                  f"bytes to the other rank params {t['params']:,} grads "
+                  f"{t['grads']:,}; activation all-reduces "
+                  f"{t['activation_reduces']} (formula {cfg.num_layers} x "
+                  f"{(acts - VOCAB_ACTS) // cfg.num_layers} + {VOCAB_ACTS} "
+                  f"= {acts}), bytes {t['activations']:,}; host s inside "
+                  f"the collectives {t['seconds']:.2f}; kept (token, expert)"
+                  f" pairs {rec['kept']:,} of {rec['pairs']:,}, against one "
+                  f"process flipped {rec['kept_flips']}; peak memory "
+                  f"allocated {rec['peak'] / 2**30:.2f} GiB (one process "
+                  f"{rec['peak_one'] / 2**30:.2f}); host ms {rec['ms']:.1f} "
+                  f"(one process {rec['ms_one']:.1f}); loss "
+                  f"{rec['loss']:.6f} (one process {rec['loss_one']:.6f}); "
+                  f"gradient shard vs one process max abs diff "
+                  f"{rec['err']:.3g} of largest {rec['scale']:.3g} (within "
+                  f"phase 4's bound {rec['inside']})", flush=True)
+            if not (ok and rec["inside"] and rec["finite"]):
+                fail(f"fsdp expert-parallel {routing}: rank {s['rank']} "
+                     f"{rec}")
+        equal = (sums[0]["routes"][routing]["kept_digest"]
+                 == sums[1]["routes"][routing]["kept_digest"])
+        print(f"  kept pairs equal on both ranks {equal}", flush=True)
+        if not equal:
+            fail(f"fsdp expert-parallel {routing}: the ranks keep different "
+                 f"(token, expert) pairs")
 
 
 def fsdp_checkpoints(sums_algos, sums_full, files) -> None:
@@ -4894,7 +5131,7 @@ def _to_cuda(tree):
 
 
 def sequential_fsdp(card: str, seed: int) -> dict:
-    """Phase 16 (16a-16c, 16e-16h); returns the DP launches of its
+    """Phase 16 (16a-16c, 16e-16i); returns the DP launches of its
     runs."""
     import torch
 
@@ -4927,6 +5164,7 @@ def sequential_fsdp(card: str, seed: int) -> dict:
     by_run.update(fsdp_full_tp(card, {"bf16": sums["fedpa-tp"],
                                       "fp32": sums["fedpa-tp-fp32"]},
                                sums["full"], files, seed))
+    fsdp_full_moe(card, sums["moe-ep"])
     return by_run
 
 

@@ -26,7 +26,8 @@ functions on tensors that take the mesh (``launch.mesh.ProcessMesh``).
     gradient reduce (``core/fsdp.py``): one all-to-all with uneven splits
     that moves each rank exactly the elements it computes on (and back);
   * ``all_reduce_model`` — an activation (or its gradient) summed over the
-    model ranks of a data slot (``sharding/tensor_parallel.py``).
+    model ranks of a data slot (``sharding/tensor_parallel.py``), or
+    maxed (the vocabulary-parallel cross entropy's shift).
 
 A mesh without a group (one process) makes each of them the identity; a
 group of one rank still runs its collective, so a one-rank NCCL group
@@ -410,14 +411,17 @@ def exchange_flat(mesh, x: torch.Tensor, send_counts: Sequence[int],
 
 
 @_timed
-def all_reduce_model(group, x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of a model ``group`` (an
-    activation, or its gradient), as a new tensor on ``x``'s device, in its
-    dtype; staged through pinned host memory on gloo with CUDA."""
+def all_reduce_model(group, x: torch.Tensor, op: str = "sum"
+                     ) -> torch.Tensor:
+    """The sum (``op="sum"``) or elementwise max (``"max"``) of ``x`` over
+    the ranks of a model ``group`` (an activation, or its gradient), as a
+    new tensor on ``x``'s device, in its dtype; staged through pinned host
+    memory on gloo with CUDA."""
     staged = x.is_cuda and dist.get_backend(group) == "gloo"
     buf = (_to_host(x.contiguous()) if staged
            else x.clone(memory_format=torch.contiguous_format))
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op], group=group)
     traffic["calls"] += 1
     traffic["activation_reduces"] += 1
     traffic["activations"] += ((dist.get_world_size(group) - 1) * x.numel()

@@ -22,12 +22,14 @@ shard, in its dtype (the compute dtype), into the whole params tree; the
 cohort-batched ``grad_fn`` runs on this rank's rows of the client's batch
 (``local_rows``); ``reduce_grads`` sums the flat fp32 gradient over every
 rank, divides by W and keeps this rank's shard. The rows split over the
-client axes ("pod", "data") only. Without tensor parallelism (no
-``"model"`` axis, a model extent of 1, a plan that splits nothing, or the
-rule override ``{"tp": ()}``) the ranks along "model" compute the same
-rows on the same params: the sum over the W ranks is "model" times the
-sum over the data ranks, and dividing by W gives the mean over the
-client's batch. The losses are averaged over every rank, so every rank
+client axes ("pod", "data") only, and not for an arch with MoE layers
+(``split_rows``): the router's capacity drops and its aux loss are taken
+over the client's whole batch, so every data rank computes all of it. Without tensor parallelism (no
+``"model"`` axis, a model extent of 1, a plan that splits nothing, or
+the rule override ``{"tp": (), "vocab": (), "experts": ()}``) the ranks
+along "model" compute the same rows on the same params: the sum over the
+W ranks is "model" times the sum over the data ranks, and dividing by W
+gives the mean over the client's batch. The losses are averaged over every rank, so every rank
 holds the whole batch's loss. The DP's dot products are sums over the
 shards (``kernels.ops.dp_step_sharded``). Every collective of the layout
 runs outside ``torch.func``: the wrapper sits around the cohort-batched
@@ -37,21 +39,22 @@ Tensor parallelism over "model" (a ``sharding.rules.TPPlan``, ``tp=``):
 the flat layout stays as it is, element for element; a local step changes
 in which elements each rank gathers, how the gradient returns to their
 owners, and the compute between. Model rank ``g`` of a data slot gathers
-exactly its compute elements (the replicated leaves whole, its columns or
-rows of each split block: ``TPPlan.runs(g)``) from whichever ranks hold
-them, with one all-to-all in the compute dtype
+exactly its compute elements (the replicated leaves whole, its columns,
+rows, experts or vocabulary rows of each split block: ``TPPlan.runs(g)``)
+from whichever ranks hold them, with one all-to-all in the compute dtype
 (``collective.exchange_flat``), into a compute tree of local shapes; the
-model code computes on its heads and FFN columns under the active
-``sharding.tensor_parallel.ModelGroup`` (the conjugate pair's all-reduces
-over the model ranks of its data slot run inside ``torch.func``, through
-their ``vmap`` rules). The fp32 gradient goes back by the reverse
-exchange, and the owner of each element sums its contributions in rank
-order: a split element's from its model column's D data ranks, a
-replicated element's from the ranks with model index 0 only (the model
-ranks' replicated gradients are equal bit for bit, so the other ranks
-return their split leaves' elements alone), each divided by D.
-The vocabulary stays replicated, so the losses are the same on the model
-ranks of a data slot and ``mean_over_ranks`` stays the loss's mean.
+model code computes on its heads, FFN columns, experts and vocabulary
+rows under the active ``sharding.tensor_parallel.ModelGroup`` (the
+conjugate pair's all-reduces over the model ranks of its data slot run
+inside ``torch.func``, through their ``vmap`` rules). The fp32 gradient
+goes back by the reverse exchange, and the owner of each element sums its
+contributions in rank order: a split element's from its model column's D
+data ranks, a replicated element's from the ranks with model index 0 only
+(the model ranks' replicated gradients are equal bit for bit, so the
+other ranks return their split leaves' elements alone), each divided by
+D. The vocabulary-parallel cross entropy sums its partials over the model
+ranks, so the losses are the same on the model ranks of a data slot and
+``mean_over_ranks`` stays the loss's mean.
 
 Every algorithm runs on the shards. The stateful ones keep their state
 in the same layout: SCAFFOLD's server control variate is one more ``(n,)``
@@ -190,9 +193,14 @@ class FlatShard:
     client's batch rows (``data_extent``, ``data_index``). With ``tp`` (a
     ``sharding.rules.TPPlan`` over the mesh's ``"model"`` extent) the local
     steps compute tensor-parallel (``model``: this rank's
-    ``tensor_parallel.ModelGroup``); the layout itself is the same."""
+    ``tensor_parallel.ModelGroup``); the layout itself is the same. With
+    ``split_rows=False`` every data rank computes all of a client's rows
+    (``local_rows`` is the identity): an MoE's capacity drops and aux
+    loss are over the client's whole batch, as the reference's, and the
+    mean over the data ranks of the whole-batch gradient is that
+    gradient."""
 
-    def __init__(self, template, mesh=None, tp=None):
+    def __init__(self, template, mesh=None, tp=None, split_rows=True):
         pairs = _paths(template)
         self.template = template
         self.mesh = mesh
@@ -206,6 +214,7 @@ class FlatShard:
         self.lo = self.rank * self.n
         self.data_extent, self.data_index = ((1, 0) if mesh is None
                                              else mesh.data_slot())
+        self.split_rows = split_rows
         self._pieces = None
         self.tp, self.model = tp, None
         if tp is not None:
@@ -234,8 +243,7 @@ class FlatShard:
             slots.setdefault(mesh.data_slot(q)[1], []).append(q)
         group = tensor_parallel.model_group(mesh, [slots[k] for k in
                                                    sorted(slots)])
-        self.model = tensor_parallel.ModelGroup(group, M, col[self.rank],
-                                                tp.attn, tp.ffn)
+        self.model = tensor_parallel.ModelGroup.of(group, col[self.rank], tp)
         def cut(g, split_only):
             """How many of model rank g's elements each rank's shard
             holds, and their positions in this rank's shard."""
@@ -466,9 +474,11 @@ class FlatShard:
     def local_rows(self, batches):
         """This rank's rows of every client's batch: each ``(C, K, B,
         ...)`` leaf split on ``B`` over the client axes (the step mask
-        ``"_active"`` is per client and stays whole). ``ValueError`` when
-        ``B`` does not divide, as the reference's ``NamedSharding``
-        refuses."""
+        ``"_active"`` is per client and stays whole); all of them when the
+        layout does not split rows. ``ValueError`` when ``B`` does not
+        divide, as the reference's ``NamedSharding`` refuses."""
+        if not self.split_rows:
+            return batches
         E, i = self.data_extent, self.data_index
 
         def take(x):

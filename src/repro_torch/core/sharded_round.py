@@ -17,12 +17,13 @@ them onto the accumulator the rank before it hands on (``round_program``):
 the only cross-client collective, as in the reference. ``sequential`` on
 a ``mesh`` runs FSDP over its ranks (``core/fsdp.py``) for every
 algorithm: every rank runs every client, each client's batch rows split
-over the mesh's data axes, and every parameter-shaped state (the fp32
-master, the server optimizer state, SCAFFOLD's server control variate,
-the accumulator and the payloads, the broadcast extras, the client
-iterate and its moments, the IASG samples and the DP vectors, and the
-per-client states in a store made for the layout) is this rank's flat
-shard, with one all-gather of the compute-dtype params at each gradient
+over the mesh's data axes (all of them on every data rank for an arch
+with MoE layers, whose routing is over the whole batch), and every
+parameter-shaped state (the fp32 master, the server optimizer state,
+SCAFFOLD's server control variate, the accumulator and the payloads,
+the broadcast extras, the client iterate and its moments, the IASG
+samples and the DP vectors, and the per-client states in a store made
+for the layout) is this rank's flat shard, with one all-gather of the compute-dtype params at each gradient
 (MIME takes three a local step). Its round takes and returns the sharded
 ``ServerState``: the layout (``fsdp_layout``) shards a whole state
 (``shard_state``) and gathers it back (``gather_state``), and a store's
@@ -34,16 +35,19 @@ where the reference's ``map_components`` passes the encoded payload by.
 On a mesh with a ``"model"`` axis the compute is tensor-parallel over it,
 as the reference's ``tp_constrain`` at the gather boundary makes it: by
 ``rules`` (``sharding.rules``; the reference's ``DEFAULT_RULES`` map
-``"tp"`` to ``"model"``) each model rank of a data slot gathers only its
-heads' and FFN columns' elements of the attention and dense-FFN blocks
-(the rest replicated), computes on them with Megatron's all-reduces over
-the slot's model ranks, and its gradient returns to the elements' owners
-by the reverse exchange (``core/fsdp.py``); the state layout is the same.
-The override ``rules={"tp": ()}`` maps ``"tp"`` to no axis: the ranks
-along ``model`` then compute the same rows on the whole params. The
-vocabulary, MoE and the other families stay replicated (ROADMAP.md queue
-1, item 10 part 4b), and the ``parallel`` and ``chunked`` placements take
-no ``model`` split (4c).
+``"tp"``, ``"vocab"`` and ``"experts"`` to ``"model"``) each model rank of
+a data slot gathers only its part of the blocks that split (attention
+heads, dense-FFN and shared-expert columns, MoE experts, vocabulary rows;
+the rest replicated), computes on them with Megatron's all-reduces over
+the slot's model ranks (the cross entropy vocabulary-parallel), and its
+gradient returns to the elements' owners by the reverse exchange
+(``core/fsdp.py``); the state layout is the same. The override
+``rules={"tp": (), "vocab": (), "experts": ()}`` maps the three to no
+axis: the ranks along ``model`` then compute the same rows on the whole
+params (``{"tp": ()}`` alone keeps the vocabulary and experts split). The
+recurrent mixers stay replicated (ROADMAP.md queue 1, item 10 part 4b
+part 2), and the ``parallel`` and ``chunked`` placements take no
+``model`` split (4c).
 Without a mesh every sharding hook is the identity (the
 reference's ``prepare_params``, ``constrain_accum``, ``finalize_params``
 and the payload constraint place nothing), so they are left out. Either
@@ -76,13 +80,19 @@ def fsdp_layout(cfg: ModelConfig, mesh,
                 rules: Optional[dict] = None) -> fsdp.FlatShard:
     """The flat FSDP layout of ``cfg``'s params over ``mesh``'s ranks
     (``core.fsdp.FlatShard``; the params' shapes from the meta device),
-    tensor-parallel over the mesh axes ``rules`` map ``"tp"`` to (the
-    reference's ``DEFAULT_RULES`` by default: ``"model"``) when a block
-    splits there (``sharding.rules.tp_plan``). Every rank of the mesh
-    builds it (a tensor-parallel layout makes the model groups)."""
+    tensor-parallel over the mesh axis ``rules`` map ``"tp"``,
+    ``"vocab"`` and ``"experts"`` to (the reference's ``DEFAULT_RULES`` by
+    default: ``"model"``) when a block splits there
+    (``sharding.rules.tp_plan``). Every rank of the mesh
+    builds it (a tensor-parallel layout makes the model groups). An arch
+    with MoE layers does not split a client's rows over the data ranks
+    (``FlatShard``'s ``split_rows``): its routing is over the client's
+    whole batch."""
     template = init_params(None, cfg, device="meta")
+    moe = cfg.moe.enabled and any(
+        s.ffn == "moe" for s in list(cfg.pattern) + list(cfg.tail))
     return fsdp.FlatShard(template, mesh, tp=sharding_rules.tp_plan(
-        cfg, template, mesh, rules))
+        cfg, template, mesh, rules), split_rows=not moe)
 
 
 def _program_pieces(cfg: ModelConfig, fed: FedConfig, placement: str,
@@ -149,9 +159,9 @@ def make_fed_round(cfg: ModelConfig, fed: FedConfig, *,
     rank's rows (``shard_rows``, or a store made with
     ``make_client_store(..., fsdp=layout)``), ``client_batches`` the
     whole cohort's, and the new state comes back sharded; ``rules``
-    override the reference's logical-axis rules (``{"tp": ()}``: no
-    tensor parallelism over ``model``), and ``layout`` gives the FSDP
-    layout to run instead of ``fsdp_layout(cfg, mesh, rules)``.
+    override the reference's logical-axis rules (``{"tp": (), "vocab":
+    (), "experts": ()}``: no split over ``model``), and ``layout`` gives
+    the FSDP layout to run instead of ``fsdp_layout(cfg, mesh, rules)``.
     """
     grad_fn, kw = _program_pieces(cfg, fed, placement, compute_dtype,
                                   q_chunk, remat, use_sampling, chunk_size,

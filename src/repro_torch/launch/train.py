@@ -66,8 +66,10 @@ M, M)`` and runs every round at the ``sequential`` placement
 (``core/sharded_round.py``): the server state, the client iterate and the
 per-client states (a store made for the layout) are FSDP-sharded over
 all W ranks, every rank runs every client of the cohort on its rows of
-the client's batch, and the attention and dense-FFN blocks compute
-tensor-parallel over "model" (``core/fsdp.py``, ``sharding/``). Every
+the client's batch, and the attention, dense-FFN and MoE blocks and the
+vocabulary (embedding, unembedding, cross entropy) compute parallel over
+"model" where they divide (``core/fsdp.py``, ``sharding/``); a recurrent
+mixer stays replicated (ROADMAP.md queue 1, item 10 part 4b part 2). Every
 rank writes its shards at a checkpoint (``save_checkpoint_fsdp``) and a
 restore reads the set back; the eval loss is computed on the gathered
 params, on every rank; rank 0 prints the records. This path is the
@@ -247,8 +249,8 @@ def parse_args(argv=None):
                          "the ranks form a ('data', 'model') mesh and every "
                          "round runs at the sequential placement with its "
                          "state FSDP-sharded over all ranks and its "
-                         "attention and FFN compute tensor-parallel over "
-                         "'model'")
+                         "attention, FFN, MoE and vocabulary compute "
+                         "parallel over 'model'")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)

@@ -1,12 +1,14 @@
 """Common layers (port of ``repro/models/layers.py``): RMSNorm and its
 per-head form, RoPE, SwiGLU FFN, the depthwise causal conv, the LM's cross
-entropy."""
+entropy and its vocabulary-parallel form."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import tensor_parallel
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -105,3 +107,28 @@ def softmax_cross_entropy(logits, targets, valid_vocab: int | None = None,
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def vocab_parallel_cross_entropy(logits, targets, start: int,
+                                 valid_vocab: int | None = None):
+    """``softmax_cross_entropy`` over the vocabulary split across the
+    active model group: ``logits`` (B, S, V/M) are this rank's columns
+    ``[start, start + V/M)``, ``targets`` (B, S) global ids. The padded
+    columns are masked by their global index; the shift is the detached
+    max over the ranks; the sum of the exponentials and the gold logit
+    (0 from a rank whose range misses the target) are each summed over
+    the ranks. Every rank returns the same mean."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    if valid_vocab is not None:
+        col = start + torch.arange(n, device=logits.device)
+        logits = logits.masked_fill(col >= valid_vocab, -1e30)
+    shift = tensor_parallel.max_over_model(logits.amax(dim=-1))
+    total = tensor_parallel.reduce_from_model(
+        torch.exp(logits - shift[..., None]).sum(dim=-1))
+    local = targets.long() - start
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = tensor_parallel.reduce_from_model(
+        torch.where(inside, gold[..., 0], 0.0))
+    return (torch.log(total) + shift - gold).mean()

@@ -18,9 +18,13 @@ the state to keep an earlier one). The JAX package's sharding constraints
 (``repro.sharding.constrain``) have no counterpart on one device and are
 dropped; under tensor parallelism over ``model`` (a
 ``sharding.tensor_parallel.ModelGroup`` active around a local step) the
-attention and dense-FFN blocks compute on the model rank's heads and
-columns, with Megatron's conjugate pair at their edges (``_apply_layer``,
-``_ffn``).
+attention, dense-FFN and MoE blocks compute on the model rank's heads,
+columns and experts, with Megatron's conjugate pair at their edges
+(``_apply_layer``, ``_ffn``, ``models/moe.py``), and the training forward
+is vocabulary-parallel: the embedding looks up the tokens of the rank's
+rows and sums the lookups over the ranks (``_embed_inputs``), the
+unembedding gives the rank's columns of the logits (``_unembed``) and
+``models/steps.py``'s loss takes the vocabulary-parallel cross entropy.
 """
 from __future__ import annotations
 
@@ -166,7 +170,12 @@ def _unit(tree, r: int):
     return tm.tmap(lambda t: t[r], tree)
 
 
-def _unembed(cparams, x):
+def _unembed(cparams, x, tp=None):
+    """The logits of ``x``; under ``tp`` (a ``ModelGroup`` whose
+    vocabulary splits) this model rank's columns of them, the input's
+    gradient summed over the ranks."""
+    if tp is not None and tp.vocab:
+        x = tensor_parallel.copy_to_model(x)
     if "unembed" in cparams:
         return x @ cparams["unembed"]
     return x @ cparams["embed"].T
@@ -231,8 +240,20 @@ def _apply_layer(p, x, cfg: ModelConfig, spec: LayerSpec, q_chunk: int,
 def _embed_inputs(cparams, cfg: ModelConfig, tokens, frontend,
                   compute_dtype):
     """Token embeddings (B, S_text, d), after the frontend embeddings
-    (B, F, d) when the config has a frontend."""
-    x = cparams["embed"][tokens]
+    (B, F, d) when the config has a frontend. Under a model group whose
+    vocabulary splits, this rank's ``embed`` holds rows ``[g V/M, (g + 1)
+    V/M)``: a token outside them looks up zeros, and the lookups are
+    summed over the ranks (one nonzero term each: exact)."""
+    tp = tensor_parallel.active()
+    if tp is not None and tp.vocab:
+        rows = cparams["embed"].shape[0]
+        local = tokens - tp.index * rows
+        inside = (local >= 0) & (local < rows)
+        x = cparams["embed"][torch.where(inside, local, 0)]
+        x = tensor_parallel.reduce_from_model(
+            torch.where(inside[..., None], x, 0))
+    else:
+        x = cparams["embed"][tokens]
     if cfg.frontend:
         if frontend is None:
             raise ValueError(f"{cfg.name} requires frontend embeddings")
@@ -303,7 +324,8 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
             compute_dtype=torch.bfloat16, q_chunk: int = 1024,
             remat: str = "full", logits_slice: Optional[int] = None):
     """tokens: (B, S_text) int -> (logits (B, S_out, V), aux-loss scalar,
-    the sum of the MoE layers' router losses, fp32).
+    the sum of the MoE layers' router losses, fp32). Under a model group
+    whose vocabulary splits, the logits are this rank's ``V / M`` columns.
 
     ``frontend`` (B, F, d): the frontend embeddings of a frontend arch,
     put before the text. ``logits_slice``: if given, only the logits of
@@ -356,7 +378,7 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
     x = rms_norm(x, cparams["final_norm"], cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:]
-    return _unembed(cparams, x), aux
+    return _unembed(cparams, x, tensor_parallel.active()), aux
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,21 @@ Three JAX primitives need care to give the same experts and slots:
   out-of-range position never lands in a real slot.
 * ``.at[slot].add(..., mode="drop")`` drops the bucket ``E*C``, where
   ``index_add_`` would raise: the buffer gets one extra row, sliced off.
+
+Under expert parallelism over ``model`` (a ``sharding.tensor_parallel
+.ModelGroup`` active with ``experts``), model rank ``g`` holds experts
+``[g E/M, (g + 1) E/M)`` of each bank. Every model rank computes the same
+routing from the same input: the router, top-k, the capacity positions,
+every drop decision and the aux loss are the unsplit layer's. Rank ``g``
+then runs only its experts' ``(E/M, C, d)`` slots: the one-hot route
+slices ``combine`` and ``dispatch`` to its experts, the sort route sends
+the slots of other experts to the drop bucket. The experts read
+``copy_to_model`` of the input and the combine reads ``copy_to_model`` of
+the gate values (each rank's gradient of them is a partial sum), while the
+router and the aux loss read the input and the probabilities directly, so
+their gradient is a replicated leaf's, whole on every rank. A shared
+expert split over ``tp`` (``shared``) takes its ``d_ff / M`` columns; one
+``reduce_from_model`` sums the ranks' routed and shared partials.
 """
 from __future__ import annotations
 
@@ -25,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.sharding import tensor_parallel
 
 
 def init_moe_params(init, cfg: ModelConfig, lead=()):
@@ -101,13 +117,21 @@ def _combine(expert_idx, gate_vals, m: MoEConfig, C: int):
     return combine
 
 
-def _route_chunk(xc, p, m: MoEConfig):
+def _route_chunk(xc, p, m: MoEConfig, xe=None, lo: int = 0):
     """One chunk of tokens, GShard one-hot dispatch. xc: (T, d). Returns
-    (y (T, d), aux scalar)."""
+    (y (T, d), aux scalar). With ``xe`` (the experts' input,
+    ``copy_to_model(xc)``) only the experts ``[lo, lo + E_local)`` of the
+    local banks run: ``y`` is their partial sum."""
     gate_vals, expert_idx, aux = _router(xc, p, m)
+    if xe is not None:
+        gate_vals = tensor_parallel.copy_to_model(gate_vals)
     combine = _combine(expert_idx, gate_vals, m, capacity(m, xc.shape[0]))
+    if xe is not None:
+        combine = combine[:, lo:lo + p["w_gate"].shape[-3]]
+    else:
+        xe = xc
     dispatch = (combine > 0).to(xc.dtype)                         # (T, E, C)
-    expert_in = torch.einsum("tec,td->ecd", dispatch, xc)         # (E, C, d)
+    expert_in = torch.einsum("tec,td->ecd", dispatch, xe)         # (E, C, d)
     h = _experts(expert_in, p)
     y = torch.einsum("tec,ecd->td", combine.to(xc.dtype), h)
     return y, aux
@@ -131,18 +155,28 @@ def _assign_sorted(expert_idx, m: MoEConfig, C: int):
     return order, st, keep, torch.where(keep, se * C + pos, E * C)
 
 
-def _route_chunk_sort(xc, p, m: MoEConfig):
+def _route_chunk_sort(xc, p, m: MoEConfig, xe=None, lo: int = 0):
     """Sort-based routing: a stable argsort of the (token, slot) pairs by
     expert, a gather into expert slots and a scatter-add back. Tokens are
     dropped per expert in token order across all k-slots (GShard drops
-    slot-major); with ample capacity the two routes agree."""
+    slot-major); with ample capacity the two routes agree. With ``xe``
+    (``copy_to_model(xc)``) only the experts ``[lo, lo + E_local)`` run:
+    the other experts' slots go to the drop bucket."""
     T, d = xc.shape
     E, C = m.num_experts, capacity(m, T)
     gate_vals, expert_idx, aux = _router(xc, p, m)
     order, st, keep, slot = _assign_sorted(expert_idx, m, C)
+    if xe is not None:
+        gate_vals = tensor_parallel.copy_to_model(gate_vals)
+        E = p["w_gate"].shape[-3]
+        slot = slot - lo * C
+        keep = keep & (slot >= 0) & (slot < E * C)
+        slot = torch.where(keep, slot, E * C)
+    else:
+        xe = xc
     sg = gate_vals.reshape(-1)[order]
 
-    gathered = xc[st] * keep[:, None].to(xc.dtype)                # (T*K, d)
+    gathered = xe[st] * keep[:, None].to(xc.dtype)                # (T*K, d)
     buf = xc.new_zeros((E * C + 1, d)).index_add_(0, slot, gathered)
     h = _experts(buf[:E * C].reshape(E, C, d), p).reshape(E * C, d)
 
@@ -152,36 +186,67 @@ def _route_chunk_sort(xc, p, m: MoEConfig):
     return y, aux
 
 
+def kept_pairs(gate_vals, expert_idx, m: MoEConfig):
+    """(T, E) bool: which experts each token reaches under ``m.routing``
+    after the capacity drops of its chunk of T tokens, from the router's
+    (T, K) gates and experts."""
+    T, E = expert_idx.shape[0], m.num_experts
+    C = capacity(m, T)
+    if m.routing != "sort":
+        return (_combine(expert_idx, gate_vals, m, C) > 0).any(dim=-1)
+    order, st, keep, _ = _assign_sorted(expert_idx, m, C)
+    mask = torch.zeros((T, E), dtype=torch.bool, device=expert_idx.device)
+    mask[st[keep], expert_idx.reshape(-1)[order][keep]] = True
+    return mask
+
+
 def kept_assignments(xc, p, m: MoEConfig):
     """(T, E) bool: which experts each token of the chunk ``xc`` (T, d)
     reaches under ``m.routing`` after capacity drops (its top-k experts
     where nothing overflowed)."""
-    T, E, C = xc.shape[0], m.num_experts, capacity(m, xc.shape[0])
     gate_vals, expert_idx, _ = _router(xc, p, m)
-    if m.routing != "sort":
-        return (_combine(expert_idx, gate_vals, m, C) > 0).any(dim=-1)
-    order, st, keep, _ = _assign_sorted(expert_idx, m, C)
-    mask = torch.zeros((T, E), dtype=torch.bool, device=xc.device)
-    mask[st[keep], expert_idx.reshape(-1)[order][keep]] = True
-    return mask
+    return kept_pairs(gate_vals, expert_idx, m)
+
+
+def _shared_expert(p, x):
+    """The shared expert's SwiGLU on ``x``."""
+    g = F.silu(x @ p["ws_gate"])
+    return (g * (x @ p["ws_up"])) @ p["ws_down"]
 
 
 def moe_ffn(p, x, cfg: ModelConfig):
     """x: (B, S, d) -> (y (B, S, d), aux-loss scalar, the mean over chunks).
 
     Tokens are padded to a whole number of chunks of ``chunk_tokens`` (the
-    padding is dropped on output) and routed chunk by chunk."""
+    padding is dropped on output) and routed chunk by chunk. Under an
+    active model group the experts (``experts``) and the shared expert
+    (``shared``) compute on this model rank's part and their partial
+    outputs are summed over the group (the module's docstring)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    xf = x.reshape(T, d)
+    tp = tensor_parallel.active()
+    ep = tp is not None and tp.experts
+    sp = tp is not None and tp.shared and bool(m.shared_expert_d_ff)
+    xe = tensor_parallel.copy_to_model(x) if ep or sp else x
+    xf, xef = x.reshape(T, d), xe.reshape(T, d)
     chunk = min(m.chunk_tokens, T)
     if T % chunk:
-        xf = torch.cat([xf, xf.new_zeros((chunk - T % chunk, d))])
+        pad = xf.new_zeros((chunk - T % chunk, d))
+        xf, xef = torch.cat([xf, pad]), torch.cat([xef, pad])
     route = _route_chunk_sort if m.routing == "sort" else _route_chunk
-    ys, auxs = zip(*(route(xc, p, m) for xc in xf.split(chunk)))
+    lo = tp.index * p["w_gate"].shape[-3] if ep else 0
+    ys, auxs = zip(*(route(xc, p, m, xec if ep else None, lo)
+                     for xc, xec in zip(xf.split(chunk), xef.split(chunk))))
     y = torch.cat(ys)[:T].reshape(B, S, d)
+    aux = torch.stack(auxs).mean()
+    if m.shared_expert_d_ff and sp != ep:
+        # one part splits: the other's whole output joins after the sum
+        if ep:
+            return (tensor_parallel.reduce_from_model(y)
+                    + _shared_expert(p, x)), aux
+        return y + tensor_parallel.reduce_from_model(
+            _shared_expert(p, xe)), aux
     if m.shared_expert_d_ff:
-        g = F.silu(x @ p["ws_gate"])
-        y = y + (g * (x @ p["ws_up"])) @ p["ws_down"]
-    return y, torch.stack(auxs).mean()
+        y = y + _shared_expert(p, xe)
+    return (tensor_parallel.reduce_from_model(y) if ep else y), aux

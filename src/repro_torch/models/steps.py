@@ -11,7 +11,9 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
-from repro_torch.models.layers import softmax_cross_entropy
+from repro_torch.models.layers import (softmax_cross_entropy,
+                                      vocab_parallel_cross_entropy)
+from repro_torch.sharding import tensor_parallel
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
@@ -20,7 +22,9 @@ def lm_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
     Returns (loss, metrics): the mean next-token cross entropy over the
     valid vocab of the text positions (past a frontend's ``F``), plus
     ``router_aux_weight`` times the MoE aux loss for an MoE config, in
-    fp32; metrics ``{"xent", "moe_aux"}``."""
+    fp32; metrics ``{"xent", "moe_aux"}``. Under a model group whose
+    vocabulary splits the logits are this rank's columns and the cross
+    entropy is the vocabulary-parallel one (the same on every rank)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     logits, aux = model_lib.forward(params, inputs, cfg,
@@ -29,7 +33,14 @@ def lm_loss(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
                                     q_chunk=q_chunk, remat=remat)
     if cfg.frontend:
         logits = logits[:, cfg.frontend_tokens:]
-    xent = softmax_cross_entropy(logits, targets, valid_vocab=cfg.vocab_size)
+    tp = tensor_parallel.active()
+    if tp is not None and tp.vocab:
+        xent = vocab_parallel_cross_entropy(
+            logits, targets, tp.index * logits.shape[-1],
+            valid_vocab=cfg.vocab_size)
+    else:
+        xent = softmax_cross_entropy(logits, targets,
+                                     valid_vocab=cfg.vocab_size)
     total = xent + cfg.moe.router_aux_weight * aux if cfg.moe.enabled \
         else xent
     return total, {"xent": xent, "moe_aux": aux}

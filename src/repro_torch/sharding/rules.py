@@ -1,6 +1,7 @@
 """Logical-axis rules and the tensor-parallel plan (port of
 ``repro/sharding/rules.py``'s rule table: ``DEFAULT_RULES``, the override
-filtered to a mesh's axes, and this slice's part of ``_PARAM_RULES``).
+filtered to a mesh's axes, and the attention-and-FFN part of
+``_PARAM_RULES``).
 
 The reference names logical axes in its model code and maps them to mesh
 axes through ``DEFAULT_RULES`` (``"tp"``, ``"vocab"`` and ``"experts"`` to
@@ -12,29 +13,39 @@ divide; XLA computes correctly on any such layout.
 
 Here the compute over ``model`` is written out (Megatron's conjugate pair,
 ``sharding/tensor_parallel.py``), so a split has to keep whole what the
-model's code computes on, and the port decides per block, not per leaf:
+model's code computes on, and the port decides per block, not per leaf.
+Over ``M`` model ranks, by the logical axis each block's rule names:
 
-  * an attention block splits over ``M`` model ranks only when
-    ``num_kv_heads % M == 0``; model rank ``g`` then takes kv heads ``[g
-    KV/M, (g + 1) KV/M)`` and their query heads ``[g H/M, (g + 1) H/M)``
-    (head ``h`` reads kv head ``h // (H / KV)``): the columns ``[g q/M,
-    (g + 1) q/M)`` of ``wq`` (``q = H dh``), those of ``wk`` and ``wv``
-    (``KV dh``), and the same rows of ``wo``;
-  * a dense FFN block splits only when ``d_ff % M == 0``: columns ``[g
-    f/M, (g + 1) f/M)`` of ``w_gate`` and ``w_up``, the same rows of
-    ``w_down``;
-  * every other leaf is replicated in this slice: ``embed`` /
-    ``unembed`` (the vocabulary), the norms, ``q_scale`` / ``k_scale``,
-    MoE, the xLSTM and RG-LRU projections, ``conv`` and the frontends
-    (ROADMAP.md queue 1, item 10 part 4b).
+  * ``"tp"``: an attention block splits only when ``num_kv_heads % M ==
+    0``; model rank ``g`` then takes kv heads ``[g KV/M, (g + 1) KV/M)``
+    and their query heads ``[g H/M, (g + 1) H/M)`` (head ``h`` reads kv
+    head ``h // (H / KV)``): the columns ``[g q/M, (g + 1) q/M)`` of
+    ``wq`` (``q = H dh``), those of ``wk`` and ``wv`` (``KV dh``), and
+    the same rows of ``wo``;
+  * ``"tp"``: a dense FFN block splits only when ``d_ff % M == 0``:
+    columns ``[g f/M, (g + 1) f/M)`` of ``w_gate`` and ``w_up``, the same
+    rows of ``w_down``; an MoE's shared expert the same way when
+    ``shared_expert_d_ff % M == 0`` (``ws_gate``, ``ws_up``, ``ws_down``);
+  * ``"vocab"``: ``embed`` (``(V, d)``, ``V`` the padded vocabulary)
+    splits its rows ``[g V/M, (g + 1) V/M)`` when ``V % M == 0``, an
+    untied ``unembed`` (``(d, V)``) the same columns;
+  * ``"experts"``: the MoE expert banks ``w_gate``, ``w_up`` (``(..., E,
+    d, f)``) and ``w_down`` (``(..., E, f, d)``) split on dim -3 when ``E
+    % M == 0``: model rank ``g`` takes experts ``[g E/M, (g + 1) E/M)``;
+  * every other leaf is replicated: the norms, ``q_scale`` / ``k_scale``,
+    the MoE ``router`` (top-k reads every expert's logit, so a split would
+    gather them again), the xLSTM and RG-LRU projections and ``conv``
+    (ROADMAP.md queue 1, item 10 part 4b part 2).
 
 ``TPPlan`` gives, for model rank ``g``, the compute tree's leaf shapes and
 the indices of its elements in the template's ravel (the FSDP layout's
-flat order, ``core/fsdp.py``) as contiguous runs: a column block of a
-``(..., d, q)`` leaf is one run of ``q/M`` per row, a row block one run of
-``q/M x d`` per leading index. The runs are in ravel order, so the
-elements they name, concatenated, are the compute leaves' ravels in the
-template's leaf order.
+flat order, ``core/fsdp.py``) as contiguous runs: a block of dim ``k`` of
+a leaf is one run of ``shape[k] / M`` times the trailing dims' elements
+per leading index (a column block of ``(..., d, q)``: ``q/M`` per row; a
+row block: ``q/M x d`` per leading index; an expert block: ``E/M x d x f``
+per leading index). The runs are in ravel order, so the elements they
+name, concatenated, are the compute leaves' ravels in the template's leaf
+order.
 """
 from __future__ import annotations
 
@@ -54,13 +65,22 @@ DEFAULT_RULES = {
     "experts": ("model",),
 }
 
-#: This slice's parameter rules: (regex on the leaf's name, logical axes of
-#: its two trailing dims) for the leaves of an attention block and of a
-#: dense FFN block.
+#: The parameter rules of the blocks that split: (regex on the leaf's
+#: name, logical axes of its trailing dims) for the leaves of an attention
+#: block, of a dense FFN block, of an MoE's shared expert and of its expert
+#: banks, and for the vocabulary's leaves.
 ATTN_RULES = ((r"^(wq|wk|wv)$", (None, "tp")),
               (r"^wo$", ("tp", None)))
 FFN_RULES = ((r"^w_(gate|up)$", (None, "tp")),
              (r"^w_down$", ("tp", None)))
+SHARED_RULES = ((r"^ws_(gate|up)$", (None, "tp")),
+                (r"^ws_down$", ("tp", None)))
+EXPERT_RULES = ((r"^w_(gate|up|down)$", ("experts", None, None)),)
+VOCAB_RULES = ((r"^embed$", ("vocab", None)),
+               (r"^unembed$", (None, "vocab")))
+
+#: The logical axes the port splits compute over (each maps to "model").
+LOGICAL = ("tp", "vocab", "experts")
 
 
 def resolve(name: str, mesh, rules: Optional[dict] = None) -> Tuple[str, ...]:
@@ -82,7 +102,7 @@ def normalize_path(path: str) -> str:
 class LeafSplit(NamedTuple):
     """One template leaf under the plan: its key ``path``, whole
     ``shape`` and the dim split over the model ranks (``-1`` columns,
-    ``-2`` rows, None replicated)."""
+    ``-2`` rows, ``-3`` experts, None replicated)."""
 
     path: str
     shape: tuple
@@ -108,34 +128,49 @@ def _block_spec(cfg, parts: List[str]):
 
 class TPPlan:
     """The tensor-parallel plan of ``cfg``'s params (``template``: the
-    params tree, shapes only) over ``M`` model ranks: whether attention
-    (``attn``) and the dense FFN (``ffn``) split, and each leaf's
-    ``LeafSplit`` in the template's order."""
+    params tree, shapes only) over ``M`` model ranks, the blocks of the
+    logical axes ``logical`` (of ``LOGICAL``) eligible: whether attention
+    (``attn``), the dense FFN (``ffn``), the shared expert (``shared``),
+    the vocabulary (``vocab``) and the MoE experts (``experts``) split,
+    and each leaf's ``LeafSplit`` in the template's order."""
 
-    def __init__(self, cfg, template, M: int):
+    def __init__(self, cfg, template, M: int, logical=LOGICAL):
         if M < 1:
             raise ValueError(f"a model extent of {M}")
         self.M = M
         specs = list(cfg.pattern) + list(cfg.tail)
-        self.attn = (cfg.num_kv_heads % M == 0
+        tp, m = "tp" in logical, cfg.moe
+        moe = m.enabled and any(s.ffn == "moe" for s in specs)
+        self.attn = (tp and cfg.num_kv_heads % M == 0
                      and any(s.mixer in ("attn", "swa") for s in specs))
-        self.ffn = (cfg.d_ff % M == 0
+        self.ffn = (tp and cfg.d_ff % M == 0
                     and any(s.ffn == "dense" for s in specs))
+        self.shared = (tp and moe and m.shared_expert_d_ff > 0
+                       and m.shared_expert_d_ff % M == 0)
+        self.vocab = "vocab" in logical and cfg.padded_vocab % M == 0
+        self.experts = ("experts" in logical and moe
+                        and m.num_experts % M == 0)
         self.leaves: List[LeafSplit] = []
         for key, x in pytree.tree_flatten_with_path(template)[0]:
             path = pytree.keystr(key)
             parts = normalize_path(path).split(".")
             spec, dim = _block_spec(cfg, parts), None
             rules = ()
-            if spec is not None and parts[2] == "mixer" and self.attn \
+            if len(parts) == 1 and self.vocab:
+                rules = VOCAB_RULES
+            elif spec is not None and parts[2] == "mixer" and self.attn \
                     and spec.mixer in ("attn", "swa"):
                 rules = ATTN_RULES
             elif spec is not None and parts[2] == "ffn" and self.ffn \
                     and spec.ffn == "dense":
                 rules = FFN_RULES
-            for pattern, logical in rules:
+            elif spec is not None and parts[2:4] == ["ffn", "moe"]:
+                rules = ((SHARED_RULES if self.shared else ())
+                         + (EXPERT_RULES if self.experts else ()))
+            for pattern, axes in rules:
                 if re.search(pattern, parts[-1]):
-                    dim = -1 if logical[-1] == "tp" else -2
+                    dim = next(i - len(axes) for i, a in enumerate(axes)
+                               if a is not None)
             shape = tuple(x.shape)
             if dim is not None and shape[dim] % M:
                 raise ValueError(f"{path} of shape {shape} does not split "
@@ -145,7 +180,8 @@ class TPPlan:
     @property
     def splits(self) -> bool:
         """Whether any block splits."""
-        return self.attn or self.ffn
+        return (self.attn or self.ffn or self.shared or self.vocab
+                or self.experts)
 
     @property
     def split_elements(self) -> int:
@@ -185,18 +221,13 @@ class TPPlan:
                 if not split_only:
                     starts.append(np.array([off]))
                     lens.append(np.array([s.size]))
-            elif s.dim == -1:
-                q = s.shape[-1]
-                c = q // self.M
-                rows = s.size // q
-                starts.append(off + np.arange(rows, dtype=np.int64) * q
-                              + g * c)
-                lens.append(np.full(rows, c, np.int64))
             else:
-                a, b = s.shape[-2:]
-                c = a // self.M * b
-                lead = s.size // (a * b)
-                starts.append(off + np.arange(lead, dtype=np.int64) * a * b
+                # one block of shape[dim] / M x the trailing elements per
+                # leading index
+                span = math.prod(s.shape[s.dim:])
+                c = span // self.M
+                lead = s.size // span
+                starts.append(off + np.arange(lead, dtype=np.int64) * span
                               + g * c)
                 lens.append(np.full(lead, c, np.int64))
             off += s.size
@@ -213,18 +244,24 @@ class TPPlan:
 
 def tp_plan(cfg, template, mesh, rules: Optional[dict] = None
             ) -> Optional[TPPlan]:
-    """The plan of ``cfg``'s params over the mesh axes ``"tp"`` maps to
-    under ``rules`` (the reference's ``DEFAULT_RULES`` by default): None
-    when that extent is 1 (no such axis, or ``{"tp": ()}``) or when no
-    block splits. Tensor parallelism runs over ``"model"`` only."""
-    axes = resolve("tp", mesh, rules)
-    if not axes:
+    """The plan of ``cfg``'s params over the mesh axes ``"tp"``,
+    ``"vocab"`` and ``"experts"`` map to under ``rules`` (the reference's
+    ``DEFAULT_RULES`` by default: each to ``"model"``): the blocks of the
+    logical axes that map to ``"model"`` are eligible, those that map to
+    no axis (``{"tp": ()}``, ``{"vocab": ()}``, ``{"experts": ()}``) stay
+    replicated. None when no logical axis maps to a mesh axis, when the
+    ``"model"`` extent is 1, or when no block splits. The port splits
+    compute over ``"model"`` only: a logical axis on another mesh axis is
+    refused."""
+    logical = []
+    for name in LOGICAL:
+        axes = resolve(name, mesh, rules)
+        if axes and axes != ("model",):
+            raise ValueError(f"{name!r} over the mesh axes {axes}: the port "
+                             f"splits compute over 'model' only")
+        if axes:
+            logical.append(name)
+    if not logical or mesh.shape["model"] == 1:
         return None
-    if axes != ("model",):
-        raise ValueError(f"tensor parallelism over the mesh axes {axes}: "
-                         f"the port splits compute over 'model' only")
-    M = mesh.shape["model"]
-    if M == 1:
-        return None
-    plan = TPPlan(cfg, template, M)
+    plan = TPPlan(cfg, template, mesh.shape["model"], tuple(logical))
     return plan if plan.splits else None

@@ -6,12 +6,17 @@ the model code of a tensor-parallel local step (``core/fsdp.py``'s
   * ``copy_to_model`` — identity forward, the gradient all-reduced over
     the model group in the backward pass. On each split block's
     normalized input (every model rank feeds the same activations into
-    its columns, and each holds a partial input gradient) and on
+    its columns, heads, experts or vocabulary rows, and each holds a
+    partial input gradient), on the MoE gate values that weight the
+    combine (each rank combines its own experts' outputs), and on
     ``q_scale`` / ``k_scale`` (replicated leaves each model rank applies
     to its own heads only, so its gradient for them is a partial sum);
   * ``reduce_from_model`` — the forward all-reduced over the model group,
-    identity backward. On the outputs of ``wo`` and ``w_down`` (each model
-    rank's rows give a partial sum of the block's output).
+    identity backward. On the outputs of ``wo``, ``w_down`` and the MoE
+    layer (each model rank's rows or experts give a partial sum of the
+    block's output), on the embedding lookup (each rank finds the tokens
+    of its vocabulary rows), and on the vocabulary-parallel cross
+    entropy's partial sums (``models/layers.py``).
 
 Each is a ``torch.autograd.Function`` with ``setup_context`` and a
 ``vmap`` staticmethod that all-reduces the batched tensor whole and keeps
@@ -21,9 +26,10 @@ backward replays the forward's all-reduces (under the forward's model
 group, which ``_Recompute`` keeps: autograd runs a CUDA backward on its
 own device thread, where this thread's ``active()`` is None): every model
 rank runs the same layers in the same order, so they issue the same
-collectives in the same order. The all-reduce itself is
-``core.collective.all_reduce_model`` (staged through pinned host memory
-on gloo with CUDA tensors).
+collectives in the same order. ``max_over_model`` (the cross entropy's
+shift) is the same all-reduce with ``MAX``, detached: no gradient flows
+through it. The all-reduce itself is ``core.collective.all_reduce_model``
+(staged through pinned host memory on gloo with CUDA tensors).
 
 With no ``ModelGroup`` active, ``active()`` is None and the model code
 runs none of this.
@@ -43,18 +49,27 @@ from repro_torch.core import collective
 class ModelGroup(NamedTuple):
     """The model ranks of this rank's data slot: their process ``group``,
     their number ``size`` (M), this rank's ``index`` (g) among them, and
-    which blocks split (``attn``, ``ffn``; ``sharding.rules.TPPlan``)."""
+    which blocks split (``attn``, ``ffn``, ``vocab``, ``experts``,
+    ``shared``; ``sharding.rules.TPPlan``)."""
 
     group: object
     size: int
     index: int
     attn: bool
     ffn: bool
+    vocab: bool = False
+    experts: bool = False
+    shared: bool = False
+
+    @classmethod
+    def of(cls, group, index: int, plan) -> "ModelGroup":
+        """The group of model rank ``index`` under ``plan``'s blocks."""
+        return cls(group, plan.M, index, plan.attn, plan.ffn, plan.vocab,
+                   plan.experts, plan.shared)
 
 
 #: The active model groups of this thread, innermost last.
 _STATE = threading.local()
-
 
 
 def _stack() -> List[ModelGroup]:
@@ -99,6 +114,26 @@ def model_group(mesh, slots: List[List[int]]):
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
     return collective.all_reduce_model(group, x)
+
+
+class _MaxOverModel(torch.autograd.Function):
+    """All-reduce max forward; no gradient (its input is detached)."""
+
+    @staticmethod
+    def forward(x, group):
+        return collective.all_reduce_model(group, x, op="max")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return collective.all_reduce_model(group, x, op="max"), in_dims[0]
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -152,3 +187,8 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     ``x``."""
     return _ReduceFromModel.apply(x, active().group)
 
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the active model group's ranks of ``x``,
+    detached (a shift that no gradient goes through)."""
+    return _MaxOverModel.apply(x.detach(), active().group)

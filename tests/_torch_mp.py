@@ -205,10 +205,14 @@ def nest(flat: dict) -> dict:
 
 
 #: The FSDP cases that hold the round without tensor parallelism: the
-#: reference's rule override that maps "tp" to no mesh axis, and every
-#: activation kept (the cases' one-process rounds take the same remat).
-NO_TP = {"tp": ()}
+#: reference's rule override that maps "tp", "vocab" and "experts" to no
+#: mesh axis, and every activation kept (the cases' one-process rounds
+#: take the same remat).
+NO_TP = {"tp": (), "vocab": (), "experts": ()}
 NO_REMAT = "none"
+#: The FSDP test's MoE arch: its burn-in and FedPA rounds run tensor-,
+#: vocabulary- and expert-parallel
+MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
 def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
@@ -225,7 +229,8 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
     of each algorithm of the inputs' ``algo_kw`` (``<name>.rank<r>.npz``)
     and each ``engine_run`` the inputs' ``engine_kw`` names
     (``<name>.rank<r>.npz``), under the same settings; then ``tp_rounds``
-    (``tp_<dp>.rank<r>.npz``)."""
+    (``tp_<dp>.rank<r>.npz``), and ``tp_rounds`` of ``MOE_ARCH`` from the
+    inputs' ``q/`` params with batch DP (``moe.rank<r>.npz``)."""
     import json
 
     from repro_torch import configs
@@ -316,29 +321,36 @@ def fsdp_rank(rank: int, out_dir: str, shape: tuple) -> None:
         np.savez(os.path.join(out_dir, f"tp_{dp}.rank{rank}.npz"),
                  **tp_rounds(dict(kw, streaming_dp=dp == "streaming"),
                              inputs, mesh))
+    np.savez(os.path.join(out_dir, f"moe.rank{rank}.npz"),
+             **tp_rounds(kw, inputs, mesh, MOE_ARCH, "q"))
 
 
-def tp_rounds(kw: dict, inputs, mesh=None) -> dict:
+def tp_rounds(kw: dict, inputs, mesh=None, arch: str = "fedlm-100m",
+              prefix: str = "p") -> dict:
     """The FSDP test's tensor-parallel rounds: ``fsdp_rank``'s burn-in and
-    FedPA rounds with the default rules (tensor parallelism over the
-    mesh's "model" axis) and the default remat ("full"). Returns the
-    gathered params (``r<i>/<path>``), the losses and this rank's traffic
-    per round (``r<i>/traffic/<kind>``), this rank's model index and data
-    slot, the plan's elements a model rank computes on, and per local step
-    the digests of the loss this rank computed (before the mean over the
-    ranks) and of its gradients of the replicated leaves (``loss_digest``,
-    ``replicated_digest``: ``(steps, ...)``)."""
+    FedPA rounds of ``arch``'s smoke config from ``inputs``' params under
+    ``prefix/``, with the default rules (tensor, vocabulary and expert
+    parallelism over the mesh's "model" axis) and the default remat
+    ("full"); in one process without a ``mesh``. Returns the gathered
+    params (``r<i>/<path>``), the losses and this rank's traffic per round
+    (``r<i>/traffic/<kind>``), and under a mesh this rank's model index
+    and data slot, the plan's elements a model rank computes on, and per
+    local step the digests of the loss this rank computed (before the mean
+    over the ranks) and of its gradients of the replicated leaves
+    (``loss_digest``, ``replicated_digest``: ``(steps, ...)``)."""
     from repro_torch import configs
     from repro_torch.configs.base import FedConfig
     from repro_torch.core import collective, fsdp, sharded_round
     from repro_torch.core.server import init_server_state
     from repro_torch.optim import get_optimizer
 
-    cfg = configs.get_smoke("fedlm-100m")
+    cfg = configs.get_smoke(arch)
     fed = FedConfig(**kw)
     opt = get_optimizer(fed.server_opt, fed.server_lr, fed.server_momentum)
-    layout = sharded_round.fsdp_layout(cfg, mesh)
-    state = layout.shard_state(init_server_state(_tree(inputs, "p"), opt))
+    layout = None if mesh is None else sharded_round.fsdp_layout(cfg, mesh)
+    state = init_server_state(_tree(inputs, prefix), opt)
+    if layout is not None:
+        state = layout.shard_state(state)
     losses, grads = [], []
     reduce_compute = fsdp.FlatShard.reduce_compute
     mean_over_ranks = fsdp.FlatShard.mean_over_ranks
@@ -355,9 +367,9 @@ def tp_rounds(kw: dict, inputs, mesh=None) -> dict:
 
     fsdp.FlatShard.reduce_compute = probed_reduce
     fsdp.FlatShard.mean_over_ranks = probed_mean
-    out = {"model_index": layout.model.index,
-           "data_index": layout.data_index,
-           "rank_elements": layout.tp.rank_elements}
+    out = {} if layout is None else {
+        "model_index": layout.model.index, "data_index": layout.data_index,
+        "rank_elements": layout.tp.rank_elements}
     try:
         for r, use_sampling in enumerate((False, True)):
             fn = sharded_round.make_fed_round(
@@ -368,14 +380,31 @@ def tp_rounds(kw: dict, inputs, mesh=None) -> dict:
             out.update({f"r{r}/traffic/{k}": v
                         for k, v in collective.traffic.items()})
             out.update({f"r{r}/{k}": float(v) for k, v in metrics.items()})
+            params = (state.params if layout is None
+                      else layout.gather_state(state).params)
             out.update({f"r{r}/{path}": leaf.numpy() for path, leaf in
-                        fsdp._paths(layout.gather_state(state).params)})
+                        fsdp._paths(params)})
     finally:
         fsdp.FlatShard.reduce_compute = reduce_compute
         fsdp.FlatShard.mean_over_ranks = mean_over_ranks
-    out["loss_digest"] = np.stack([d.numpy() for d in losses])
-    out["replicated_digest"] = np.stack([d.numpy() for d in grads])
+    if layout is not None:
+        out["loss_digest"] = np.stack([d.numpy() for d in losses])
+        out["replicated_digest"] = np.stack([d.numpy() for d in grads])
     return out
+
+
+def collect(out_dir: str, cases, world: int) -> dict:
+    """``{case: [rank r's <case>.rank<r>.npz as a dict]}`` read into memory,
+    each file removed once read (the rank files of a group are large)."""
+    found = {}
+    for case in cases:
+        found[case] = []
+        for r in range(world):
+            path = os.path.join(out_dir, f"{case}.rank{r}.npz")
+            with np.load(path) as z:
+                found[case].append(dict(z))
+            os.remove(path)
+    return found
 
 
 def _tree(inputs, prefix: str):

@@ -53,17 +53,22 @@ the groups within a deadline, and the tests only compare.
   the layout's formula.
 
 All of the above run under the reference's rule override that maps
-``"tp"`` to no mesh axis (``_torch_mp.NO_TP``) and keep every activation
-(``_torch_mp.NO_REMAT``; their one-process rounds too): the model ranks
-compute the same rows on the whole params. Each group then runs the
-burn-in and FedPA rounds again with the default rules and remat, tensor
-parallel over ``model`` (``_torch_mp.tp_rounds``): the gathered params and
-losses equal JAX's one-device ``sequential`` round and the port's
-one-process one at the same tolerances, the two model ranks of a data slot
-compute bitwise-equal losses and replicated-leaf gradients at every local
-step, and each rank gathers exactly its model rank's compute elements
-(722,432 of the smoke's 1,312,256), the bytes to the other ranks by the
-plan's cut of the layout.
+``"tp"``, ``"vocab"`` and ``"experts"`` to no mesh axis
+(``_torch_mp.NO_TP``) and keep every activation (``_torch_mp.NO_REMAT``;
+their one-process rounds too): the model ranks compute the same rows on
+the whole params. Each group then runs the burn-in and FedPA rounds again
+with the default rules and remat, tensor- and vocabulary-parallel over
+``model`` (``_torch_mp.tp_rounds``): the gathered params and losses equal
+JAX's one-device ``sequential`` round and the port's one-process one at
+the same tolerances, the two model ranks of a data slot compute
+bitwise-equal losses and replicated-leaf gradients at every local step,
+and each rank gathers exactly its model rank's compute elements (656,896
+of the smoke's 1,312,256), the bytes to the other ranks by the plan's cut
+of the layout. Then a burn-in and a FedPA round of the smoke
+qwen3-moe-30b-a3b (batch DP), its attention, experts and vocabulary split
+over ``model``: against JAX's one-device round (computed in the JAX
+child meanwhile) and the port's one process, the router's gradient bitwise
+equal on the model ranks. The fixture removes each rank file once read.
 
 Without a group: the sharded DP step over simulated shards against
 ``ref.dp_step_ref``, the glue against ``ref.dp_coeffs``, the mesh's data
@@ -73,10 +78,12 @@ state and of client rows by key path, and the whole-tree writers'
 refusal of a flat-layout state or store (``tests/test_torch_fsdp_codecs.py``
 holds the codecs and the checkpoints over simulated ranks).
 """
+import functools
 import json
 import math
 import multiprocessing as mp
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +92,7 @@ import pytest
 import torch
 
 import _torch_mp as mpt
+from test_torch_archs import _setup
 from test_torch_lm_train import (ARCH, F32, ROUND_KW, ROUND_TOKENS,
                                  STATEFUL_KW, JaxFedConfig, _fedlm_params,
                                  _jax_leaves, _jax_rounds,
@@ -217,11 +225,40 @@ def _inputs(engine: bool) -> dict:
     out = dict(round_kw=json.dumps(ROUND_KW), algo_kw=json.dumps(ALGO_KW),
                tokens0=ROUND_TOKENS[0], tokens1=ROUND_TOKENS[1],
                ckpt_algo=CKPT_ALGO)
+    trees["q"] = _moe_params()
     for prefix, tree in trees.items():
         out.update({f"{prefix}/{k}": v for k, v in _by_path(tree).items()})
     if engine:
         out.update(engine_kw=json.dumps(ENGINE_RUNS), engine_ids=ENGINE_IDS,
                    engine_tokens=ENGINE_TOKENS)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_params():
+    """Numpy params of the smoke qwen3-moe-30b-a3b in the JAX layout
+    (``test_torch_archs._setup``'s draw)."""
+    return _setup(mpt.MOE_ARCH)[2]
+
+
+def _jax_moe_rounds():
+    """The JAX package's one-device ``sequential`` burn-in and FedPA rounds
+    of the smoke qwen3-moe-30b-a3b (fp32 compute) from ``_moe_params``
+    with ``ROUND_TOKENS``: per round ``(params as (key path, array)
+    pairs, losses)``."""
+    fed = JaxFedConfig(**ROUND_KW)
+    opt = jax_get_optimizer(fed.server_opt, fed.server_lr,
+                            fed.server_momentum)
+    state = jax_init_server_state(
+        jax.tree_util.tree_map(jnp.asarray, _moe_params()), opt)
+    out = []
+    for use_sampling, toks in zip((False, True), ROUND_TOKENS):
+        fn = jax.jit(jax_make_fed_round(
+            jax_configs.get_smoke(mpt.MOE_ARCH), fed, placement="sequential",
+            compute_dtype=jnp.float32, q_chunk=8, use_sampling=use_sampling))
+        state, metrics = fn(state, {"tokens": jnp.asarray(toks)})
+        out.append((_jax_leaves(state.params),
+                    {k: float(v) for k, v in metrics.items()}))
     return out
 
 
@@ -247,22 +284,40 @@ def _jax_lowrank_round():
             {k: float(v) for k, v in metrics.items()})
 
 
-def _jax_lowrank_child(path: str) -> None:
-    """``_jax_lowrank_round`` in a spawned child: its params and residuals
-    by path (``params/``, ``states/``) and losses into ``path``."""
+def _jax_child(path: str, moe_path: str) -> None:
+    """In a spawned child: ``_jax_lowrank_round``'s params and residuals
+    by path (``params/``, ``states/``) and losses into ``path``, and
+    ``_jax_moe_rounds``' into ``moe_path`` (each round's key paths,
+    leaves and losses)."""
     jax.config.update("jax_enable_x64", False)
     params, states, metrics = _jax_lowrank_round()
     np.savez(path, **metrics, **{f"{prefix}/{mpt.path_key(k)}": v
                                  for prefix, pairs in (("params", params),
                                                        ("states", states))
                                  for k, v in pairs})
+    out = {}
+    for r, (pairs, metrics) in enumerate(_jax_moe_rounds()):
+        out[f"r{r}/paths"] = np.array([k for k, _ in pairs])
+        out.update({f"r{r}/leaf{i}": v for i, (_, v) in enumerate(pairs)})
+        out.update({f"r{r}/m/{k}": v for k, v in metrics.items()})
+    np.savez(moe_path, **out)
+
+
+def _moe_rounds_from(z) -> list:
+    """``_jax_child``'s MoE file back into ``_jax_moe_rounds``' form."""
+    return [([(k, z[f"r{r}/leaf{i}"]) for i, k in
+              enumerate(z[f"r{r}/paths"].tolist())],
+             {k.split("/")[-1]: float(z[k]) for k in z.files
+              if k.startswith(f"r{r}/m/")}) for r in (0, 1)]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """``{"jax": ..., "jax_state": {alg: ...}, "one": {dp: ...},
-    "one_algo": {alg: ...}, "one_engine": ..., mesh: {dp or alg or
-    "engine": [rank npz]}}``."""
+    """``{"jax": ..., "jax_state": {alg: ...}, "jax_moe": ..., "one": {dp:
+    ...}, "one_algo": {alg: ...}, "one_engine": ..., "one_moe": ..., mesh:
+    {dp or alg or "engine" or "moe": [rank npz]}}``. Each rank file is
+    removed once read; the 2 x 2 group's checkpoint and the rest of the
+    groups' directories when the module's tests are done."""
     groups = {}
     for name, shape in MESHES.items():
         out = str(tmp_path_factory.mktemp(f"fsdp_{name}"))
@@ -270,11 +325,13 @@ def runs(tmp_path_factory):
         groups[name] = (out, math.prod(shape),
                         mpt.start_group(mpt.fsdp_rank, math.prod(shape),
                                         (out, shape)))
-    # the JAX lowrank round (mostly XLA compiling) in a spawned child
+    # the JAX lowrank round and MoE rounds (mostly XLA compiling) in a
+    # spawned child
     lowrank = os.path.join(str(tmp_path_factory.mktemp("jax_lowrank")),
                            "round.npz")
-    child = mp.get_context("spawn").Process(target=_jax_lowrank_child,
-                                            args=(lowrank,))
+    moe = os.path.join(os.path.dirname(lowrank), "moe.npz")
+    child = mp.get_context("spawn").Process(target=_jax_child,
+                                            args=(lowrank, moe))
     child.start()
     found = {"jax": _jax_rounds("sequential"),
              "jax_state": {a: _jax_stateful_round(a)
@@ -288,19 +345,25 @@ def runs(tmp_path_factory):
                              for a, kw in ALGO_KW.items()}
         found["one_engine"] = {name: mpt.engine_run(kw, inputs)
                                for name, kw in ENGINE_RUNS.items()}
+        found["one_moe"] = mpt.tp_rounds(ROUND_KW, inputs, None,
+                                         mpt.MOE_ARCH, "q")
     finally:
         torch.set_num_threads(threads)
     mpt.join_group([child], JOIN_S)
-    found["jax_lowrank"] = dict(np.load(lowrank))
+    with np.load(lowrank) as z:
+        found["jax_lowrank"] = dict(z)
+    with np.load(moe) as z:
+        found["jax_moe"] = _moe_rounds_from(z)
+    shutil.rmtree(os.path.dirname(lowrank))
     for name, (out, world, procs) in groups.items():
         mpt.join_group(procs, JOIN_S)
-        cases = ([*DPS, *ALGO_KW] + [f"tp_{dp}" for dp in DPS]
+        cases = ([*DPS, *ALGO_KW] + [f"tp_{dp}" for dp in DPS] + ["moe"]
                  + (list(ENGINE_RUNS) if name == "1x2" else []))
-        found[name] = {case: [dict(np.load(os.path.join(
-            out, f"{case}.rank{r}.npz"))) for r in range(world)]
-            for case in cases}
+        found[name] = mpt.collect(out, cases, world)
         found[name]["ckpt"] = os.path.join(out, "ckpt")
-    return found
+    yield found
+    for out, _, _ in groups.values():
+        shutil.rmtree(out)
 
 
 @pytest.mark.parametrize("dp", DPS)
@@ -415,13 +478,16 @@ def test_fsdp_tp_equals_jax_and_one_process(runs, mesh, dp):
 def test_fsdp_tp_model_ranks_agree_bitwise(runs, mesh):
     """At every local step of both rounds, the model ranks of a data slot
     compute bitwise the same loss and the same gradients of the
-    replicated leaves (the embedding, the norms, ``q_scale`` and
-    ``k_scale``): the owners take model index 0's, which stand for all."""
+    replicated leaves (the norms, ``q_scale`` and ``k_scale``; with the
+    vocabulary split the loss is the vocabulary-parallel cross entropy's;
+    in the MoE rounds the router's too): the owners take model index 0's,
+    which stand for all. The MoE rounds' data slots compute the same
+    (every data rank takes the client's whole batch)."""
     C, K = ROUND_KW["clients_per_round"], ROUND_KW["local_steps"]
     D, M = MESHES[mesh]
-    for dp in DPS:
+    for case in [f"tp_{dp}" for dp in DPS] + ["moe"]:
         slots = {}
-        for got in runs[mesh][f"tp_{dp}"]:
+        for got in runs[mesh][case]:
             slots.setdefault(int(got["data_index"]), []).append(got)
         assert sorted(slots) == list(range(D))
         for ranks in slots.values():
@@ -432,16 +498,20 @@ def test_fsdp_tp_model_ranks_agree_bitwise(runs, mesh):
                 for g in ranks[1:]:
                     np.testing.assert_array_equal(g[key], ranks[0][key],
                                                   err_msg=key)
-        if D > 1:     # the data slots take different rows
-            assert not np.array_equal(slots[0][0]["loss_digest"],
-                                      slots[1][0]["loss_digest"])
+        if D > 1:
+            # the data slots take different rows, but each takes all of an
+            # MoE client's rows (its routing is over the whole batch)
+            same = np.array_equal(slots[0][0]["loss_digest"],
+                                  slots[1][0]["loss_digest"])
+            assert same == (case == "moe"), case
 
 
-def _tp_counts(W: int, M: int, split_only: bool = False):
+def _tp_counts(W: int, M: int, split_only: bool = False, arch=ARCH):
     """``counts[p, g]``: the elements of model rank g's compute set (of its
     split leaves only, with ``split_only``) in rank p's shard of the
-    smoke layout (``ceil(d / W)`` a rank), from the plan's runs."""
-    cfg = configs.get_smoke(ARCH)
+    smoke layout of ``arch`` (``ceil(d / W)`` a rank), from the plan's
+    runs."""
+    cfg = configs.get_smoke(arch)
     plan = TPPlan(cfg, init_params(None, cfg, device="meta"), M)
     d = sum(s.size for s in plan.leaves)
     n = -(-d // W)
@@ -457,15 +527,18 @@ def _tp_counts(W: int, M: int, split_only: bool = False):
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_fsdp_tp_exchanges_compute_elements(runs, mesh):
     """Per local step each rank receives exactly its model rank's compute
-    elements (the plan's ``R + T / M``: 722,432 of 1,312,256) in one
-    all-to-all and sends gradient elements back in another: as many from
-    model index 0, the split leaves' ``T / M`` (589,824) from model index
-    1; it sends the other ranks, in fp32, the elements of their compute
-    sets its shard holds (params), and the gradient of the elements they
-    hold that it returns (grads); 8 activation all-reduces per layer (the two blocks' outputs,
-    again in remat's replay, and in the backward the two blocks' inputs,
-    ``q_scale`` and ``k_scale``); the losses and the DP as without
-    tensor parallelism."""
+    elements (the plan's ``R + T / M``: 656,896 of 1,312,256, the
+    vocabulary's rows split) in one all-to-all and sends gradient elements
+    back in another: as many from model index 0, the split leaves' ``T /
+    M`` (655,360) from model index 1; it sends the other ranks, in fp32,
+    the elements of their compute sets its shard holds (params), and the
+    gradient of the elements they hold that it returns (grads); 8
+    activation all-reduces per layer (the two blocks' outputs, again in
+    remat's replay, and in the backward the two blocks' inputs,
+    ``q_scale`` and ``k_scale``) and 5 for the vocabulary (the
+    embedding's lookup, the cross entropy's max, its sum of exponentials
+    and its gold logit, and in the backward the unembedding's input); the
+    losses and the DP as without tensor parallelism."""
     D, M = MESHES[mesh]
     W = D * M
     C, K = ROUND_KW["clients_per_round"], ROUND_KW["local_steps"]
@@ -473,8 +546,8 @@ def test_fsdp_tp_exchanges_compute_elements(runs, mesh):
     plan, counts = _tp_counts(W, M)
     split = _tp_counts(W, M, split_only=True)[1]
     per = plan.rank_elements
-    assert per == 722_432 == counts[:, 0].sum() == counts[:, 1].sum()
-    assert plan.split_elements // M == 589_824 == split[:, 1].sum()
+    assert per == 656_896 == counts[:, 0].sum() == counts[:, 1].sum()
+    assert plan.split_elements // M == 655_360 == split[:, 1].sum()
     layers = configs.get_smoke(ARCH).num_layers
     for dp in DPS:
         for got in runs[mesh][f"tp_{dp}"]:
@@ -492,8 +565,70 @@ def test_fsdp_tp_exchanges_compute_elements(runs, mesh):
                 assert t["grad_elements"] == C * K * returned[:, g].sum()
                 assert t["params"] == C * K * sent * 4
                 assert t["grads"] == C * K * back * 4
-                assert t["activation_reduces"] == C * K * layers * 8
+                assert t["activation_reduces"] == C * K * (layers * 8 + 5)
                 assert t["small_reduces"] == C * K + dp_steps
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_fsdp_moe_equals_jax_and_one_process(runs, mesh):
+    """The smoke qwen3-moe-30b-a3b's burn-in and FedPA rounds tensor-,
+    vocabulary- and expert-parallel over "model" (default rules and
+    remat): the gathered params and the losses after each round against
+    JAX's one-device ``sequential`` round and the port's one-process one,
+    at ``test_fsdp_2x2_equals_jax_and_one_process``' tolerances; the
+    ranks' gathered params bit for bit alike."""
+    got_runs, one = runs[mesh]["moe"], runs["one_moe"]
+    for r, ((jax_params, jax_metrics), atol) in enumerate(zip(
+            runs["jax_moe"], ATOLS)):
+        for got in got_runs:
+            for k, v in jax_metrics.items():
+                np.testing.assert_allclose(got[f"r{r}/{k}"], v, rtol=1e-5)
+                np.testing.assert_allclose(got[f"r{r}/{k}"],
+                                           one[f"r{r}/{k}"], rtol=1e-5)
+            for path, want in jax_params:
+                np.testing.assert_allclose(got[f"r{r}/{path}"], want,
+                                           rtol=1e-5, atol=atol,
+                                           err_msg=path)
+                np.testing.assert_allclose(got[f"r{r}/{path}"],
+                                           one[f"r{r}/{path}"], rtol=1e-5,
+                                           atol=atol, err_msg=path)
+                np.testing.assert_array_equal(got[f"r{r}/{path}"],
+                                              got_runs[0][f"r{r}/{path}"])
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_fsdp_moe_exchanges_compute_elements(runs, mesh):
+    """The MoE rounds' exchanges: each rank receives its model rank's
+    compute elements a local step (1,052,160 of the smoke qwen3-moe's
+    2,100,736: the attention heads, the experts and the vocabulary's rows
+    split, the router, the norms and ``q_scale`` / ``k_scale`` whole) and
+    returns as many from model index 0, ``T / M`` (1,048,576) from model
+    index 1; 9 activation all-reduces per layer (attention's 5 as in the
+    dense rounds; the MoE's output, again in the replay, and in the
+    backward its input and its one chunk's gate values) and the
+    vocabulary's 5."""
+    D, M = MESHES[mesh]
+    W = D * M
+    C, K = ROUND_KW["clients_per_round"], ROUND_KW["local_steps"]
+    plan, counts = _tp_counts(W, M, arch=mpt.MOE_ARCH)
+    split = _tp_counts(W, M, split_only=True, arch=mpt.MOE_ARCH)[1]
+    per = plan.rank_elements
+    assert (plan.attn, plan.ffn, plan.vocab, plan.experts, plan.shared) == (
+        True, False, True, True, False)
+    assert per == 1_052_160 == counts[:, 0].sum() == counts[:, 1].sum()
+    assert plan.split_elements // M == 1_048_576 == split[:, 1].sum()
+    layers = configs.get_smoke(mpt.MOE_ARCH).num_layers
+    for got in runs[mesh]["moe"]:
+        assert int(got["rank_elements"]) == per
+        g = int(got["model_index"])
+        returned = counts if g == 0 else split
+        for r in (0, 1):
+            t = {k.split("/")[-1]: got[k] for k in got
+                 if k.startswith(f"r{r}/traffic/")}
+            assert t["param_gathers"] == t["grad_reduces"] == C * K
+            assert t["param_elements"] == C * K * per
+            assert t["grad_elements"] == C * K * returned[:, g].sum()
+            assert t["activation_reduces"] == C * K * (layers * 9 + 5)
 
 
 @pytest.mark.parametrize("W", [1, 3, 4])
@@ -1017,6 +1152,29 @@ def test_fsdp_refuses_rows_that_do_not_divide():
     tokens = np.zeros((2, 8, 3, 17), np.int32)
     with pytest.raises(ValueError, match="do not split evenly"):
         fn(state, {"tokens": tokens})
+
+
+@pytest.mark.parametrize("arch", [ARCH, mpt.MOE_ARCH,
+                                  "llama4-scout-17b-a16e"])
+def test_fsdp_layout_splits_rows_but_an_moe_clients(arch):
+    """A data rank of a 2 x 2 mesh takes its half of a dense arch's
+    client rows; an MoE arch's rows stay whole on every data rank (its
+    router's capacity drops and aux loss are over the client's whole
+    batch, as the reference's), and then a row count the data extent does
+    not divide is no error."""
+    cfg = configs.get_smoke(arch)
+    tokens = np.arange(2 * 8 * 4 * 17).reshape(2, 8, 4, 17)
+    for rank in range(4):
+        mesh = ProcessMesh(("data", "model"), (2, 2), rank,
+                           torch.device("cpu"))
+        layout = sharded_round.fsdp_layout(cfg, mesh, mpt.NO_TP)
+        got = layout.local_rows({"tokens": tokens})["tokens"]
+        if cfg.moe.enabled:
+            assert not layout.split_rows and got is tokens
+            assert layout.local_rows(tokens[:, :, :3]).shape[2] == 3
+        else:
+            i = rank // 2
+            np.testing.assert_array_equal(got, tokens[:, :, 2 * i:2 * i + 2])
 
 
 def _meshes(W: int):

@@ -19,6 +19,7 @@ at which the test kills it.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -77,12 +78,14 @@ def _launch(algorithm, rounds, two, one):
 @pytest.fixture(scope="module", params=["scaffold", "fedep"])
 def runs(request, tmp_path_factory):
     """The two runs to round 2, then on to round 3 from their
-    checkpoints."""
+    checkpoints; the checkpoints removed when the module's tests are
+    done."""
     base = tmp_path_factory.mktemp(request.param)
     two, one = str(base / "two"), str(base / "one")
     first = _launch(request.param, 2, two, one)
     resumed = _launch(request.param, 3, two, one)
-    return {"two": two, "one": one, "first": first, "resumed": resumed}
+    yield {"two": two, "one": one, "first": first, "resumed": resumed}
+    shutil.rmtree(base)
 
 
 def _server_equal(a_dir, b_dir, step):
@@ -185,11 +188,12 @@ def _tp_launch(rounds, two, one):
 def tp_runs(tmp_path_factory):
     """A FedAvg burn-in round and a FedPA round on a 1 x 2 ``("data",
     "model")`` mesh and in one process, then a third round from their
-    checkpoints."""
+    checkpoints (removed when the module's tests are done)."""
     base = tmp_path_factory.mktemp("model_parallel")
     two, one = str(base / "two"), str(base / "one")
-    return {"two": two, "one": one, "first": _tp_launch(2, two, one),
-            "resumed": _tp_launch(3, two, one)}
+    yield {"two": two, "one": one, "first": _tp_launch(2, two, one),
+           "resumed": _tp_launch(3, two, one)}
+    shutil.rmtree(base)
 
 
 def _records(out):

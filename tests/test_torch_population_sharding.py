@@ -19,6 +19,7 @@
   dropouts and q-FFL, against the one-process run.
 * Each rank's store holds exactly ``R = padded / W`` rows.
 """
+import shutil
 import tempfile
 
 import jax
@@ -81,9 +82,14 @@ def test_population_layout_matches_jax(n):
 
 
 def _group(cases, world):
+    """Each rank's files of ``cases`` (``{i: [rank npz as a dict]}``),
+    read into memory and removed with their directory."""
     out = tempfile.mkdtemp(prefix="torch_sharding_")
-    mpt.run_group(mpt.rank_cases, world, (out, cases))
-    return out
+    try:
+        mpt.run_group(mpt.rank_cases, world, (out, cases))
+        return mpt.collect(out, range(len(cases)), world)
+    finally:
+        shutil.rmtree(out)
 
 
 @pytest.fixture(scope="module")
@@ -98,8 +104,9 @@ def extra_dir():
     return _group(EXTRA, 2)
 
 
-def _ranks(out, i, world):
-    return [dict(np.load(f"{out}/{i}.rank{r}.npz")) for r in range(world)]
+def _ranks(found, i, world):
+    assert len(found[i]) == world
+    return found[i]
 
 
 def _check_against_one_process(kw, ranks):

@@ -23,6 +23,7 @@ import dataclasses
 import functools
 import json
 import math
+import shutil
 import sys
 
 import jax
@@ -134,6 +135,7 @@ def test_stateful_flags_run_and_resume(flags, phase, tmp_path, capsys):
     capsys.readouterr()
     resumed = train.main(argv + ["--rounds", "3"])
     assert "restored checkpoint at round 2" in capsys.readouterr().out
+    shutil.rmtree(ckpt)       # the checkpoints are large; all is read
     recs = first["records"] + resumed["records"]
     assert [set(r) for r in recs] == [JAX_RECORD_KEYS] * 3
     assert [r["round"] for r in recs] == [0, 1, 2]
